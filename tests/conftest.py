@@ -38,3 +38,8 @@ def run_multidevice(code: str, n_devices: int = 8, timeout: int = 600) -> str:
 def rng():
     import numpy as np
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where there is none")
