@@ -21,7 +21,20 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      launched;
   5. flips one bit of one chunk's first landing in a short transfer: the
      deferred verifier must catch it and exactly one re-fetch heal it;
-  6. prints ``{"kernels": [...]}`` and, as the last line,
+  6. the fused matmul + digest at mistral-nemo-12b's width (d_model 5120,
+     d_ff 14336): the up-projection weight A (14336, 5120) bf16 times 4096
+     tokens of activations B (5120, 4096) bf16. The kernel's residues must
+     equal its plain version's, the checksum kernel's digest of
+     ``blocked_view(A)`` and the host digest; C must lie within
+     K * 2^-24 * (|A| @ |B|) of the float64 product. Times kernel, plain
+     version, the library product and the separate digest pass, then drives
+     the public ``matmul_with_digest`` with the launch counts at 0;
+  7. saves one full-width decoder block of mistral-nemo-12b (bf16, 545 MB,
+     the JAX model's keys and shapes) with the port's ``CheckpointManager``
+     and restores it to the card with the counts at 0: every leaf
+     bit-equal, its digest on the card equal to its MANIFEST digest, and one
+     flipped bit reported by leaf and chunk;
+  8. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -44,6 +57,13 @@ GiB = 1024 * MiB
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 INT32_LANES_PER_SM = 64          # Hopper: INT32 multiply-adds per SM per clock
 MADDS_PER_WORD = 16              # 4 byte planes x 4 bases
+BF16_FLOP_PER_SM = 4096          # dense bf16 tensor-core FLOP per SM per clock:
+#                                  989.4 TFLOP/s at 132 SMs x 1830 MHz (data sheet)
+MADDS_PER_ELEMENT = 8            # matmul digest: 2 bytes x 4 bases per A element
+
+# mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py:10)
+D_MODEL, D_FF, N_HEADS, N_KV_HEADS, HEAD_DIM = 5120, 14336, 32, 8, 128
+TOKENS = 4096                    # activations through the up-projection
 
 MANY_SHAPE = (64, 2 * MiB)       # drain batch: 64 rows x 8 MiB, in int32 words
 API_BYTES = 1 * GiB              # checksum_words / checksum_copy_words input
@@ -52,11 +72,17 @@ TRANSFER_BYTES = 4 * GiB
 CHUNK_BYTES = 8 * MiB            # = the engine's fuse_max_bytes
 FLIP_BYTES = 64 * MiB
 
-SOURCE = "src/repro_torch/kernels/csrc/checksum.cu"
+SOURCES = {
+    "checksum_words": "src/repro_torch/kernels/csrc/checksum.cu",
+    "checksum_many_words": "src/repro_torch/kernels/csrc/checksum.cu",
+    "checksum_copy_words": "src/repro_torch/kernels/csrc/checksum.cu",
+    "matmul_digest": "src/repro_torch/kernels/csrc/matmul_digest.cu",
+}
 REPLACES = {
     "checksum_words": "src/repro/kernels/checksum.py:112",
     "checksum_many_words": "src/repro/kernels/checksum.py:150",
     "checksum_copy_words": "src/repro/kernels/checksum.py:188",
+    "matmul_digest": "src/repro/kernels/matmul_digest.py:99",
 }
 
 
@@ -250,6 +276,175 @@ def flipped_landing(seed: int, device) -> dict:
             "detail": rep.quarantined[0].detail}
 
 
+def matmul_bound(card: dict, M: int, K: int, N: int) -> dict:
+    """Least time for C = A @ B + digest of A: the product over the bf16
+    tensor-core rate, A + B + C over HBM, the digest's multiply-adds over the
+    INT32 rate; the largest binds."""
+    clock = card["sms"] * card["clock_hz"]
+    ops_ms = 2 * M * N * K / (BF16_FLOP_PER_SM * clock) * 1e3
+    bytes_ms = (2 * M * K + 2 * K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
+    digest_ms = MADDS_PER_ELEMENT * M * K / (INT32_LANES_PER_SM * clock) * 1e3
+    bound_ms = max(ops_ms, bytes_ms, digest_ms)
+    return {"bound_ms": bound_ms, "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms, "bound_digest_ms": digest_ms}
+
+
+def library_matmul(a: torch.Tensor, b: torch.Tensor):
+    """One PyTorch call for the same product (cuBLAS): bf16 in, f32 out where
+    this torch takes ``out_dtype``, else bf16 out. Returns (name, call)."""
+    try:
+        torch.mm(a[:128, :128], b[:128, :128], out_dtype=torch.float32)
+        return "torch.mm(a, b, out_dtype=torch.float32)", \
+            lambda: torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return "torch.matmul(a, b) in bf16", lambda: torch.matmul(a, b)
+
+
+def matmul_inputs(seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The up-projection of mistral-nemo-12b: nn.Linear's (out, in) weight
+    A (d_ff, d_model) and TOKENS activations transposed, B (d_model, TOKENS)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+    a = (torch.randn(D_FF, D_MODEL, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    b = torch.randn(D_MODEL, TOKENS, generator=gen, device=device).to(torch.bfloat16)
+    return a, b
+
+
+def matmul_check(card: dict, a: torch.Tensor, b: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """Phase 6: the fused matmul + digest kernel against its plain version.
+    Returns its row of the kernels line and its residues."""
+    from repro_torch.core.integrity import fingerprint_bytes
+    from repro_torch.kernels import fingerprint_array, ref
+    from repro_torch.kernels import matmul_digest as mm
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the plain f32 product in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    (M, K), N = a.shape, b.shape[1]
+    c, dig = mm.matmul_digest(a, b)
+    pc, pdig = ref.matmul_digest_ref(a, b)
+    check(torch.equal(dig, pdig), "matmul_digest residues equal its plain version's")
+    blocked = ref.blocked_view(a, 128, 128)
+    check(torch.equal(fingerprint_array(blocked), dig),
+          "matmul_digest residues equal checksum_words' digest of blocked_view(A)")
+    host = fingerprint_bytes(blocked.view(torch.uint8).cpu().numpy())
+    check(tuple(dig.cpu().tolist()) == host.h,
+          "matmul_digest residues equal the host digest of A's blocked bytes")
+    del blocked
+    a64, b64 = a.double(), b.double()
+    c64 = a64 @ b64
+    tol = K * 2.0 ** -24 * (a64.abs() @ b64.abs())
+    del a64, b64
+    err = (c.double() - c64).abs()
+    perr = (pc.double() - c64).abs()
+    check(bool((err <= tol).all()), "C within K*2^-24*(|A|@|B|) of the float64 product")
+    check(bool((perr <= tol).all()), "plain C within K*2^-24*(|A|@|B|) of the float64 product")
+    out = {"shape": [M, K, N], "max_abs_err": float((c - pc).abs().max()),
+           "max_abs_err_f64": float(err.max()),
+           "max_rel_err_f64": float(err.max() / c64.abs().max()),
+           "max_share_of_tolerance": float((err / tol.clamp_min(1e-300)).max())}
+    del c64, tol, err, perr, pc, c
+    lib_name, lib_call = library_matmul(a, b)
+    out.update(
+        ms=cuda_ms(lambda: mm.matmul_digest(a, b), iters=20),
+        plain_ms=cuda_ms(lambda: ref.matmul_digest_ref(a, b), 2, 1),
+        library_ms=cuda_ms(lib_call, iters=20), library_call=lib_name,
+        separate_digest_ms=cuda_ms(lambda: fingerprint_array(ref.blocked_view(a, 128, 128)),
+                                   iters=20),
+        separate_digest_row_major_ms=cuda_ms(lambda: fingerprint_array(a), iters=20),
+        **matmul_bound(card, M, K, N))
+    return out, dig
+
+
+def matmul_path(a: torch.Tensor, b: torch.Tensor, dig: torch.Tensor) -> dict:
+    """Main path, part 3: the public fused consume-and-verify product."""
+    from repro_torch.kernels import matmul_with_digest
+
+    t0 = time.perf_counter()
+    c, got = matmul_with_digest(a, b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(torch.equal(got, dig), "matmul_with_digest residues equal the kernel check's")
+    check(c.shape == (a.shape[0], b.shape[1]) and bool(torch.isfinite(c).all()),
+          "matmul_with_digest C is finite and (M, N)")
+    return {"shape": [a.shape[0], a.shape[1], b.shape[1]], "seconds": seconds,
+            "residues": got.cpu().tolist()}
+
+
+def decoder_block(seed: int, device) -> dict:
+    """One mistral-nemo-12b decoder block as a state dict, bf16: the JAX
+    model's keys and shapes with one block (models/transformer.py:42-51)."""
+    D, F, H, KVH, hd = D_MODEL, D_FF, N_HEADS, N_KV_HEADS, HEAD_DIM
+    shapes = {"ln1": (1, D), "ln2": (1, D), "wq": (1, D, H, hd), "wk": (1, D, KVH, hd),
+              "wv": (1, D, KVH, hd), "wo": (1, H, hd, D), "wi": (1, D, F), "wg": (1, D, F),
+              "wmo": (1, F, D)}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 6)
+    return {"blocks": {"0": {k: (torch.randn(s, generator=gen, device=device) * 0.02)
+                             .to(torch.bfloat16) for k, s in shapes.items()}}}
+
+
+def checkpoint_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 4, and its checks: save a decoder block from the card,
+    restore it to the card, compare; then flip one bit in one leaf file."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager, CorruptionError
+    from repro_torch.core.integrity import Digest
+    from repro_torch.kernels import digest_of
+
+    state = decoder_block(seed, device)
+    leaves = {f"blocks/0/{k}": t for k, t in state["blocks"]["0"].items()}
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        mgr = CheckpointManager(root, device=device)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        rep = mgr.save(1, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, step = mgr.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        launches = counts()
+        check(step == 1 and rep.total_bytes == nbytes and rep.n_leaves == len(leaves),
+              "checkpoint saved every leaf")
+        with open(os.path.join(rep.path, "MANIFEST.json")) as fh:
+            manifest = json.load(fh)
+        for key, t in leaves.items():
+            r = got["blocks"]["0"][key.rsplit("/", 1)[1]]
+            check(r.device == t.device and r.dtype == t.dtype
+                  and torch.equal(r.view(torch.int16), t.view(torch.int16)),
+                  f"{key} restored bit-equal on the card")
+            want = Digest.from_bytes(bytes.fromhex(manifest["leaves"][key]["digest"]))
+            check(digest_of(r) == want, f"{key}: digest on the card equals its MANIFEST digest")
+        del got
+        entry = manifest["leaves"]["blocks/0/wi"]
+        chunk = entry["chunks"][2]
+        with open(os.path.join(rep.path, entry["file"]), "r+b") as fh:
+            fh.seek(chunk["offset"] + 12345)
+            byte = fh.read(1)
+            fh.seek(chunk["offset"] + 12345)
+            fh.write(bytes([byte[0] ^ 0x10]))
+        try:
+            mgr.restore()
+        except CorruptionError as e:
+            caught = (e.leaf, e.bad_chunks)
+        else:
+            caught = None
+        check(caught == ("blocks/0/wi", [chunk["index"]]),
+              f"the flipped bit is reported by leaf and chunk, got {caught}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"bytes": nbytes, "leaves": len(leaves),
+            "chunks": sum(len(e["chunks"]) for e in manifest["leaves"].values()),
+            "save_s": save_s, "save_GBps": nbytes / save_s / 1e9,
+            "restore_s": restore_s, "restore_GBps": nbytes / restore_s / 1e9,
+            "flipped": {"leaf": caught[0], "bad_chunks": caught[1]}, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -267,6 +462,14 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
     from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import matmul_digest as mm
+
+    def reset() -> None:
+        ck.reset_launch_counts()
+        mm.reset_launch_counts()
+
+    def counts() -> dict:
+        return {**ck.launch_counts(), **mm.launch_counts()}
 
     t_all = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -295,32 +498,64 @@ def main() -> int:
               + (f", copy_ {r['copy_ms']:.4f} ms" if "copy_ms" in r else ""))
 
     torch.cuda.synchronize()
-    ck.reset_launch_counts()
+    reset()
     api = digest_api(args.seed, device, API_BYTES)
     xfer = transfer(args.seed, device, TRANSFER_BYTES)
     torch.cuda.synchronize()
-    launches = ck.launch_counts()
+    launches = counts()
     print("digest_api " + json.dumps(api))
     print("transfer " + json.dumps(xfer))
-    print("launches " + json.dumps(launches))
+    print("launches transfer path " + json.dumps(launches))
     for r in rows:
         check(launches[r["name"]] > 0, f"{r['name']} launched on the main path")
 
     flip = flipped_landing(args.seed, device)
     print("flipped_landing " + json.dumps(flip))
 
+    a, b = matmul_inputs(args.seed, device)
+    mmr, dig = matmul_check(card, a, b)
+    print(f"kernel matmul_digest {mmr['shape']}: residues exact, C within K*2^-24*(|A|@|B|) "
+          f"of float64 (max abs err {mmr['max_abs_err_f64']:.3e}, max rel err "
+          f"{mmr['max_rel_err_f64']:.3e}, {100 * mmr['max_share_of_tolerance']:.2f}% of the "
+          f"tolerance; vs plain {mmr['max_abs_err']:.3e}), {mmr['ms']:.4f} ms (bound "
+          f"{mmr['bound_ms']:.4f} ms by {mmr['bound_by']}, "
+          f"{100 * mmr['bound_ms'] / mmr['ms']:.1f}% of bound), plain {mmr['plain_ms']:.2f} ms, "
+          f"library {mmr['library_ms']:.4f} ms ({mmr['library_call']}), separate digest "
+          f"{mmr['separate_digest_ms']:.4f} ms")
+    torch.cuda.synchronize()
+    reset()
+    mpath = matmul_path(a, b, dig)
+    mpath["launches"] = counts()
+    del a, b, dig
+    print("matmul_path " + json.dumps(mpath))
+    check(mpath["launches"]["matmul_digest"] > 0, "matmul_digest launched on its path")
+
+    ckpt = checkpoint_path(args.seed, device, reset, counts)
+    print("checkpoint " + json.dumps(ckpt))
+    check(ckpt["launches"]["checksum_words"] > 0,
+          "the checkpoint digested its leaves on the card")
+    # each kernel's launches over the three main-path runs
+    launches = {k: launches[k] + mpath["launches"][k] + ckpt["launches"][k] for k in launches}
+    print("launches all paths " + json.dumps(launches))
+
     kernels = []
-    for r in rows:
-        entry = {"name": r["name"], "route": "cuda", "source": SOURCE,
+    for r in rows + [{"name": "matmul_digest", "exact": True, **mmr}]:
+        entry = {"name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
                  "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
                  "max_abs_err": r["max_abs_err"], "tolerance": 0, "exact": r["exact"],
                  "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "bound_bytes_ms": r["bound_bytes_ms"],
-                 "bound_ops_ms": r["bound_ops_ms"], "library_ms": None,
+                 "bound_ops_ms": r["bound_ops_ms"], "library_ms": r.get("library_ms"),
                  "shape": r["shape"]}
-        if "copy_ms" in r:
-            entry["copy_ms"] = r["copy_ms"]
+        for extra in ("copy_ms", "bound_digest_ms", "library_call", "separate_digest_ms",
+                      "separate_digest_row_major_ms", "max_abs_err_f64", "max_rel_err_f64",
+                      "max_share_of_tolerance"):
+            if extra in r:
+                entry[extra] = r[extra]
+        if r["name"] == "matmul_digest":
+            entry["tolerance"] = ("C: |C - C64| <= K*2^-24*(|A|@|B|) elementwise, for the "
+                                  "kernel and the plain version; residues: exact")
         kernels.append(entry)
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

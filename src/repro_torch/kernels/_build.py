@@ -1,11 +1,13 @@
 """Build and bind the hand-written CUDA kernels (nvcc + ctypes).
 
-``csrc/checksum.cu`` has a plain ``extern "C"`` interface, so it compiles
-with ``nvcc`` alone into a shared library in seconds and loads with
-``ctypes`` — no PyTorch headers, no extension build. The library is built
-at first use from the sources in this checkout into ``build/repro_torch/``
-at the checkout's root (git-ignored); its file name carries a hash of the
-source and the flags, so an edited source never loads a stale build.
+Every source in ``csrc/`` has a plain ``extern "C"`` interface, so each
+compiles with ``nvcc`` alone in seconds and the objects link into one shared
+library that loads with ``ctypes`` — no PyTorch headers, no extension build.
+The sources compile in parallel (one ``nvcc`` process each, all started
+together), then one ``nvcc`` links them. The library is built at first use
+from the sources in this checkout into ``build/repro_torch/`` at the
+checkout's root (git-ignored); its file name carries a hash of every source
+and the flags, so an edited source never loads a stale build.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -22,12 +24,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "checksum.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -50,30 +50,53 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def sources() -> list[Path]:
+    """The ``.cu`` files that make up the library, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libchecksum-{key.hexdigest()[:12]}.so"
+    """Where the library of these exact sources (and headers) and flags lives."""
+    key = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        key.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"libkernels-{key.hexdigest()[:12]}.so"
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side, wait for all, raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc={p.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    return "\n".join((out + err).strip() for out, err in outs)
 
 
 def build() -> Path:
-    """Compile ``checksum.cu`` unless this exact source is already built."""
+    """Compile and link ``csrc/*.cu`` unless these exact sources are built."""
     out = library_path()
     if out.exists():
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    tmp = out.with_name(f"{out.name}.{tag}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)                  # atomic: concurrent builders agree
-    BUILD_INFO.update(path=str(out), seconds=seconds, cached=False,
-                      log=(proc.stdout + proc.stderr).strip())
+    try:
+        log = _run([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources(), objs)])
+        log += "\n" + _run([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)              # atomic: concurrent builders agree
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                      log=log.strip())
     return out
 
 
@@ -84,19 +107,30 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.ck_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.ck_layout.restype = ctypes.c_int
-        lib.ck_checksum.argtypes = [ctypes.c_int, vp, ll, ll, vp, vp, vp, vp, vp, vp, vp]
-        lib.ck_checksum.restype = ctypes.c_int
-        lib.ck_error_string.argtypes = [ctypes.c_int]
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.ck_layout.argtypes = [ctypes.POINTER(ci)]
+        lib.ck_layout.restype = ci
+        lib.ck_checksum.argtypes = [ci, vp, ll, ll, vp, vp, vp, vp, vp, vp, vp]
+        lib.ck_checksum.restype = ci
+        lib.ck_error_string.argtypes = [ci]
         lib.ck_error_string.restype = ctypes.c_char_p
+        lib.mm_layout.argtypes = [ctypes.POINTER(ci)]
+        lib.mm_layout.restype = ci
+        lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, ll, ll, ll, vp, vp, vp, vp, vp]
+        lib.mm_digest.restype = ci
         _lib = lib
         return lib
 
 
 def layout(lib: ctypes.CDLL) -> tuple[int, int, int]:
-    """(tile words, threads per tile block, factors per base) of the build."""
+    """(tile words, threads per tile block, factors per base) of the digest build."""
     buf = (ctypes.c_int * 3)()
     lib.ck_layout(buf)
     return int(buf[0]), int(buf[1]), int(buf[2])
+
+
+def mm_layout(lib: ctypes.CDLL) -> tuple[int, int, int, int]:
+    """(C tile rows, C tile columns, K slab, threads) of the matmul build."""
+    buf = (ctypes.c_int * 4)()
+    lib.mm_layout(buf)
+    return tuple(int(v) for v in buf)

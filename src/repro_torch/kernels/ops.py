@@ -4,6 +4,7 @@ Entry points (twins of ``repro.kernels.ops``):
   fingerprint_array(x)        -> (NBASES,) int32 residues of x's byte image
   fingerprint_and_copy(x)     -> (residues, copy) — single-pass mover kernel
   digest_of(x)                -> core.integrity.Digest (host convenience)
+  matmul_with_digest(a, b)    -> (a @ b, residues of a) — fused consume+verify
 
 Packing: any tensor is flattened to its little-endian byte image, zero-padded
 to whole int32 words and then to the kernel tile, and the padding is divided
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core.integrity import BASES, NBASES, P, Digest
 from repro_torch.kernels import checksum as _ck
+from repro_torch.kernels import matmul_digest as _mm
 
 
 def _pow_mod(base: int, exp: int) -> int:
@@ -77,3 +79,17 @@ def digest_of(x: torch.Tensor) -> Digest:
     """Host-side Digest of a tensor (residues via the digest kernel)."""
     res = fingerprint_array(x).cpu().tolist()
     return Digest(tuple(int(v) for v in res), int(x.numel() * x.element_size()))
+
+
+def matmul_with_digest(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
+                       bk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused C = A @ B and digest of A (blocked order — see ``ref.blocked_view``).
+
+    A is bfloat16. A B of another type than bfloat16 or float32 is cast to
+    float32 first, as the reference casts it (``b.astype(f32)``).
+    """
+    if isinstance(b, torch.Tensor) and b.dtype not in (torch.bfloat16, torch.float32):
+        b = b.float()
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        a, b = a.contiguous(), b.contiguous()
+    return _mm.matmul_digest(a, b, bm=bm, bn=bn, bk=bk)

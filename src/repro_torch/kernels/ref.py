@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the integrity kernels.
 
-Each function computes what a CUDA kernel in ``csrc/checksum.cu`` computes,
+Each function computes what a CUDA kernel in ``csrc/`` computes,
 with ordinary tensor operations in int64, on whatever device its inputs lie
 on. The CPU tests use them, the kernel wrappers use them for CPU tensors
 only, and ``chip_smoke.py`` holds each kernel against them on the card.
@@ -139,3 +139,22 @@ def to_byte_stream(x: torch.Tensor) -> tuple[torch.Tensor, int]:
 def fingerprint_array_ref(x: torch.Tensor) -> torch.Tensor:
     """Digest residues (NBASES,) int32 of a tensor's byte image."""
     return fingerprint_bytes_ref(to_byte_stream(x)[0])
+
+
+def blocked_view(a: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
+    """Rearrange (M, K) into tile-major order: (M/bm, K/bk, bm, bk) flattened.
+
+    The fused matmul + digest kernel's digest is defined over this blocked
+    byte order (tile (i, k) at index i * K/bk + k), whatever tiles the
+    kernel itself uses.
+    """
+    M, K = a.shape
+    if M % bm or K % bk:
+        raise ValueError(f"shape {tuple(a.shape)} is not divisible by ({bm}, {bk})")
+    return a.reshape(M // bm, bm, K // bk, bk).permute(0, 2, 1, 3).reshape(-1)
+
+
+def matmul_digest_ref(a: torch.Tensor, b: torch.Tensor, bm: int = 128, bk: int = 128):
+    """Plain version of the fused kernel: (a @ b in float32, residues of blocked a)."""
+    out = a.float() @ b.float()
+    return out, fingerprint_array_ref(blocked_view(a, bm, bk))

@@ -10,6 +10,8 @@ marked ``gpu`` hold them against their plain versions there
 JAX is imported inside the tests that compare with it, so the card's machine,
 which has no JAX, can collect this file.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -204,6 +206,24 @@ def test_wrappers_refuse_what_the_kernel_cannot_take(bad, err):
         tck.checksum_words(bad)
     with pytest.raises(err):
         tck.checksum_copy_words(bad)
+
+
+@pytest.mark.parametrize("change", ["checksum.cu", "matmul_digest.cu", "new.cuh", "flags"])
+def test_library_name_hashes_every_source_and_the_flags(tmp_path, monkeypatch, change):
+    from repro_torch.kernels import _build
+    for src in _build.CSRC.glob("*.cu"):
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources()] == ["checksum.cu", "matmul_digest.cu"]
+    before = _build.library_path()
+    assert _build.library_path() == before
+    if change == "flags":
+        monkeypatch.setattr(_build, "COMPILE_FLAGS", _build.COMPILE_FLAGS + ("-lineinfo",))
+    else:
+        with open(tmp_path / change, "a") as fh:
+            fh.write("// edited\n")
+    assert _build.library_path() != before
+    assert _build.library_path().parent == _build.BUILD_DIR
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():

@@ -1,0 +1,251 @@
+"""The port's fused matmul + digest against the JAX package's Pallas kernel.
+
+Same seeded numpy inputs through ``repro.kernels.matmul_with_digest``
+(Pallas, interpret mode on the CPU, as ``tests/test_kernels.py`` runs it) and
+``repro_torch.kernels.matmul_with_digest`` (on the CPU: the plain PyTorch
+version). Residues must be equal exactly, and equal to the host digest of A's
+blocked bytes. C must lie within K * 2^-24 * (|A| @ |B|) of the float64
+product: the worst case of a float32 sum of K exact products in any order.
+The CUDA kernel's digest arithmetic is emulated step for step in numpy; the
+kernel itself runs only on a card (tests marked ``gpu``). JAX and
+``ml_dtypes`` are imported inside the tests that compare with them, so the
+card's machine, which has neither, can collect this file.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.integrity import fingerprint_bytes
+from repro_torch import kernels as tk
+from repro_torch.kernels import matmul_digest as tmm
+from repro_torch.kernels import ref as tref
+
+P = 46337
+
+# (M, K, N, bm, bk, bn): the reference's three test shapes, then non-default tiles
+CASES = [
+    (128, 128, 128, 128, 128, 128),
+    (256, 384, 128, 128, 128, 128),
+    (128, 512, 256, 128, 128, 128),
+    (192, 96, 128, 64, 32, 64),
+]
+
+
+def _jax():
+    import jax.numpy as jnp
+    import ml_dtypes
+    from repro import kernels as jk
+    from repro.kernels import matmul_digest as jmm
+    return jnp, ml_dtypes, jk, jmm
+
+
+def make(shape, seed, dtype=torch.bfloat16) -> torch.Tensor:
+    """Seeded CPU tensor from numpy normals (bf16 rounded from float32)."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dtype)
+
+
+def to_numpy(t: torch.Tensor):
+    """The same values as a numpy array for JAX (bf16 through its int16 bits)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def blocked_bytes(a: torch.Tensor, bm: int, bk: int) -> np.ndarray:
+    M, K = a.shape
+    u = a.view(torch.int16).numpy().reshape(M // bm, bm, K // bk, bk)
+    return np.ascontiguousarray(u.transpose(0, 2, 1, 3)).reshape(-1).view(np.uint8)
+
+
+def residues(r) -> tuple:
+    return tuple(int(v) for v in np.asarray(r).reshape(-1))
+
+
+def assert_within_f32_bound(c, a: torch.Tensor, b: torch.Tensor) -> None:
+    """|C - C64| <= K * 2^-24 * (|A| @ |B|) elementwise."""
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    bound = a64.shape[1] * 2.0 ** -24 * (np.abs(a64) @ np.abs(b64))
+    err = np.abs(np.asarray(c, dtype=np.float64) - a64 @ b64)
+    assert np.all(err <= bound), float((err - bound).max())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+# ---------------------------------------------------------------------------
+# port == JAX kernel == host oracle
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", CASES)
+def test_matmul_with_digest_matches_jax(m, k, n, bm, bk, bn):
+    jnp, _, jk, _ = _jax()
+    a, b = make((m, k), seed=m + k), make((k, n), seed=k + n + 1)
+    c, dig = tk.matmul_with_digest(a, b, bm=bm, bn=bn, bk=bk)
+    jc, jdig = jk.matmul_with_digest(jnp.asarray(to_numpy(a)), jnp.asarray(to_numpy(b)),
+                                     bm=bm, bn=bn, bk=bk)
+    assert c.shape == (m, n) and c.dtype == torch.float32
+    assert dig.shape == (4,) and dig.dtype == torch.int32
+    assert residues(dig) == residues(jdig) == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+    assert_within_f32_bound(c.numpy(), a, b)
+    assert_within_f32_bound(np.asarray(jc), a, b)
+
+
+def test_float32_and_other_b_types_match_jax():
+    """A float32 B is used as it is; any other type is cast to float32 first."""
+    jnp, _, jk, _ = _jax()
+    a = make((128, 256), seed=21)
+    for b in (make((256, 128), seed=22, dtype=torch.float32),
+              make((256, 128), seed=23, dtype=torch.float16),
+              torch.from_numpy(np.random.default_rng(24).integers(-3, 4, (256, 128),
+                                                                 dtype=np.int32))):
+        c, dig = tk.matmul_with_digest(a, b)
+        jc, jdig = jk.matmul_with_digest(jnp.asarray(to_numpy(a)), jnp.asarray(b.numpy()))
+        assert residues(dig) == residues(jdig)
+        assert_within_f32_bound(c.numpy(), a, b.float())
+        assert_within_f32_bound(np.asarray(jc), a, b.float())
+
+
+def test_matmul_digest_detects_operand_corruption():
+    """Twin of tests/test_kernels.py::test_matmul_digest_detects_operand_corruption."""
+    a, b = make((128, 128), seed=31), make((128, 128), seed=32)
+    _, dig1 = tk.matmul_with_digest(a, b)
+    a_bad = a.clone()
+    a_bad[7, 33] += 1.0
+    _, dig2 = tk.matmul_with_digest(a_bad, b)
+    assert residues(dig1) != residues(dig2)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bm,bk", [(128, 128), (64, 32), (32, 64), (256, 8)])
+def test_factors_reproduce_the_references_tile_weights(bm, bk):
+    """RW[row] * CW[col] must be the reference's weight of the byte:
+    r^(T*(tiles-1-t)) times _tables16's tile weight (and r^-1 for hi)."""
+    _, _, _, jmm = _jax()
+    M, K = 2 * bm, 3 * bk
+    row_w, col_w = tmm._digest_factors(M, K, bm, bk)
+    w16, rinv1, rpow = jmm._tables16(bm, bk)
+    nk, tiles = K // bk, (M // bm) * (K // bk)
+    rows, cols = np.arange(M)[:, None], np.arange(K)[None, :]
+    t = (rows // bm) * nk + cols // bk
+    for b in range(4):
+        got_lo = row_w[b].astype(np.int64)[:, None] * col_w[:, b].astype(np.int64)[None] % P
+        got_hi = row_w[b].astype(np.int64)[:, None] * col_w[:, 4 + b].astype(np.int64)[None] % P
+        tile_w = np.vectorize(lambda e: pow(int(rpow[b, 0]), int(e), P))(tiles - 1 - t)
+        want_lo = tile_w * w16[b][rows % bm, cols % bk].astype(np.int64) % P
+        np.testing.assert_array_equal(got_lo, want_lo)
+        np.testing.assert_array_equal(got_hi, want_lo * int(rinv1[b, 0]) % P)
+
+
+def emulate_kernel_digest(a: torch.Tensor, bm: int, bk: int, slab: int, per_thread: int):
+    """The kernel's digest, step for step: thread (row, part) sums
+    lo*CW_lo + hi*CW_hi over its ``per_thread`` columns of each ``slab`` of K
+    in 32 bits, reduces mod P once a slab, weighs the row sum by RW, and the
+    blocks' sums add mod P."""
+    M, K = a.shape
+    row_w, col_w = tmm._digest_factors(M, K, bm, bk)
+    codes = a.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    lo, hi = (codes & 255).astype(np.uint64), (codes >> 8).astype(np.uint64)
+    parts = slab // per_thread
+    kpad = -(-K // slab) * slab
+    acc = np.zeros((M, parts, 4), np.uint64)            # one 32-bit sum a thread
+    for k0 in range(0, kpad, slab):
+        for part in range(parts):
+            c0 = k0 + part * per_thread
+            cs = np.arange(c0, min(c0 + per_thread, K))
+            if cs.size == 0:
+                continue
+            for b in range(4):
+                wl = col_w[cs, b].astype(np.uint64)
+                wh = col_w[cs, 4 + b].astype(np.uint64)
+                acc[:, part, b] += (lo[:, cs] * wl + hi[:, cs] * wh).sum(axis=1)
+        assert acc.max() < 2 ** 32
+        acc %= P
+    rows = (acc % P) * row_w.T.astype(np.uint64)[:, None, :] % P     # (M, parts, 4)
+    blocks = -(-M // tmm.BLOCK_M)
+    pad = np.zeros((blocks * tmm.BLOCK_M - M, parts, 4), np.uint64)
+    per_block = np.concatenate([rows, pad]).reshape(blocks, -1, 4).sum(axis=1) % P
+    return tuple(int(v) for v in per_block.sum(axis=0) % P)
+
+
+@pytest.mark.parametrize("m,k,bm,bk", [(256, 384, 128, 128), (192, 96, 64, 32),
+                                       (128, 40, 32, 8)])
+@pytest.mark.parametrize("slab,per_thread", [(tmm.SLAB_K, 16), (8, 4)])
+def test_cuda_digest_arithmetic_emulated(m, k, bm, bk, slab, per_thread):
+    """Tensor-core kernel (slabs of 32, 16 columns a thread) and FMA kernel
+    (slabs of 8, 4 columns a thread) against the plain version and the host."""
+    a = make((m, k), seed=m * k)
+    a[0, 0] = torch.tensor(float("-inf"), dtype=torch.bfloat16)   # all-ones hi byte
+    want = residues(tref.matmul_digest_ref(a, make((k, 8), seed=1), bm, bk)[1])
+    assert emulate_kernel_digest(a, bm, bk, slab, per_thread) == want
+    assert want == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+
+
+# ---------------------------------------------------------------------------
+# the wrapper: checks, plain path on the CPU, launch count
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("a, b, kw, err", [
+    (make((128, 128), 1, torch.float32), make((128, 128), 2), {}, TypeError),
+    (make((128, 128), 1), make((128, 128), 2, torch.float16), {}, TypeError),
+    (make((128, 128), 1), make((256, 128), 2), {}, ValueError),
+    (make((96, 128), 1), make((128, 128), 2), {}, ValueError),
+    (make((128, 128), 1), make((128, 96), 2), {}, ValueError),
+    (make((128,), 1), make((128, 128), 2), {}, ValueError),
+    (make((128, 256), 1)[:, ::2], make((128, 128), 2), {}, ValueError),
+    (make((128, 128), 1), make((128, 128), 2), {"bk": 0}, ValueError),
+    ("not a tensor", make((128, 128), 2), {}, TypeError),
+])
+def test_wrapper_refuses_what_the_kernel_cannot_take(a, b, kw, err):
+    with pytest.raises(err):
+        tmm.matmul_digest(a, b, **kw)
+
+
+def test_public_op_makes_its_inputs_contiguous():
+    a, b = make((128, 256), seed=41), make((128, 256), seed=42).t()
+    c, dig = tk.matmul_with_digest(a, b)
+    c2, dig2 = tmm.matmul_digest(a, b.contiguous())
+    assert torch.equal(c, c2) and torch.equal(dig, dig2)
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    tmm.reset_launch_counts()
+    a, b = make((128, 128), seed=51), make((128, 128), seed=52)
+    c, dig = tk.matmul_with_digest(a, b)
+    want_c, want_dig = tref.matmul_digest_ref(a, b)
+    assert torch.equal(c, want_c) and torch.equal(dig, want_dig)
+    assert tmm.launch_counts() == {"matmul_digest": 0}
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", CASES + [(640, 264, 136, 128, 8, 8)])
+@pytest.mark.parametrize("b_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_kernel_matches_plain_version(cuda_device, m, k, n, bm, bk, bn, b_dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = make((m, k), seed=m + k), make((k, n), seed=n, dtype=b_dtype)
+    ad, bd = a.to(cuda_device), b.to(cuda_device)
+    tmm.reset_launch_counts()
+    c, dig = tmm.matmul_digest(ad, bd, bm=bm, bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert tmm.launch_counts() == {"matmul_digest": 1}
+    want_c, want_dig = tref.matmul_digest_ref(ad, bd, bm, bk)
+    assert torch.equal(dig, want_dig)
+    assert residues(dig.cpu()) == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+    assert_within_f32_bound(c.cpu().numpy(), a, b.float())
+    assert_within_f32_bound(want_c.cpu().numpy(), a, b.float())
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_refuses_ragged_rows(cuda_device):
+    a = make((128, 12), seed=1).to(cuda_device)
+    b = make((12, 128), seed=2).to(cuda_device)
+    with pytest.raises(ValueError, match="K % 8"):
+        tmm.matmul_digest(a, b, bk=4)
