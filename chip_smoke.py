@@ -26,9 +26,12 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      tokens of activations B (5120, 4096) bf16. The kernel's residues must
      equal its plain version's, the checksum kernel's digest of
      ``blocked_view(A)`` and the host digest; C must lie within
-     K * 2^-24 * (|A| @ |B|) of the float64 product. Times kernel, plain
-     version, the library product and the separate digest pass, then drives
-     the public ``matmul_with_digest`` with the launch counts at 0;
+     K * 2^-24 * (|A| @ |B|) of the float64 product, and equal the
+     product-only build of the same kernel (``mm_product``). Times, in
+     turns: the fused kernel, its product-only build, the library product
+     (cuBLAS, bf16 in, f32 out), the separate digest pass and the plain
+     version, which gives the digest's share of the kernel. Then drives the
+     public ``matmul_with_digest`` with the launch counts at 0;
   7. saves one full-width decoder block of mistral-nemo-12b (bf16, 545 MB,
      the JAX model's keys and shapes) with the port's ``CheckpointManager``
      and restores it to the card with the counts at 0: every leaf
@@ -96,6 +99,13 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def sync(device) -> None:
+    """Wait for the card where ``device`` is one; a CPU device has nothing
+    in flight. Lets the phases rehearse on the CPU (see the verify recipe)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -290,14 +300,36 @@ def matmul_bound(card: dict, M: int, K: int, N: int) -> dict:
 
 
 def library_matmul(a: torch.Tensor, b: torch.Tensor):
-    """One PyTorch call for the same product (cuBLAS): bf16 in, f32 out where
-    this torch takes ``out_dtype``, else bf16 out. Returns (name, call)."""
-    try:
-        torch.mm(a[:128, :128], b[:128, :128], out_dtype=torch.float32)
-        return "torch.mm(a, b, out_dtype=torch.float32)", \
-            lambda: torch.mm(a, b, out_dtype=torch.float32)
-    except (TypeError, RuntimeError, NotImplementedError):
-        return "torch.matmul(a, b) in bf16", lambda: torch.matmul(a, b)
+    """One PyTorch call for the same product (cuBLAS): bf16 in, f32 out.
+    Returns (name, call). Raises where this torch has no such call: the
+    yardstick is always the same function."""
+    call = lambda: torch.mm(a, b, out_dtype=torch.float32)   # noqa: E731
+    check(call().dtype == torch.float32, "torch.mm(a, b, out_dtype=torch.float32) gives f32")
+    return "torch.mm(a, b, out_dtype=torch.float32)", call
+
+
+def product_only(a: torch.Tensor, b: torch.Tensor):
+    """C = A @ B by the bf16 kernel without its digest warps (``mm_product``,
+    the kernel's kDigest = false build), through its own C entry point.
+    Returns a call that launches it into one preallocated C; on a CPU
+    tensor, the plain product."""
+    if a.device.type == "cpu":
+        return lambda: a.float() @ b.float()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import matmul_digest as mm
+
+    lib = _build.load()
+    (M, K), N = a.shape, b.shape[1]
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    sms = mm.sm_count(a.device)
+
+    def call() -> torch.Tensor:
+        rc = lib.mm_product(a.device.index, a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
+                            sms, torch.cuda.current_stream(a.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"mm_product launch failed: {lib.ck_error_string(rc).decode()}")
+        return c
+    return call
 
 
 def matmul_inputs(seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -338,18 +370,31 @@ def matmul_check(card: dict, a: torch.Tensor, b: torch.Tensor) -> tuple[dict, to
     perr = (pc.double() - c64).abs()
     check(bool((err <= tol).all()), "C within K*2^-24*(|A|@|B|) of the float64 product")
     check(bool((perr <= tol).all()), "plain C within K*2^-24*(|A|@|B|) of the float64 product")
+    prod = product_only(a, b)
+    check(torch.equal(prod(), c), "the product-only build gives the fused kernel's C")
     out = {"shape": [M, K, N], "max_abs_err": float((c - pc).abs().max()),
            "max_abs_err_f64": float(err.max()),
            "max_rel_err_f64": float(err.max() / c64.abs().max()),
            "max_share_of_tolerance": float((err / tol.clamp_min(1e-300)).max())}
     del c64, tol, err, perr, pc, c
     lib_name, lib_call = library_matmul(a, b)
+    calls = {   # key on the kernels line: (call, timed launches a turn)
+        "ms": (lambda: mm.matmul_digest(a, b), 20),
+        "product_only_ms": (prod, 20),
+        "library_ms": (lib_call, 20),
+        "separate_digest_ms": (lambda: fingerprint_array(ref.blocked_view(a, 128, 128)), 20),
+        "plain_ms": (lambda: ref.matmul_digest_ref(a, b), 2),
+    }
+    runs = {key: [] for key in calls}
+    for order in (list(calls), list(reversed(calls))):     # in turns: a b c d e e d c b a
+        for key in order:
+            fn, iters = calls[key]
+            runs[key].append(cuda_ms(fn, iters=iters, warmup=1))
+    out.update({key: sum(v) / len(v) for key, v in runs.items()})
     out.update(
-        ms=cuda_ms(lambda: mm.matmul_digest(a, b), iters=20),
-        plain_ms=cuda_ms(lambda: ref.matmul_digest_ref(a, b), 2, 1),
-        library_ms=cuda_ms(lib_call, iters=20), library_call=lib_name,
-        separate_digest_ms=cuda_ms(lambda: fingerprint_array(ref.blocked_view(a, 128, 128)),
-                                   iters=20),
+        runs_ms=runs, library_call=lib_name,
+        digest_share=(out["ms"] - out["product_only_ms"]) / out["ms"],
+        library_plus_digest_ms=out["library_ms"] + out["separate_digest_ms"],
         separate_digest_row_major_ms=cuda_ms(lambda: fingerprint_array(a), iters=20),
         **matmul_bound(card, M, K, N))
     return out, dig
@@ -361,7 +406,7 @@ def matmul_path(a: torch.Tensor, b: torch.Tensor, dig: torch.Tensor) -> dict:
 
     t0 = time.perf_counter()
     c, got = matmul_with_digest(a, b)
-    torch.cuda.synchronize()
+    sync(a.device)
     seconds = time.perf_counter() - t0
     check(torch.equal(got, dig), "matmul_with_digest residues equal the kernel check's")
     check(c.shape == (a.shape[0], b.shape[1]) and bool(torch.isfinite(c).all()),
@@ -399,14 +444,14 @@ def checkpoint_path(seed: int, device, reset, counts) -> dict:
     root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     try:
         mgr = CheckpointManager(root, device=device)
-        torch.cuda.synchronize()
+        sync(device)
         reset()
         t0 = time.perf_counter()
         rep = mgr.save(1, state)
         save_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         got, step = mgr.restore()
-        torch.cuda.synchronize()
+        sync(device)
         restore_s = time.perf_counter() - t0
         launches = counts()
         check(step == 1 and rep.total_bytes == nbytes and rep.n_leaves == len(leaves),
@@ -519,9 +564,13 @@ def main() -> int:
           f"{mmr['max_rel_err_f64']:.3e}, {100 * mmr['max_share_of_tolerance']:.2f}% of the "
           f"tolerance; vs plain {mmr['max_abs_err']:.3e}), {mmr['ms']:.4f} ms (bound "
           f"{mmr['bound_ms']:.4f} ms by {mmr['bound_by']}, "
-          f"{100 * mmr['bound_ms'] / mmr['ms']:.1f}% of bound), plain {mmr['plain_ms']:.2f} ms, "
-          f"library {mmr['library_ms']:.4f} ms ({mmr['library_call']}), separate digest "
-          f"{mmr['separate_digest_ms']:.4f} ms")
+          f"{100 * mmr['bound_ms'] / mmr['ms']:.1f}% of bound), product only "
+          f"{mmr['product_only_ms']:.4f} ms (digest share {100 * mmr['digest_share']:.2f}%), "
+          f"plain {mmr['plain_ms']:.2f} ms, library {mmr['library_ms']:.4f} ms "
+          f"({mmr['library_call']}), separate digest {mmr['separate_digest_ms']:.4f} ms, "
+          f"library + separate digest {mmr['library_plus_digest_ms']:.4f} ms")
+    check(mmr["ms"] < mmr["library_plus_digest_ms"],
+          "the fused kernel is faster than the library product plus the separate digest pass")
     torch.cuda.synchronize()
     reset()
     mpath = matmul_path(a, b, dig)
@@ -548,9 +597,10 @@ def main() -> int:
                  "bound_by": r["bound_by"], "bound_bytes_ms": r["bound_bytes_ms"],
                  "bound_ops_ms": r["bound_ops_ms"], "library_ms": r.get("library_ms"),
                  "shape": r["shape"]}
-        for extra in ("copy_ms", "bound_digest_ms", "library_call", "separate_digest_ms",
-                      "separate_digest_row_major_ms", "max_abs_err_f64", "max_rel_err_f64",
-                      "max_share_of_tolerance"):
+        for extra in ("copy_ms", "bound_digest_ms", "library_call", "product_only_ms",
+                      "digest_share", "separate_digest_ms", "library_plus_digest_ms",
+                      "separate_digest_row_major_ms", "runs_ms", "max_abs_err_f64",
+                      "max_rel_err_f64", "max_share_of_tolerance"):
             if extra in r:
                 entry[extra] = r[extra]
         if r["name"] == "matmul_digest":

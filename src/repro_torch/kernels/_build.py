@@ -116,8 +116,10 @@ def load() -> ctypes.CDLL:
         lib.ck_error_string.restype = ctypes.c_char_p
         lib.mm_layout.argtypes = [ctypes.POINTER(ci)]
         lib.mm_layout.restype = ci
-        lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, ll, ll, ll, vp, vp, vp, vp, vp]
+        lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, ll, ll, ll, vp, vp, vp, vp, vp, ci, vp]
         lib.mm_digest.restype = ci
+        lib.mm_product.argtypes = [ci, vp, vp, vp, ll, ll, ll, ci, vp]
+        lib.mm_product.restype = ci
         _lib = lib
         return lib
 
@@ -129,8 +131,10 @@ def layout(lib: ctypes.CDLL) -> tuple[int, int, int]:
     return int(buf[0]), int(buf[1]), int(buf[2])
 
 
-def mm_layout(lib: ctypes.CDLL) -> tuple[int, int, int, int]:
-    """(C tile rows, C tile columns, K slab, threads) of the matmul build."""
-    buf = (ctypes.c_int * 4)()
+def mm_layout(lib: ctypes.CDLL) -> tuple[int, ...]:
+    """The matmul build's tiling: (C tile rows, C tile columns, K slab,
+    threads, ring stages, row blocks a tile-order group) of the bf16 kernel,
+    then the FMA kernel's C tile rows."""
+    buf = (ctypes.c_int * 7)()
     lib.mm_layout(buf)
     return tuple(int(v) for v in buf)

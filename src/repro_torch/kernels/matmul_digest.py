@@ -11,7 +11,8 @@ This module holds:
     A with ``_tables16`` and carries the running digest from grid step to
     grid step. Here the weight of a byte splits into a row factor and a
     column factor (``_digest_factors``), so the card needs no ordered
-    combine and its tiles need not be (bm, bk);
+    combine and its tiles need not be (bm, bk); the bf16 kernel reads the
+    column factors packed lo | hi << 16 (``_packed_col_w``);
   * the wrapper ``matmul_digest``, which checks dtype, shape, contiguity,
     device and alignment, allocates C and the residues, and launches on the
     current CUDA stream. A CPU tensor goes to the plain version in
@@ -30,10 +31,17 @@ import torch
 from repro_torch.core.integrity import BASES, NBASES, P
 from repro_torch.kernels import _build, ref
 
-BLOCK_M = 128       # rows of C a CUDA block computes (the partials' row blocks)
-BLOCK_N = 128       # columns of C a CUDA block computes
-SLAB_K = 32         # K slab of the tensor-core kernel
-THREADS = 256
+# the bf16 tensor-core kernel (wgmma, persistent grid)
+BLOCK_M = 128       # rows of a C tile
+BLOCK_N = 256       # columns of a C tile
+SLAB_K = 64         # K slab: one 128-byte swizzled row of A
+THREADS = 384       # producer warpgroup (TMA + digest warps) + 2 consumer warpgroups
+STAGES = 4          # TMA ring depth
+GROUP_M = 16        # row blocks in a group of the tile order
+DIGEST_THREADS = 96  # warps 1-3 of the producer warpgroup
+# the f32-B FMA kernel: one partial per row block of FMA_BLOCK_M rows
+FMA_BLOCK_M = 128
+LAYOUT = (BLOCK_M, BLOCK_N, SLAB_K, THREADS, STAGES, GROUP_M, FMA_BLOCK_M)
 
 _count_lock = threading.Lock()
 _LAUNCHES = {"matmul_digest": 0}
@@ -90,10 +98,30 @@ def _digest_factors(M: int, K: int, bm: int, bk: int) -> tuple[np.ndarray, np.nd
     return row_w.astype(np.int32), col_w.astype(np.int32)
 
 
+def _packed_col_w(col_w: np.ndarray) -> np.ndarray:
+    """(K, NBASES) int32: per column and base, lo weight | hi weight << 16
+    (each < P < 2^16), the bf16 kernel's column factors for dp2a."""
+    w = col_w.astype(np.uint32)
+    return (w[:, :NBASES] | w[:, NBASES:] << 16).view(np.int32)
+
+
 @functools.lru_cache(maxsize=16)
 def _factors_on(M: int, K: int, bm: int, bk: int,
-                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    return tuple(torch.from_numpy(t).to(device) for t in _digest_factors(M, K, bm, bk))
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row factors, column factors and packed column factors on ``device``."""
+    row_w, col_w = _digest_factors(M, K, bm, bk)
+    return tuple(torch.from_numpy(t).to(device) for t in (row_w, col_w, _packed_col_w(col_w)))
+
+
+def wgmma_grid(M: int, N: int, sms: int) -> int:
+    """Blocks of the persistent bf16 grid: min(tiles, SMs) (``wgmma_grid`` in
+    ``csrc/matmul_digest.cu``), one digest partial each."""
+    return min(-(-M // BLOCK_M) * -(-N // BLOCK_N), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int) -> None:
@@ -136,21 +164,22 @@ def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int) -> tuple[torch.T
     lib = _build.load()
     if not _layout_checked:
         got = _build.mm_layout(lib)
-        if got != (BLOCK_M, BLOCK_N, SLAB_K, THREADS):
-            raise RuntimeError(f"kernel library layout {got} != wrapper layout "
-                               f"{(BLOCK_M, BLOCK_N, SLAB_K, THREADS)}")
+        if got != LAYOUT:
+            raise RuntimeError(f"kernel library layout {got} != wrapper layout {LAYOUT}")
         _layout_checked = True
     device = a.device
-    row_w, col_w = _factors_on(M, K, bm, bk, device)
+    row_w, col_w, col_w16 = _factors_on(M, K, bm, bk, device)
+    b_f32 = b.dtype == torch.float32
+    sms = sm_count(device)
+    blocks = -(-M // FMA_BLOCK_M) if b_f32 else wgmma_grid(M, N, sms)
     c = torch.empty((M, N), dtype=torch.float32, device=device)
-    partial = torch.empty((-(-M // BLOCK_M), NBASES), dtype=torch.int32, device=device)
+    partial = torch.empty((blocks, NBASES), dtype=torch.int32, device=device)
     out = torch.empty(NBASES, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mm_digest(device.index, a.data_ptr(), b.data_ptr(),
-                           int(b.dtype == torch.float32), c.data_ptr(), M, N, K,
-                           row_w.data_ptr(), col_w.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), stream)
+        rc = lib.mm_digest(device.index, a.data_ptr(), b.data_ptr(), int(b_f32), c.data_ptr(),
+                           M, N, K, row_w.data_ptr(), col_w.data_ptr(), col_w16.data_ptr(),
+                           partial.data_ptr(), out.data_ptr(), sms, stream)
     if rc != 0:
         raise RuntimeError(
             f"matmul_digest kernel launch failed: {lib.ck_error_string(rc).decode()} ({rc})")

@@ -143,48 +143,158 @@ def test_factors_reproduce_the_references_tile_weights(bm, bk):
         np.testing.assert_array_equal(got_hi, want_lo * int(rinv1[b, 0]) % P)
 
 
-def emulate_kernel_digest(a: torch.Tensor, bm: int, bk: int, slab: int, per_thread: int):
-    """The kernel's digest, step for step: thread (row, part) sums
-    lo*CW_lo + hi*CW_hi over its ``per_thread`` columns of each ``slab`` of K
-    in 32 bits, reduces mod P once a slab, weighs the row sum by RW, and the
+def tile_coords(t: int, mt: int, nt: int) -> tuple[int, int]:
+    """Mirror of ``tile_coords`` in ``csrc/matmul_digest.cu``: tile t of
+    mt x nt -> (row block, column block), in groups of ``GROUP_M`` row blocks
+    with the row block fastest."""
+    group = tmm.GROUP_M * nt
+    first = t // group * tmm.GROUP_M
+    rows = min(mt - first, tmm.GROUP_M)
+    return first + t % group % rows, t % group // rows
+
+
+def landed_slab(codes: np.ndarray, m: int, kt: int) -> np.ndarray:
+    """A's slab (row block m, K slab kt) as TMA lands it: (128 rows, 8
+    physical 16-byte chunks, 8 codes), zeros past M and K, and the chunk at
+    position p of row r holding logical chunk p ^ (r % 8)."""
+    bm, bk = tmm.BLOCK_M, tmm.SLAB_K
+    box = np.zeros((bm, bk), np.uint64)
+    part = codes[m * bm:(m + 1) * bm, kt * bk:(kt + 1) * bk]
+    box[:part.shape[0], :part.shape[1]] = part
+    logical = box.reshape(bm, bk // 8, 8)
+    phys = np.arange(bk // 8)[None, :] ^ (np.arange(bm) % 8)[:, None]
+    return logical[np.arange(bm)[:, None], phys]
+
+
+def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: int) -> tuple:
+    """The bf16 kernel's digest, step for step. Block b of the persistent
+    grid walks tiles b, b + grid, ...; tile (m, n) digests rows r of its
+    row block with r % n_tiles == n. Digest thread dt takes logical chunk
+    c = dt // 12 of the rows j = dt % 12, + 12, ... of the tile and reads it
+    from the swizzled slab; per base, one dp2a an element sums lo * W_lo +
+    hi * W_hi against the packed weights (lo | hi << 16) in 32 bits. The
+    first row's chunk sums add into 64 bits over the tile and meet the row
+    factor at its end; a further row's chunk sum meets it at once. The
+    total is reduced mod P at each tile's end. A block's partial is its 96
+    totals summed by warp (mod P) and over the 3 warps (mod P); the
+    partials add mod P."""
+    M, K = a.shape
+    row_w, col_w = tmm._digest_factors(M, K, bm, bk)
+    row_w = row_w.astype(np.uint64)
+    packed = tmm._packed_col_w(col_w).view(np.uint32).astype(np.uint64)
+    w_lo, w_hi = packed & 0xFFFF, packed >> 16
+    codes = a.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    mt, nt = -(-M // tmm.BLOCK_M), -(-n_cols // tmm.BLOCK_N)
+    grid = tmm.wgmma_grid(M, n_cols, sms)
+    threads, warps = tmm.DIGEST_THREADS, tmm.DIGEST_THREADS // 32
+    per_chunk = threads // 8                       # 12 threads a chunk position
+
+    def chunk_sum(slab, r, col, c):
+        x = slab[r, c ^ (r % 8)].astype(np.uint64)
+        lo, hi = (x & 255)[:, None], (x >> 8)[:, None]
+        s32 = (lo * w_lo[col:col + 8] + hi * w_hi[col:col + 8]).sum(axis=0)
+        assert s32.max() < 2 ** 32
+        return s32
+
+    partials = []
+    for blk in range(grid):
+        tot = np.zeros((threads, 4), np.uint64)
+        for t in range(blk, mt * nt, grid):
+            m, n = tile_coords(t, mt, nt)
+            rows = (tmm.BLOCK_M - 1 - n) // nt + 1 if n < tmm.BLOCK_M else 0
+            acc = np.zeros((threads, 4), np.uint64)
+            slabs = [landed_slab(codes, m, kt) for kt in range(-(-K // tmm.SLAB_K))]
+            for dt in range(threads):
+                c, j0 = dt // per_chunk, dt % per_chunk
+                r0 = n + j0 * nt
+                if not (j0 < rows and m * tmm.BLOCK_M + r0 < M):
+                    continue
+                for kt, slab in enumerate(slabs):
+                    col = kt * tmm.SLAB_K + 8 * c
+                    if col >= K:
+                        continue
+                    acc[dt] += chunk_sum(slab, r0, col, c)
+                    for j in range(j0 + per_chunk, rows, per_chunk):
+                        r = n + j * nt
+                        if m * tmm.BLOCK_M + r >= M:
+                            break
+                        tot[dt] += chunk_sum(slab, r, col, c) * row_w[:, m * tmm.BLOCK_M + r]
+                tot[dt] += acc[dt] % P * row_w[:, m * tmm.BLOCK_M + r0]
+                assert tot.max() < 2 ** 63
+            tot %= P
+        per_warp = tot.reshape(warps, 32, 4).sum(axis=1) % P
+        partials.append(per_warp.sum(axis=0) % P)
+    assert len(partials) == grid
+    return tuple(int(v) for v in np.sum(partials, axis=0) % P)
+
+
+def emulate_fma_digest(a: torch.Tensor, bm: int, bk: int):
+    """The f32-B FMA kernel's digest, step for step: thread (row, part) sums
+    lo*CW_lo + hi*CW_hi over its 4 columns of each 8-column slab of K in 32
+    bits, reduces mod P once a slab, weighs the row sum by RW, and the row
     blocks' sums add mod P."""
     M, K = a.shape
+    slab, per_thread = 8, 4
     row_w, col_w = tmm._digest_factors(M, K, bm, bk)
     codes = a.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
     lo, hi = (codes & 255).astype(np.uint64), (codes >> 8).astype(np.uint64)
     parts = slab // per_thread
-    kpad = -(-K // slab) * slab
     acc = np.zeros((M, parts, 4), np.uint64)            # one 32-bit sum a thread
-    for k0 in range(0, kpad, slab):
+    for k0 in range(0, K, slab):
         for part in range(parts):
-            c0 = k0 + part * per_thread
-            cs = np.arange(c0, min(c0 + per_thread, K))
-            if cs.size == 0:
-                continue
+            cs = np.arange(k0 + part * per_thread, k0 + (part + 1) * per_thread)
             for b in range(4):
                 wl = col_w[cs, b].astype(np.uint64)
                 wh = col_w[cs, 4 + b].astype(np.uint64)
                 acc[:, part, b] += (lo[:, cs] * wl + hi[:, cs] * wh).sum(axis=1)
         assert acc.max() < 2 ** 32
         acc %= P
-    rows = (acc % P) * row_w.T.astype(np.uint64)[:, None, :] % P     # (M, parts, 4)
-    blocks = -(-M // tmm.BLOCK_M)
-    pad = np.zeros((blocks * tmm.BLOCK_M - M, parts, 4), np.uint64)
+    rows = acc * row_w.T.astype(np.uint64)[:, None, :] % P     # (M, parts, 4)
+    blocks = -(-M // tmm.FMA_BLOCK_M)
+    pad = np.zeros((blocks * tmm.FMA_BLOCK_M - M, parts, 4), np.uint64)
     per_block = np.concatenate([rows, pad]).reshape(blocks, -1, 4).sum(axis=1) % P
     return tuple(int(v) for v in per_block.sum(axis=0) % P)
 
 
+def with_neg_inf(a: torch.Tensor) -> torch.Tensor:
+    a[0, 0] = torch.tensor(float("-inf"), dtype=torch.bfloat16)   # all-ones hi byte
+    return a
+
+
+# (M, K, N, bm, bk): n_tiles 1, 3 and 16, M, K and N ragged against 128 x 64 x 256
+@pytest.mark.parametrize("m,k,n,bm,bk", [(200, 72, 136, 8, 8), (136, 200, 520, 8, 40),
+                                         (264, 136, 3848, 8, 8)])
+@pytest.mark.parametrize("sms", [5, 132])
+def test_cuda_digest_arithmetic_emulated(m, k, n, bm, bk, sms):
+    """The bf16 kernel's digest (a persistent grid of 5 blocks, fewer than
+    the tiles, or of 132) against the plain version and the host."""
+    a = with_neg_inf(make((m, k), seed=m * k))
+    want = residues(tref.matmul_digest_ref(a, make((k, 8), seed=1), bm, bk)[1])
+    assert emulate_wgmma_digest(a, n, bm, bk, sms) == want
+    assert want == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+
+
 @pytest.mark.parametrize("m,k,bm,bk", [(256, 384, 128, 128), (192, 96, 64, 32),
                                        (128, 40, 32, 8)])
-@pytest.mark.parametrize("slab,per_thread", [(tmm.SLAB_K, 16), (8, 4)])
-def test_cuda_digest_arithmetic_emulated(m, k, bm, bk, slab, per_thread):
-    """Tensor-core kernel (slabs of 32, 16 columns a thread) and FMA kernel
-    (slabs of 8, 4 columns a thread) against the plain version and the host."""
-    a = make((m, k), seed=m * k)
-    a[0, 0] = torch.tensor(float("-inf"), dtype=torch.bfloat16)   # all-ones hi byte
+def test_fma_digest_arithmetic_emulated(m, k, bm, bk):
+    a = with_neg_inf(make((m, k), seed=m * k))
     want = residues(tref.matmul_digest_ref(a, make((k, 8), seed=1), bm, bk)[1])
-    assert emulate_kernel_digest(a, bm, bk, slab, per_thread) == want
+    assert emulate_fma_digest(a, bm, bk) == want
     assert want == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+
+
+# (mt, nt, SMs): grids smaller than, equal to and larger than the tile count
+@pytest.mark.parametrize("mt,nt,sms", [(112, 16, 132), (37, 3, 20), (4, 33, 132), (3, 4, 12),
+                                       (7, 16, 132)])
+def test_tile_order_covers_every_tile_once(mt, nt, sms):
+    """Blocks b = 0 .. grid-1 take tiles b, b + grid, ...: every (m, n) once,
+    and the digest's row split gives every row of a row block to one tile."""
+    grid = tmm.wgmma_grid(mt * tmm.BLOCK_M, nt * tmm.BLOCK_N, sms)
+    assert grid == min(mt * nt, sms)
+    seen = [tile_coords(t, mt, nt) for b in range(grid) for t in range(b, mt * nt, grid)]
+    assert sorted(seen) == [(m, n) for m in range(mt) for n in range(nt)]
+    owners = sorted(r for n in range(nt) for r in range(n, tmm.BLOCK_M, nt))
+    assert owners == list(range(tmm.BLOCK_M))
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +336,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
 # on the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n,bm,bk,bn", CASES + [(640, 264, 136, 128, 8, 8)])
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", CASES + [
+    (640, 264, 136, 128, 8, 8),
+    (2048, 512, 4608, 128, 128, 128),   # 288 tiles: more than the SMs
+    (200, 72, 264, 8, 8, 8),            # ragged against 128 x 64 x 256 in M, K and N
+    (128, 40, 136, 32, 8, 8),           # K < 64 and N < 256
+])
 @pytest.mark.parametrize("b_dtype", [torch.bfloat16, torch.float32])
 def test_cuda_kernel_matches_plain_version(cuda_device, m, k, n, bm, bk, bn, b_dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
