@@ -19,8 +19,10 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      workers) whose fused verification digests run in ``checksum_many_words``;
      each result is held against the host digest, and each kernel must have
      launched;
-  5. flips one bit of one chunk's first landing in a short transfer: the
-     deferred verifier must catch it and exactly one re-fetch heal it;
+  5. flips one bit of one chunk's first landing in a short transfer, once
+     with 8 MiB chunks (fused drain) and once with 32 MiB chunks (over the
+     engine's fuse_max_bytes: the per-job verify on the card): the deferred
+     verifier must catch it and exactly one re-fetch heal it;
   6. the fused matmul + digest at mistral-nemo-12b's width (d_model 5120,
      d_ff 14336): the up-projection weight A (14336, 5120) bf16 times 4096
      tokens of activations B (5120, 4096) bf16. The kernel's residues must
@@ -37,7 +39,17 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      and restores it to the card with the counts at 0: every leaf
      bit-equal, its digest on the card equal to its MANIFEST digest, and one
      flipped bit reported by leaf and chunk;
-  8. prints ``{"kernels": [...]}`` and, as the last line,
+  8. runs the transfer service (``repro_torch.service``, pipelined, verifying
+     on the card) for two tenants at once, with the counts at 0: "facility"
+     moves a 2 GiB file in 8 MiB chunks (the fused drain), a 512 MiB file in
+     32 MiB chunks (per-job verifies on the card) and 64 files of 1 MiB (one
+     batched task); "ckpt" checkpoints the decoder block through the service,
+     restores it bit-equal, overwrites the first 10 % of the rows of ``wi``
+     and saves a delta that must move only the chunks holding changed bytes.
+     Every task must succeed, every destination equal its payload, both
+     digest kernels launch, and the facility tasks verify nothing on the
+     host;
+  9. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -73,7 +85,11 @@ API_BYTES = 1 * GiB              # checksum_words / checksum_copy_words input
 SLICE_BYTES = 64 * MiB           # checked against the host digest
 TRANSFER_BYTES = 4 * GiB
 CHUNK_BYTES = 8 * MiB            # = the engine's fuse_max_bytes
-FLIP_BYTES = 64 * MiB
+FLIP_CHUNKS = 8                  # chunks of the flipped-landing transfer
+SERVICE_BIG_BYTES = 2 * GiB      # the facility's file in default 8 MiB chunks
+SERVICE_OVERSIZE_BYTES = 512 * MiB
+SERVICE_OVERSIZE_CHUNK = 32 * MiB   # over fuse_max_bytes: per-job verifies
+SERVICE_SMALL_FILES, SERVICE_SMALL_BYTES = 64, 1 * MiB
 
 SOURCES = {
     "checksum_words": "src/repro_torch/kernels/csrc/checksum.cu",
@@ -250,15 +266,17 @@ def transfer(seed: int, device, nbytes: int) -> dict:
             "verified": stats.verified, "cksum_lag_s": rep.cksum_lag_s}
 
 
-def flipped_landing(seed: int, device) -> dict:
+def flipped_landing(seed: int, device, chunk_bytes: int = CHUNK_BYTES) -> dict:
     """Phase 5: one bit flipped in one chunk's first write is caught by the
-    deferred verifier and healed by exactly one re-fetch."""
+    deferred verifier and healed by exactly one re-fetch. 8 MiB chunks verify
+    in the fused drain; chunks over ``fuse_max_bytes`` one by one on the card."""
     from repro_torch.core import (BufferDest, BufferSource, ChunkedTransfer,
                                   fingerprint_bytes, plan_chunks)
     from repro_torch.obs import Tracer
 
-    payload = np.random.default_rng(seed + 4).bytes(FLIP_BYTES)
-    plan = plan_chunks(FLIP_BYTES, 8, min_chunk=CHUNK_BYTES, max_chunk=CHUNK_BYTES)
+    nbytes = FLIP_CHUNKS * chunk_bytes
+    payload = np.random.default_rng(seed + 4).bytes(nbytes)
+    plan = plan_chunks(nbytes, 8, min_chunk=chunk_bytes, max_chunk=chunk_bytes)
     target = plan.chunks[3].offset
     flips = []
 
@@ -270,9 +288,11 @@ def flipped_landing(seed: int, device) -> dict:
             super().write(offset, data)
 
     tracer = Tracer()
-    dst = FlippyDest(FLIP_BYTES)
-    rep = ChunkedTransfer(BufferSource(payload), dst, plan, pipeline="pipelined",
-                          integrity_workers=2, device=device, tracer=tracer).run()
+    dst = FlippyDest(nbytes)
+    xfer = ChunkedTransfer(BufferSource(payload), dst, plan, pipeline="pipelined",
+                           integrity_workers=2, device=device, tracer=tracer)
+    rep = xfer.run()
+    stats = xfer.integrity_stats
     check(flips == [target], "the bit flip happened")
     check(rep.refetches == 1 and len(rep.quarantined) == 1
           and rep.quarantined[0].chunk_index == 3,
@@ -281,8 +301,14 @@ def flipped_landing(seed: int, device) -> dict:
           "healed destination equals the payload")
     caught = [s for s in tracer.spans() if s.name == "verify" and s.arg("ok") is False]
     check(len(caught) == 1, "one failed verification span")
-    return {"caught_by": "fused on-card batch" if caught[0].arg("fused") else "per-job host path",
+    check(stats.per_job == 0 and stats.host_rows == 0, "nothing was verified on the host")
+    if chunk_bytes > CHUNK_BYTES:
+        check(not caught[0].arg("fused") and stats.device_jobs == plan.n_chunks + 1,
+              "every landing (the re-fetch included) verified per job on the card")
+    return {"chunk_bytes": chunk_bytes, "chunks": plan.n_chunks,
+            "caught_by": "fused on-card batch" if caught[0].arg("fused") else "per-job on-card verify",
             "refetches": rep.refetches, "quarantined": len(rep.quarantined),
+            "device_jobs": stats.device_jobs, "fused_jobs": stats.fused_jobs,
             "detail": rep.quarantined[0].detail}
 
 
@@ -490,6 +516,153 @@ def checkpoint_path(seed: int, device, reset, counts) -> dict:
             "flipped": {"leaf": caught[0], "bad_chunks": caught[1]}, "launches": launches}
 
 
+def service_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 5: the transfer service for two tenants at once,
+    verifying on ``device``. "facility" moves files through ``submit()``;
+    "ckpt" saves the decoder block through ``submit_checkpoint``, restores
+    it, changes the first 10 % of the rows of ``wi`` and saves a delta."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.core.integrity import fingerprint_bytes
+    from repro_torch.service import ServiceConfig, TransferService, submit_checkpoint
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-svc-")
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed + 7)
+        files = {"big": SERVICE_BIG_BYTES, "oversize": SERVICE_OVERSIZE_BYTES,
+                 **{f"small{i:02d}": SERVICE_SMALL_BYTES for i in range(SERVICE_SMALL_FILES)}}
+        digests = {}
+        for name, n in files.items():
+            data = rng.bytes(n)
+            digests[name] = fingerprint_bytes(data).hexdigest()
+            with open(os.path.join(root, name), "wb") as fh:
+                fh.write(data)
+            del data
+        make_s = time.perf_counter() - t0
+
+        def item(name):
+            return (os.path.join(root, name), os.path.join(root, name + ".out"))
+
+        cfg = ServiceConfig(pipeline="pipelined", integrity_workers=2, mover_budget=8,
+                            max_concurrent_tasks=4)
+        svc = TransferService(os.path.join(root, "svc"), cfg, device=device)
+        try:
+            state = decoder_block(seed, device)
+            block = state["blocks"]["0"]
+            sync(device)
+            reset()
+            t0 = time.perf_counter()
+            tasks = {
+                "big": svc.submit([item("big")], tenant="facility", label="big")[0],
+                "oversize": svc.submit([item("oversize")], tenant="facility", label="oversize",
+                                       chunk_bytes=SERVICE_OVERSIZE_CHUNK)[0],
+            }
+            small = svc.submit([item(n) for n in files if n.startswith("small")],
+                               tenant="facility", label="small")
+            check(len(small) == 1, "the 1 MiB files were coalesced into one task")
+            tasks["small"] = small[0]
+            ck_root = os.path.join(root, "ckpt")
+            sub1 = submit_checkpoint(svc, ck_root, 1, state, tenant="ckpt")
+            rep1 = sub1.wait(timeout=600)
+            got, _ = restore_checkpoint(rep1.path, device=device)
+            for key, t in block.items():
+                check(torch.equal(got["blocks"]["0"][key].view(torch.int16), t.view(torch.int16)),
+                      f"checkpoint 1: {key} restored bit-equal on the card")
+            del got
+            wi = block["wi"]
+            rows = wi.shape[1] // 10
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed + 8)
+            wi[:, :rows] = (torch.randn((wi.shape[0], rows, wi.shape[2]), generator=gen,
+                                        device=device) * 0.02).to(wi.dtype)
+            sub2 = submit_checkpoint(svc, ck_root, 2, state, tenant="ckpt", delta=True)
+            rep2 = sub2.wait(timeout=600)
+            got, _ = restore_checkpoint(rep2.path, device=device)
+            for key, t in block.items():
+                check(torch.equal(got["blocks"]["0"][key].view(torch.int16), t.view(torch.int16)),
+                      f"checkpoint 2 (delta): {key} restored bit-equal to the changed state")
+            del got
+            sts = {name: svc.wait(tid, timeout=600) for name, tid in tasks.items()}
+            sync(device)
+            wall_s = time.perf_counter() - t0
+            launches = counts()
+            stats = {name: svc.integrity_stats(tid) for name, tid in tasks.items()}
+            ck_sts = {"ckpt_full": sub1.status(), "ckpt_delta": sub2.status()}
+            ck_stats = {"ckpt_full": svc.integrity_stats(sub1.task_id),
+                        "ckpt_delta": svc.integrity_stats(sub2.task_id)}
+            # thread-seconds per span name, per task: where the host time went
+            spans = {}
+            for name, tid in {**tasks, "ckpt_full": sub1.task_id,
+                              "ckpt_delta": sub2.task_id}.items():
+                spans[name] = {}
+                for sp in svc.tracer.spans(tid):
+                    spans[name][sp.name] = spans[name].get(sp.name, 0.0) + sp.t1 - sp.t0
+        finally:
+            svc.close()
+        for name, st in {**sts, **ck_sts}.items():
+            check(st.state == "SUCCEEDED", f"service task {name} succeeded ({st.error})")
+        for name in files:
+            check(filecmp.cmp(*item(name), shallow=False), f"{name}: destination equals payload")
+        reports = {r.src: r for st in sts.values() for r in st.item_reports}
+        for name in files:
+            check(reports[item(name)[0]].digest_hex == digests[name],
+                  f"{name}: item digest equals the host digest of the payload")
+        for name, st in stats.items():
+            check(st.per_job == 0 and st.host_rows == 0 and st.errors == 0,
+                  f"{name}: no verify on the host")
+            check(st.verified == sts[name].chunks_total, f"{name}: every chunk verified once")
+        check(stats["oversize"].device_jobs == sts["oversize"].chunks_total
+              == SERVICE_OVERSIZE_BYTES // SERVICE_OVERSIZE_CHUNK,
+              "every 32 MiB chunk verified per job on the card")
+        check(stats["big"].fused_jobs > 0 and stats["big"].device_rows > 0,
+              "the 8 MiB chunks were verified in fused on-card batches")
+        # the delta moved exactly the chunks that hold changed bytes: those
+        # whose digest changed between the two MANIFESTs, which must be the
+        # chunks of wi that overlap its first rows
+        mans = []
+        for rep in (rep1, rep2):
+            with open(os.path.join(rep.path, "MANIFEST.json")) as fh:
+                mans.append(json.load(fh))
+        changed = sum(1 for key, leaf in mans[1]["leaves"].items()
+                      for c, c0 in zip(leaf["chunks"], mans[0]["leaves"][key]["chunks"])
+                      if c["digest"] != c0["digest"])
+        changed_end = rows * wi.shape[2] * wi.element_size()
+        overlap = sum(1 for c in mans[1]["leaves"]["blocks/0/wi"]["chunks"]
+                      if c["offset"] < changed_end)
+        delta = ck_sts["ckpt_delta"]
+        moved = delta.chunks_total - delta.chunks_deduped
+        check(moved == changed == overlap > 0,
+              f"the delta moved {moved} chunks: the {changed} whose bytes changed")
+        check(delta.wire_bytes_saved == delta.bytes_total - sum(
+            c["length"] for c in mans[1]["leaves"]["blocks/0/wi"]["chunks"]
+            if c["offset"] < changed_end), "wire bytes saved = bytes of the unchanged chunks")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def task_row(st, istats) -> dict:
+        secs = st.finished_s - st.started_s
+        row = {"seconds": secs, "GBps": st.bytes_total / secs / 1e9, "bytes": st.bytes_total,
+               "chunks": st.chunks_total, "files": st.n_files}
+        if istats is not None:
+            row["integrity_stats"] = {k: getattr(istats, k) for k in (
+                "fused_batches", "fused_jobs", "device_rows", "host_rows", "device_jobs",
+                "per_job", "verified")}
+        return row
+
+    out = {name: task_row(st, stats[name]) for name, st in sts.items()}
+    out.update({name: task_row(st, ck_stats[name]) for name, st in ck_sts.items()})
+    for name, row in out.items():
+        row["span_thread_s"] = spans[name]
+    out["ckpt_full"]["save_s"], out["ckpt_delta"]["save_s"] = rep1.seconds, rep2.seconds
+    out["ckpt_delta"].update(chunks_deduped=delta.chunks_deduped,
+                             wire_bytes_saved=delta.wire_bytes_saved, chunks_moved=moved)
+    return {"tasks": out, "wall_s": wall_s, "payload_s": make_s, "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -518,12 +691,12 @@ def main() -> int:
 
     t_all = time.perf_counter()
     device = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     props = torch.cuda.get_device_properties(0)
     card = {"sms": props.multi_processor_count,
             "clock_hz": float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6}
-    print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{card['sms']} SMs, max SM clock {card['clock_hz'] / 1e6:.0f} MHz)")
     print(f"card: {smi}")
 
@@ -554,8 +727,9 @@ def main() -> int:
     for r in rows:
         check(launches[r["name"]] > 0, f"{r['name']} launched on the main path")
 
-    flip = flipped_landing(args.seed, device)
-    print("flipped_landing " + json.dumps(flip))
+    for chunk_bytes in (CHUNK_BYTES, SERVICE_OVERSIZE_CHUNK):
+        flip = flipped_landing(args.seed, device, chunk_bytes)
+        print("flipped_landing " + json.dumps(flip))
 
     a, b = matmul_inputs(args.seed, device)
     mmr, dig = matmul_check(card, a, b)
@@ -583,8 +757,13 @@ def main() -> int:
     print("checkpoint " + json.dumps(ckpt))
     check(ckpt["launches"]["checksum_words"] > 0,
           "the checkpoint digested its leaves on the card")
-    # each kernel's launches over the three main-path runs
-    launches = {k: launches[k] + mpath["launches"][k] + ckpt["launches"][k] for k in launches}
+    svc = service_path(args.seed, device, reset, counts)
+    print("service " + json.dumps(svc))
+    for kernel in ("checksum_many_words", "checksum_words"):
+        check(svc["launches"][kernel] > 0, f"{kernel} launched on the service path")
+    # each kernel's launches over the four main-path runs
+    launches = {k: launches[k] + mpath["launches"][k] + ckpt["launches"][k]
+                + svc["launches"][k] for k in launches}
     print("launches all paths " + json.dumps(launches))
 
     kernels = []
@@ -610,7 +789,7 @@ def main() -> int:
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

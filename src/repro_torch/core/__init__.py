@@ -10,6 +10,10 @@ Submodules (each the twin of the same name under ``repro.core``):
   journal    — chunk-completion journal (partial restart), byte-identical
                on disk to the reference's
   backoff    — seeded-jitter retry backoff
+  simulator  — calibrated model of the paper's ALCF/NERSC/OLCF testbed
+  scheduler  — load-aware mover allocation across transfers
+  vclock     — shared virtual clock + outage-window arithmetic for the
+               event-stepped simulator
 """
 from repro_torch.core.chunker import Chunk, ChunkPlan, plan_auto, plan_chunks, plan_for_array
 from repro_torch.core.dataplane import (
@@ -50,6 +54,7 @@ from repro_torch.core.transfer import (
     TransferReport,
     transfer_verified,
 )
+from repro_torch.core.vclock import ConvergenceError, VirtualClock, Window
 
 __all__ = [
     "Chunk", "ChunkPlan", "plan_auto", "plan_chunks", "plan_for_array",
@@ -63,4 +68,5 @@ __all__ = [
     "BufferDest", "BufferSource", "ChunkedTransfer", "EndpointOutage",
     "FileDest", "FileSource", "IntegrityError", "MoverCrash",
     "QuarantineRecord", "TransferReport", "transfer_verified",
+    "ConvergenceError", "VirtualClock", "Window",
 ]

@@ -244,25 +244,34 @@ def read_back_fingerprint(
     *,
     pool: "BufferPool | None" = None,
     granule: int = DEFAULT_STREAM_GRANULE,
+    device: "torch.device | None" = None,
 ) -> Digest:
     """Fingerprint the landed bytes, cheapest path first: in place via the
     destination's zero-copy ``read_back_view`` when it has one, else into a
     pooled buffer, else through the classic ``read_back()`` bytes. Shared by
-    the integrity engine and the single-pass inline verifier."""
+    the integrity engine and the single-pass inline verifier. With a
+    ``device`` the digest runs there (``digest_view_device``), else on the
+    host."""
+    if device is None:
+        def digest(mv):
+            return fingerprint_view(mv, granule)
+    else:
+        def digest(mv):
+            return digest_view_device(mv, device)
     viewfn = getattr(dest, "read_back_view", None)
     if viewfn is not None:
         mv = viewfn(offset, length)
         try:
-            return fingerprint_view(mv, granule)
+            return digest(mv)
         finally:
             if isinstance(mv, memoryview):
                 mv.release()
     if pool is not None:
         with pool.acquire(length) as buf:
             read_back_into(dest, offset, buf.view)
-            return fingerprint_view(buf.view, granule)
+            return digest(buf.view)
     back = dest.read_back(offset, length)
-    return fingerprint_view(memoryview(back), granule)
+    return digest(memoryview(back))
 
 
 def stream_chunk(
@@ -364,6 +373,23 @@ def resolve_device(device: "str | torch.device") -> torch.device:
     return dev
 
 
+def digest_view_device(mv, device: torch.device) -> Digest:
+    """Digest of one host byte view, taken on ``device`` by
+    ``kernels.ops.digest_of`` over a uint8 tensor — the ``checksum_words``
+    kernel, with any length padded to a tile and the padding divided back
+    out. The bytes stage through pinned host memory (torch's caching host
+    allocator) and copy to the card without blocking; ``digest_of`` waits
+    for the residues. On ``device="cpu"`` the kernel's plain version runs.
+    The per-job twin of ``_digest_rows_device``."""
+    from repro_torch.kernels import digest_of
+
+    host = np.frombuffer(mv, dtype=np.uint8)
+    stage = torch.empty(host.size, dtype=torch.uint8,
+                        pin_memory=device.type == "cuda")
+    np.copyto(stage.numpy(), host)
+    return digest_of(stage.to(device, non_blocking=True))
+
+
 def _digest_rows_device(rows: list["np.ndarray"],
                         device: torch.device) -> tuple[list[Digest], int]:
     """Batched digests with the card in the loop (twin of the reference's
@@ -440,6 +466,7 @@ class IntegrityStats:
     device_rows: int = 0         # fused rows digested by the device kernel
     host_rows: int = 0           # fused rows digested on the host
     per_job: int = 0             # jobs verified one by one on the host
+    device_jobs: int = 0         # jobs verified one by one on the device
 
 
 class IntegrityEngine:
@@ -473,9 +500,12 @@ class IntegrityEngine:
     ``device="cpu"`` runs the kernel's plain version. ``backend="host"``
     keeps every digest on the numpy path.
 
-    Not yet on the card: a batch of one job and jobs over ``fuse_max_bytes``
-    verify per job on the host, as in the reference. A failing kernel
-    poisons its whole batch into ``on_error`` — never a quiet host retry.
+    A batch of one job and every job over ``fuse_max_bytes`` verify per job:
+    with ``backend="device"`` on ``device`` through ``checksum_words``
+    (``digest_view_device``, counted in ``stats.device_jobs``), with
+    ``backend="host"`` on the host as in the reference (``stats.per_job``).
+    A failing kernel routes its job — or poisons its whole fused batch —
+    into ``on_error``: never a quiet host retry.
     """
 
     _SENTINEL = None
@@ -779,13 +809,15 @@ class IntegrityEngine:
         self._tracer.add(
             "verify_wait", "cksum_wait", job.enqueued_s, t0,
             task=self._task, lane=f"verifier{wid}", offset=job.offset)
+        dev = self._device           # None: the host backend
         try:
             if job.expected is None:
                 # deferred source fingerprint: derive it off the mover path
                 # from the source's stable view (same bytes the mover wrote)
                 src_mv = job.source.read_view(job.offset, job.length)
                 try:
-                    job.expected = fingerprint_view(src_mv)
+                    job.expected = (fingerprint_view(src_mv) if dev is None
+                                    else digest_view_device(src_mv, dev))
                 finally:
                     if isinstance(src_mv, memoryview):
                         src_mv.release()
@@ -793,7 +825,7 @@ class IntegrityEngine:
             # the landed bytes in place (in-memory dests expose their image
             # as a view; concurrent movers only touch disjoint offsets)
             actual = read_back_fingerprint(
-                job.dest, job.offset, job.length, pool=self._pool)
+                job.dest, job.offset, job.length, pool=self._pool, device=dev)
         except BaseException as e:  # noqa: BLE001 — routed to the caller
             with self._lock:
                 self.stats.errors += 1
@@ -811,7 +843,10 @@ class IntegrityEngine:
         self._verdicts.inc(1, task=self._task,
                            verdict="ok" if ok else "corrupt")
         with self._lock:
-            self.stats.per_job += 1
+            if dev is None:
+                self.stats.per_job += 1
+            else:
+                self.stats.device_jobs += 1
             self.stats.cksum_seconds += ck
             self.stats.lag_seconds += lag
             self.stats.max_lag_s = max(self.stats.max_lag_s, lag)

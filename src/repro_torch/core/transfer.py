@@ -593,7 +593,8 @@ class ChunkedTransfer:
     def integrity_stats(self):
         """The integrity engine's counters after a pipelined ``run()`` — fused
         jobs, rows digested by the device kernel and on the host, per-job
-        verifies — or None when no engine ran."""
+        verifies on the device (``device_jobs``) and on the host
+        (``per_job``) — or None when no engine ran."""
         return self._engine.stats if self._engine is not None else None
 
     # -- single chunk (one ERET/ESTO pair) --------------------------------

@@ -6,6 +6,11 @@ and one corrupted granule in each kind — go through
 through ``checksum_many_words``'s plain version) and through the reference
 ``repro.core.dataplane.IntegrityEngine`` with ``backend="pallas"`` (Pallas in
 interpret mode) and ``backend="host"``. Verdicts and digests must be equal.
+The per-job verifies — a batch of one, and jobs over ``fuse_max_bytes`` —
+go through ``checksum_words``'s plain version (``device_jobs``) and must
+give the reference host engine's verdicts: given and deferred source
+digests, lengths that are not a multiple of 4, corrupt and short landings.
+The test marked ``gpu`` runs them on the card.
 """
 import threading
 import time
@@ -15,8 +20,10 @@ import pytest
 import torch
 
 from repro.core import dataplane as jdp
-from repro.kernels.checksum import TILE_BYTES
 from repro_torch.core import dataplane as tdp
+# the port's tile (equal to the reference's): ``repro.kernels`` imports JAX,
+# which the card's machine, where the gpu test of this file runs, lacks
+from repro_torch.kernels.checksum import TILE_BYTES
 
 KiB = 1024
 
@@ -133,7 +140,8 @@ def test_port_engine_catches_each_corruption(case):
     # through checksum_many_words, the ragged rows to the host stack
     assert stats.fused_jobs == len(specs) and stats.fused_batches == 1
     assert stats.device_rows == 12 and stats.host_rows == 6
-    assert stats.per_job == 1
+    # the gate job, taken alone, verified per job on the device path
+    assert stats.device_jobs == 1 and stats.per_job == 0
 
 
 @pytest.mark.parametrize("backend", ["pallas", "host"])
@@ -179,3 +187,143 @@ def test_engine_without_device_needs_a_card():
     with pytest.raises(ValueError):
         tdp.IntegrityEngine(on_verified=lambda *a: None, on_corrupt=lambda *a: None,
                             backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# per-job verifies: a batch of one and oversize jobs, on the device path
+# ---------------------------------------------------------------------------
+def _single_jobs():
+    """(payload, landed, jobs): one job per case — tile-aligned with its
+    digest given, deferred source digest, a length not a multiple of 4, a
+    corrupt landing (given and deferred), oversize (over a 3-tile
+    fuse_max_bytes), oversize and corrupt, and a short read-back."""
+    from repro.core.integrity import fingerprint_bytes
+    lengths = [2 * TILE_BYTES, 2 * TILE_BYTES, 10_007, TILE_BYTES, 5_001,
+               5 * TILE_BYTES, 4 * TILE_BYTES + 13, 3 * TILE_BYTES + 2]
+    deferred = [False, True, True, False, True, True, False, True]
+    payload = np.random.default_rng(31).integers(
+        0, 256, sum(lengths), dtype=np.uint8).tobytes()
+    landed = bytearray(payload)
+    jobs, pos = [], 0
+    for key, (ln, dfr) in enumerate(zip(lengths, deferred)):
+        want = None if dfr else fingerprint_bytes(payload[pos:pos + ln])
+        jobs.append((key, pos, ln, want))
+        pos += ln
+    for key in (3, 4, 6):                              # corrupt landings
+        landed[jobs[key][1] + jobs[key][2] // 2] ^= 0x81
+    return payload, bytes(landed), jobs
+
+
+class _ShortDest(_Dest):
+    """Landed bytes whose read-back of one job comes back short."""
+
+    def __init__(self, data, short_at):
+        super().__init__(data)
+        self._short_at = short_at
+
+    def read_back_view(self, offset, length):
+        mv = super().read_back_view(offset, length)
+        return mv[:-1] if offset == self._short_at else mv
+
+
+def _run_single(mod, payload, landed, jobs, *, one_by_one, **engine_kw):
+    """Every job through one engine: drained one by one (batches of one), or
+    gated into one drain where every job is over ``fuse_max_bytes``."""
+    dest = _ShortDest(landed, short_at=jobs[-1][1])
+    src = _Src(payload)
+    lock = threading.Lock()
+    rec = {"ok": {}, "bad": {}, "err": []}
+
+    def ok(job, _lag, _ck):
+        with lock:
+            rec["ok"][job.key] = (job.expected.h, job.expected.length)
+
+    def bad(job, actual, _lag):
+        with lock:
+            rec["bad"][job.key] = ((job.expected.h, job.expected.length),
+                                   (actual.h, actual.length))
+
+    def err(job, exc):
+        with lock:
+            rec["err"].append((job.key, type(exc).__name__))
+
+    def conv(d):          # each engine verifies against its own Digest type
+        return None if d is None else mod.Digest(tuple(d.h), d.length)
+
+    eng = mod.IntegrityEngine(workers=1, batch=32, fuse_max_bytes=1, on_verified=ok,
+                              on_corrupt=bad, on_error=err, **engine_kw)
+    try:
+        gate = _GateDest(payload)
+        if not one_by_one:
+            eng.submit(mod.VerifyJob(key="gate", offset=0, length=16, expected=None,
+                                     source=src, dest=gate, enqueued_s=time.perf_counter()))
+            assert gate.entered.wait(30.0)
+        for key, off, ln, want in jobs:
+            eng.submit(mod.VerifyJob(key=key, offset=off, length=ln, expected=conv(want),
+                                     source=src, dest=dest, enqueued_s=time.perf_counter()))
+            if one_by_one:
+                assert eng.drain(timeout=60.0)
+        gate.release.set()
+        assert eng.drain(timeout=60.0)
+    finally:
+        eng.close()
+    rec["ok"].pop("gate", None)
+    return rec, eng.stats
+
+
+@pytest.mark.parametrize("one_by_one", [True, False], ids=["batch_of_one", "oversize"])
+def test_per_job_device_verdicts_match_reference_host(one_by_one):
+    """Per-job verifies on the device path (``device_jobs``) give the
+    reference host engine's verdicts and digests, case by case."""
+    payload, landed, jobs = _single_jobs()
+    port, stats = _run_single(tdp, payload, landed, jobs, one_by_one=one_by_one,
+                              device="cpu")
+    ref, ref_stats = _run_single(jdp, payload, landed, jobs, one_by_one=one_by_one,
+                                 backend="host")
+    assert port == ref
+    assert sorted(port["ok"]) == [0, 1, 2, 5]
+    assert sorted(port["bad"]) == [3, 4, 6, 7]          # 7: short read-back
+    assert port["err"] == []
+    gate = 0 if one_by_one else 1
+    assert stats.device_jobs == len(jobs) + gate and stats.per_job == 0
+    assert stats.fused_jobs == 0 and stats.device_rows == stats.host_rows == 0
+    assert ref_stats.fused_jobs == 0 and ref_stats.verified == 4 + gate
+    host, host_stats = _run_single(tdp, payload, landed, jobs, one_by_one=one_by_one,
+                                   backend="host")
+    assert host == port
+    assert host_stats.per_job == len(jobs) + gate and host_stats.device_jobs == 0
+
+
+def test_failing_kernel_routes_the_per_job_verify_to_on_error(monkeypatch):
+    """A per-job verify whose kernel raises reaches ``on_error``: no quiet
+    host digest, no verdict."""
+    from repro_torch.kernels import checksum as tck
+
+    def boom(*_a, **_k):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(tck, "checksum_words", boom)
+    payload, landed, jobs = _single_jobs()
+    rec, stats = _run_single(tdp, payload, landed, jobs, one_by_one=True, device="cpu")
+    assert rec["ok"] == {} and rec["bad"] == {}
+    assert sorted(k for k, _ in rec["err"]) == list(range(len(jobs)))
+    assert stats.errors == len(jobs) and stats.device_jobs == 0 and stats.per_job == 0
+
+
+@pytest.mark.gpu
+def test_cuda_per_job_verify_on_the_card():
+    """Oversize jobs verified one by one by ``checksum_words`` on the card,
+    staged through pinned memory: the host engine's verdicts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import checksum as tck
+
+    payload, landed, jobs = _single_jobs()
+    tck.reset_launch_counts()
+    card, stats = _run_single(tdp, payload, landed, jobs, one_by_one=False, device="cuda")
+    launched = tck.launch_counts()["checksum_words"]
+    host, _ = _run_single(tdp, payload, landed, jobs, one_by_one=False, backend="host")
+    assert card == host
+    assert stats.device_jobs == len(jobs) + 1 and stats.per_job == 0
+    # one launch a landing, one more a deferred source digest (gate included)
+    assert launched == len(jobs) + 1 + sum(1 for j in jobs if j[3] is None) + 1
