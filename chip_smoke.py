@@ -46,10 +46,27 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      batched task); "ckpt" checkpoints the decoder block through the service,
      restores it bit-equal, overwrites the first 10 % of the rows of ``wi``
      and saves a delta that must move only the chunks holding changed bytes.
-     Every task must succeed, every destination equal its payload, both
-     digest kernels launch, and the facility tasks verify nothing on the
-     host;
-  9. prints ``{"kernels": [...]}`` and, as the last line,
+     "facility" also moves a 512 MiB file in 8 MiB chunks through a serial
+     and through a single-pass service, whose movers digest each chunk and
+     its read-back on the card. Every task must succeed, every destination
+     equal its payload, both digest kernels launch, and the facility tasks
+     verify nothing on the host. Then, on the idle services, each with the
+     counts at 0: a delta save of the unchanged state (every chunk dedups;
+     the probes digest source, donor and landing on the card) and the two
+     inline files once more (exact launch counts per chunk);
+  9. relays a 1 GiB file on local disk over the 3-hop route of
+     ``shared_trunk_topology(1, trunk_hops=2)`` (8 MiB chunks, 4 movers a
+     hop, every hop digest on the card) with one bit flipped once in the
+     middle hop's landing: the file digest must equal the host digest, the
+     replica the payload, one re-fetch heal the flip, and every hop launch
+     exactly its digests; then a tuned relay of 256 MiB whose middle hop
+     turns lossy (``tune.harness``), so its granule hops digest on the card;
+ 10. runs the port's ``transferd`` in process on the card, every mode on
+     fresh directories: the testbed, ``--real`` twice on one directory,
+     ``scrub``, ``cas stats``, ``fabric plan``, ``fabric campaign`` under
+     chaos, ``fabric replicate``, ``top`` and ``trace --real``; each must
+     print its success line, and the real modes must launch the kernels;
+ 11. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -90,6 +107,11 @@ SERVICE_BIG_BYTES = 2 * GiB      # the facility's file in default 8 MiB chunks
 SERVICE_OVERSIZE_BYTES = 512 * MiB
 SERVICE_OVERSIZE_CHUNK = 32 * MiB   # over fuse_max_bytes: per-job verifies
 SERVICE_SMALL_FILES, SERVICE_SMALL_BYTES = 64, 1 * MiB
+SERVICE_HOST_PIPELINE_BYTES = 512 * MiB   # one file each, serial and single-pass
+RELAY_BYTES = 1 * GiB            # the relay's payload, 8 MiB chunks, 3 hops
+RELAY_TUNED_BYTES = 256 * MiB    # the tuned relay (granule hops)
+RELAY_CHUNK = 8 * MiB
+RELAY_GRANULE_MIN = 1 * MiB
 
 SOURCES = {
     "checksum_words": "src/repro_torch/kernels/csrc/checksum.cu",
@@ -534,7 +556,9 @@ def service_path(seed: int, device, reset, counts) -> dict:
         t0 = time.perf_counter()
         rng = np.random.default_rng(seed + 7)
         files = {"big": SERVICE_BIG_BYTES, "oversize": SERVICE_OVERSIZE_BYTES,
-                 **{f"small{i:02d}": SERVICE_SMALL_BYTES for i in range(SERVICE_SMALL_FILES)}}
+                 **{f"small{i:02d}": SERVICE_SMALL_BYTES for i in range(SERVICE_SMALL_FILES)},
+                 "serial": SERVICE_HOST_PIPELINE_BYTES,
+                 "single_pass": SERVICE_HOST_PIPELINE_BYTES}
         digests = {}
         for name, n in files.items():
             data = rng.bytes(n)
@@ -550,6 +574,12 @@ def service_path(seed: int, device, reset, counts) -> dict:
         cfg = ServiceConfig(pipeline="pipelined", integrity_workers=2, mover_budget=8,
                             max_concurrent_tasks=4)
         svc = TransferService(os.path.join(root, "svc"), cfg, device=device)
+        # the movers' own digests: one service root per pipeline that digests
+        # inline (serial: whole chunk, then the read-back; single-pass:
+        # streamed granules staged for one launch, then the read-back)
+        inline = {pipe: TransferService(os.path.join(root, f"svc-{pipe}"), ServiceConfig(
+            pipeline=pipe, mover_budget=8, max_concurrent_tasks=4), device=device)
+            for pipe in ("serial", "single_pass")}
         try:
             state = decoder_block(seed, device)
             block = state["blocks"]["0"]
@@ -561,6 +591,8 @@ def service_path(seed: int, device, reset, counts) -> dict:
                 "oversize": svc.submit([item("oversize")], tenant="facility", label="oversize",
                                        chunk_bytes=SERVICE_OVERSIZE_CHUNK)[0],
             }
+            inline_tasks = {pipe: isvc.submit([item(pipe)], tenant="facility", label=pipe)[0]
+                            for pipe, isvc in inline.items()}
             small = svc.submit([item(n) for n in files if n.startswith("small")],
                                tenant="facility", label="small")
             check(len(small) == 1, "the 1 MiB files were coalesced into one task")
@@ -587,6 +619,8 @@ def service_path(seed: int, device, reset, counts) -> dict:
                       f"checkpoint 2 (delta): {key} restored bit-equal to the changed state")
             del got
             sts = {name: svc.wait(tid, timeout=600) for name, tid in tasks.items()}
+            inline_sts = {pipe: inline[pipe].wait(tid, timeout=600)
+                          for pipe, tid in inline_tasks.items()}
             sync(device)
             wall_s = time.perf_counter() - t0
             launches = counts()
@@ -596,18 +630,60 @@ def service_path(seed: int, device, reset, counts) -> dict:
                         "ckpt_delta": svc.integrity_stats(sub2.task_id)}
             # thread-seconds per span name, per task: where the host time went
             spans = {}
-            for name, tid in {**tasks, "ckpt_full": sub1.task_id,
-                              "ckpt_delta": sub2.task_id}.items():
+            for name, tid, tracer in (
+                    *((n, t, svc.tracer) for n, t in tasks.items()),
+                    ("ckpt_full", sub1.task_id, svc.tracer),
+                    ("ckpt_delta", sub2.task_id, svc.tracer),
+                    *((p, t, inline[p].tracer) for p, t in inline_tasks.items())):
                 spans[name] = {}
-                for sp in svc.tracer.spans(tid):
+                for sp in tracer.spans(tid):
                     spans[name][sp.name] = spans[name].get(sp.name, 0.0) + sp.t1 - sp.t0
+            # the dedup probes alone, on an idle service: a delta save of the
+            # unchanged state dedups every chunk, each probe digesting the
+            # source, the donor's backing bytes and the landing on the card
+            reset()
+            t1 = time.perf_counter()
+            sub3 = submit_checkpoint(svc, ck_root, 3, state, tenant="ckpt", delta=True)
+            rep3 = sub3.wait(timeout=600)
+            sync(device)
+            idle_delta = {"save_s": rep3.seconds, "seconds": time.perf_counter() - t1,
+                          "launches": counts()}
+            st3 = sub3.status()
+            idle_delta.update(chunks=st3.chunks_total, chunks_deduped=st3.chunks_deduped,
+                              dedup_hit_thread_s=sum(sp.t1 - sp.t0 for sp in
+                                                     svc.tracer.spans(sub3.task_id)
+                                                     if sp.name == "dedup_hit"))
+            # the movers' inline digests alone: each inline file once more,
+            # on its idle service
+            inline_idle = {}
+            for pipe, isvc in inline.items():
+                reset()
+                [tid] = isvc.submit([item(pipe)], tenant="facility", label=f"{pipe}-idle")
+                st = isvc.wait(tid, timeout=600)
+                sync(device)
+                row = {"launches": counts(), "state": st.state, "chunks": st.chunks_total,
+                       "seconds": st.finished_s - st.started_s, "span_thread_s": {}}
+                for sp in isvc.tracer.spans(tid):
+                    row["span_thread_s"][sp.name] = (row["span_thread_s"].get(sp.name, 0.0)
+                                                     + sp.t1 - sp.t0)
+                inline_idle[pipe] = row
         finally:
             svc.close()
-        for name, st in {**sts, **ck_sts}.items():
+            for isvc in inline.values():
+                isvc.close()
+        for name, st in {**sts, **ck_sts, **inline_sts}.items():
             check(st.state == "SUCCEEDED", f"service task {name} succeeded ({st.error})")
+        check(idle_delta["chunks_deduped"] == idle_delta["chunks"] > 0,
+              "a delta save of the unchanged state dedups every chunk")
+        for pipe, row in inline_idle.items():
+            check(row["state"] == "SUCCEEDED", f"{pipe} task on the idle service succeeded")
+        for pipe, st in inline_sts.items():
+            check(len([1 for sp in inline[pipe].tracer.spans(inline_tasks[pipe])
+                       if sp.name == "cksum_inline"]) == st.chunks_total,
+                  f"{pipe}: every chunk digested inline by its mover")
         for name in files:
             check(filecmp.cmp(*item(name), shallow=False), f"{name}: destination equals payload")
-        reports = {r.src: r for st in sts.values() for r in st.item_reports}
+        reports = {r.src: r for st in {**sts, **inline_sts}.values() for r in st.item_reports}
         for name in files:
             check(reports[item(name)[0]].digest_hex == digests[name],
                   f"{name}: item digest equals the host digest of the payload")
@@ -655,12 +731,242 @@ def service_path(seed: int, device, reset, counts) -> dict:
 
     out = {name: task_row(st, stats[name]) for name, st in sts.items()}
     out.update({name: task_row(st, ck_stats[name]) for name, st in ck_sts.items()})
+    out.update({name: task_row(st, None) for name, st in inline_sts.items()})
     for name, row in out.items():
         row["span_thread_s"] = spans[name]
     out["ckpt_full"]["save_s"], out["ckpt_delta"]["save_s"] = rep1.seconds, rep2.seconds
     out["ckpt_delta"].update(chunks_deduped=delta.chunks_deduped,
                              wire_bytes_saved=delta.wire_bytes_saved, chunks_moved=moved)
-    return {"tasks": out, "wall_s": wall_s, "payload_s": make_s, "launches": launches}
+    return {"tasks": out, "wall_s": wall_s, "payload_s": make_s, "launches": launches,
+            "idle_delta": idle_delta, "inline_idle": inline_idle}
+
+
+def relay_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 6: a 3-hop relay of a 1 GiB file on local disk, every
+    hop digest on ``device``, one bit flipped once in the middle hop's
+    landing; then a tuned relay of 256 MiB whose middle hop turns lossy, so
+    its granule controller shrinks the hop's I/O unit and the granule digests
+    run (``[data, back]``: one launch when the granule tiles the kernel, one
+    each otherwise)."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from repro_torch.core import FileDest, FileSource, fingerprint_bytes
+    from repro_torch.fabric import RelayTransfer, RoutePlanner, shared_trunk_topology
+    from repro_torch.tune.harness import Phase, StepPath, StepScenario
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-relay-")
+    try:
+        t0 = time.perf_counter()
+        payload = np.random.default_rng(seed + 9).bytes(RELAY_BYTES)
+        host = fingerprint_bytes(payload)
+        src = os.path.join(root, "payload.bin")
+        with open(src, "wb") as fh:
+            fh.write(payload)
+        tuned_src = os.path.join(root, "payload-tuned.bin")
+        with open(tuned_src, "wb") as fh:
+            fh.write(payload[:RELAY_TUNED_BYTES])
+        tuned_host = fingerprint_bytes(payload[:RELAY_TUNED_BYTES])
+        del payload
+        make_s = time.perf_counter() - t0
+        route = RoutePlanner(shared_trunk_topology(1, trunk_hops=2)).best_route(
+            "src", "d0", RELAY_BYTES)
+        check(route.n_hops == 3, f"a 3-hop route, got {route.nodes}")
+        n_chunks = RELAY_BYTES // RELAY_CHUNK
+        target = (n_chunks // 2) * RELAY_CHUNK
+        flips = []
+
+        class FlipOnce:
+            """The middle hop's landing: one bit of one chunk flips, once."""
+
+            def __init__(self, inner):
+                self._inner = inner
+
+            def write(self, offset, data):
+                if offset == target and not flips:
+                    flips.append(offset)
+                    data = bytearray(data)
+                    data[len(data) // 2] ^= 0x04
+                self._inner.write(offset, data)
+
+            def read_back(self, offset, length):
+                return self._inner.read_back(offset, length)
+
+        out = os.path.join(root, "replica.bin")
+        sync(device)
+        reset()
+        t0 = time.perf_counter()
+        rep = RelayTransfer(
+            route, FileSource(src), FileDest(out, RELAY_BYTES),
+            workdir=os.path.join(root, "work"), chunk_bytes=RELAY_CHUNK, movers=4,
+            dest_wrapper=lambda h, d: FlipOnce(d) if h == 1 else d, device=device,
+        ).run()
+        sync(device)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        check(flips == [target], "the bit flip happened")
+        check(rep.file_digest == host, "relay file digest equals the host digest")
+        check(filecmp.cmp(src, out, shallow=False), "relay destination equals the payload")
+        check(rep.refetches == 1 and [h.refetches for h in rep.hops] == [0, 1, 0],
+              "the flipped landing was healed by exactly one re-fetch on the middle hop")
+        check(rep.n_chunks == n_chunks and all(h.moved_chunks == n_chunks for h in rep.hops),
+              "every hop moved every chunk")
+        # whole-chunk hops: one launch for the data, one for the read-back,
+        # per chunk per hop, and two for the corrupt attempt
+        plain = {"bytes": RELAY_BYTES, "chunks": n_chunks, "hops": route.n_hops,
+                 "seconds": secs, "GBps": RELAY_BYTES / secs / 1e9,
+                 "refetches": rep.refetches, "launches": launches,
+                 "whole_chunk_launches": 2 * (route.n_hops * n_chunks + rep.refetches)}
+
+        # the tuned relay: hop 1's path turns lossy at 40 % of its bytes
+        # (deterministic loss: an 8 MiB read then lands on its 20th try, a
+        # 1 MiB one on its first), so the hop's controller shrinks its granule
+        lossy = StepPath(StepScenario("hop1_loss_at_40pct", (
+            Phase(0.0, per_op_s=5e-3),
+            Phase(0.4, per_op_s=5e-3, error_per_byte=3.0 / RELAY_CHUNK))),
+            RELAY_TUNED_BYTES, sleep=time.sleep)
+        out = os.path.join(root, "replica-tuned.bin")
+        sync(device)
+        reset()
+        t0 = time.perf_counter()
+        rep = RelayTransfer(
+            route, FileSource(tuned_src), FileDest(out, RELAY_TUNED_BYTES),
+            workdir=os.path.join(root, "work-tuned"), chunk_bytes=RELAY_CHUNK, movers=1,
+            tuning=True, granule_min=RELAY_GRANULE_MIN, tune_hops={1}, max_retries=200,
+            retry_backoff_s=0.0,
+            source_wrapper=lambda h, s: lossy.wrap_source(s) if h == 1 else s,
+            dest_wrapper=lambda h, d: lossy.wrap_dest(d) if h == 1 else d,
+            device=device,
+        ).run()
+        sync(device)
+        tsecs = time.perf_counter() - t0
+        tlaunches = counts()
+        check(rep.file_digest == tuned_host, "tuned relay file digest equals the host digest")
+        check(filecmp.cmp(tuned_src, out, shallow=False),
+              "tuned relay destination equals the payload")
+        h1 = rep.hops[1]
+        check(h1.granule_replans >= 1 and h1.granule_bytes < RELAY_CHUNK,
+              f"the lossy hop shrank its granule ({h1.granule_bytes} B, "
+              f"{h1.granule_replans} replans)")
+        tuned = {"bytes": RELAY_TUNED_BYTES, "seconds": tsecs,
+                 "GBps": RELAY_TUNED_BYTES / tsecs / 1e9,
+                 "granule_bytes": [h.granule_bytes for h in rep.hops],
+                 "granule_replans": [h.granule_replans for h in rep.hops],
+                 "failed_reads": lossy.failed_reads, "launches": tlaunches,
+                 # hops 0 and 2 move whole chunks: two launches a chunk
+                 "whole_chunk_launches": 2 * 2 * (RELAY_TUNED_BYTES // RELAY_CHUNK)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"payload_s": make_s, "plain": plain, "tuned": tuned}
+
+
+def cli_path(device, reset, counts) -> dict:
+    """Main path, part 7: the port's ``transferd`` in process on ``device``,
+    every mode on fresh directories, each with the launch counts at 0."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import transferd
+
+    dev = str(device)
+    root = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    real = os.path.join(root, "real")
+    runs = {}
+
+    def run(name: str, argv: list[str], *expect: str) -> str:
+        buf = io.StringIO()
+        sync(device)
+        reset()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                transferd.main(argv)
+        except SystemExit as e:
+            raise RuntimeError(f"transferd {name} exited with {e.code}:\n"
+                               f"{buf.getvalue()[-2000:]}") from e
+        sync(device)
+        out = buf.getvalue()
+        runs[name] = {"seconds": time.perf_counter() - t0, "launches": counts()}
+        for want in expect:
+            check(want in out, f"transferd {name} printed {want!r}")
+        return out
+
+    def all_succeeded(name: str, out: str, n: int) -> None:
+        states = re.findall(r"^  task-\S+\s+(\S+)", out, re.M)
+        check(states == ["SUCCEEDED"] * n, f"transferd {name}: {n} tasks SUCCEEDED, got {states}")
+
+    try:
+        run("testbed", ["--policy", "all", "--small", "60", "--small-mb", "100",
+                        "--large", "2", "--large-gb", "100", "--tenants", "2",
+                        "--movers", "16", "--concurrent", "4"],
+            "marginal/file_bound aggregate speedup")
+        all_succeeded("real", run("real", ["--real", real, "--device", dev]), 4)
+        all_succeeded("real_again", run("real_again", ["--real", real, "--device", dev]), 4)
+        run("scrub", ["scrub", "--root", os.path.join(real, "state"), "--device", dev],
+            "0 quarantined", "176 regions")
+        run("cas_stats", ["cas", "stats", "--index",
+                          os.path.join(real, "state", "cas", "index.log")],
+            "# chunk index")
+        run("fabric_plan", ["fabric", "plan", "--topology", "chain", "--dst", "d0"], "0: src")
+        run("fabric_campaign", ["fabric", "campaign", "--topology", "chain", "--fanout", "4",
+                                "--gb", "100", "--chaos", "link_outage_at_50pct+degrade_hop"],
+            "# wire reduction")
+        run("fabric_replicate", ["fabric", "replicate", "--root", os.path.join(root, "fabric"),
+                                 "--fanout", "4", "--kb", "512", "--device", dev],
+            "campaign SUCCEEDED: 4/4 replicas verified, 0 escapes")
+        run("top", ["top", "--root", os.path.join(root, "top"), "--frames", "3",
+                    "--device", dev], "--- transferd top")
+        run("trace_real", ["trace", "--export", os.path.join(root, "trace.json"),
+                           "--real", os.path.join(root, "trace"), "--device", dev],
+            "exported ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
+
+
+def digest_latency(device, iters: int = 200, threads: int = 16) -> dict:
+    """Host-clock latency of one card digest of a host byte view
+    (``fingerprint_on_device``: staging copy, host-to-device copy, launch,
+    wait), alone and from ``threads`` threads at once, beside the host
+    digest of the same bytes: the cost the movers, probes, scrubber and
+    relay pay per chunk. Each call ends in a wait for its residues."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.dataplane import fingerprint_on_device
+    from repro_torch.core.integrity import fingerprint_bytes
+
+    out = {}
+    for name, n in (("64KiB", 64 * 1024), ("256KiB", 256 * 1024),
+                    ("300001B", 300_001), ("8MiB", CHUNK_BYTES)):
+        data = np.random.default_rng(n).bytes(n)
+        check(fingerprint_on_device(data, device) == fingerprint_bytes(data),
+              f"card digest of {name} equals the host digest")
+        reps = max(8, iters * 64 * 1024 // max(n, 64 * 1024 * 4))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fingerprint_on_device(data, device)
+        alone = (time.perf_counter() - t0) / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fingerprint_bytes(data)
+        host = (time.perf_counter() - t0) / reps
+
+        def burst(_i):
+            for _ in range(reps):
+                fingerprint_on_device(data, device)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(burst, range(threads)))
+        wall = time.perf_counter() - t0
+        out[name] = {"bytes": n, "calls": reps, "card_ms": alone * 1e3, "host_ms": host * 1e3,
+                     f"card_ms_{threads}_threads": wall / reps * 1e3,
+                     f"card_calls_per_s_{threads}_threads": threads * reps / wall}
+    return out
 
 
 def main() -> int:
@@ -753,6 +1059,8 @@ def main() -> int:
     print("matmul_path " + json.dumps(mpath))
     check(mpath["launches"]["matmul_digest"] > 0, "matmul_digest launched on its path")
 
+    lat = digest_latency(device)
+    print("digest_latency " + json.dumps(lat))
     ckpt = checkpoint_path(args.seed, device, reset, counts)
     print("checkpoint " + json.dumps(ckpt))
     check(ckpt["launches"]["checksum_words"] > 0,
@@ -761,9 +1069,42 @@ def main() -> int:
     print("service " + json.dumps(svc))
     for kernel in ("checksum_many_words", "checksum_words"):
         check(svc["launches"][kernel] > 0, f"{kernel} launched on the service path")
-    # each kernel's launches over the four main-path runs
-    launches = {k: launches[k] + mpath["launches"][k] + ckpt["launches"][k]
-                + svc["launches"][k] for k in launches}
+    idle = svc["idle_delta"]
+    check(sum(idle["launches"].values()) >= 3 * idle["chunks_deduped"],
+          "the delta save's dedup probes digested source, donor and landing on the card")
+    n = SERVICE_HOST_PIPELINE_BYTES // CHUNK_BYTES
+    serial, single = svc["inline_idle"]["serial"], svc["inline_idle"]["single_pass"]
+    check(serial["launches"]["checksum_many_words"] == 2 * n
+          and serial["launches"]["checksum_words"] == 0,
+          f"the serial movers digested each chunk and its read-back on the card: "
+          f"{serial['launches']}")
+    check(single["launches"]["checksum_words"] == n
+          and single["launches"]["checksum_many_words"] == n,
+          f"the single-pass movers digested each streamed chunk and its read-back on the "
+          f"card: {single['launches']}")
+    relay = relay_path(args.seed, device, reset, counts)
+    print("relay " + json.dumps(relay))
+    plain = relay["plain"]
+    check(plain["launches"]["checksum_many_words"] == plain["whole_chunk_launches"]
+          and plain["launches"]["checksum_words"] == 0,
+          f"every relay hop digested every chunk on the card: {plain['launches']} "
+          f"(want {plain['whole_chunk_launches']} checksum_many_words)")
+    check(sum(relay["tuned"]["launches"].values()) > relay["tuned"]["whole_chunk_launches"],
+          "the tuned relay's granule hop digested its granules on the card")
+    cli = cli_path(device, reset, counts)
+    print("cli " + json.dumps(cli))
+    for name in ("real", "real_again", "scrub", "fabric_replicate", "trace_real"):
+        check(cli[name]["launches"]["checksum_words"]
+              + cli[name]["launches"]["checksum_many_words"] > 0,
+              f"transferd {name} digested on the card")
+    for name in ("testbed", "fabric_plan", "fabric_campaign"):
+        check(sum(cli[name]["launches"].values()) == 0, f"transferd {name} used no device")
+    # each kernel's launches over every main-path run
+    runs = [mpath["launches"], ckpt["launches"], svc["launches"],
+            svc["idle_delta"]["launches"], serial["launches"], single["launches"],
+            relay["plain"]["launches"],
+            relay["tuned"]["launches"], *(r["launches"] for r in cli.values())]
+    launches = {k: launches[k] + sum(r[k] for r in runs) for k in launches}
     print("launches all paths " + json.dumps(launches))
 
     kernels = []

@@ -23,7 +23,10 @@ import dataclasses
 import os
 import threading
 
-from repro_torch.core.integrity import Digest, fingerprint_bytes, verify
+import torch
+
+from repro_torch.core.dataplane import fingerprint_on_device, resolve_device
+from repro_torch.core.integrity import Digest, verify
 from repro_torch.core.journal import checked_line, replay_checked_lines
 from repro_torch.obs import metrics as obsmetrics
 
@@ -64,10 +67,17 @@ class ChunkIndex:
     ``scope`` labels this index's metric series (defaults to the log's
     directory name). ``fsync=True`` upgrades appends to full durability —
     unnecessary for a cache, available for tests that assert replay.
+    ``device`` is where ``verify_entry`` digests a donor's backing bytes
+    (``"cuda"``, the default, raises at the first ``verify_entry`` where
+    there is no card; ``"cpu"`` runs the kernels' plain versions) — the
+    reference digests on the host. An index that never verifies, as
+    ``transferd cas stats`` and ``cas gc`` use it, needs no device.
     """
 
     def __init__(self, path: str | os.PathLike, *, scope: str | None = None,
-                 fsync: bool = False):
+                 fsync: bool = False, device="cuda"):
+        self._device_arg = device
+        self._device: torch.device | None = None
         self.path = str(path)
         self.scope = scope or os.path.basename(os.path.dirname(self.path)) or "cas"
         self.fsync = fsync
@@ -171,16 +181,24 @@ class ChunkIndex:
             )
         return data
 
+    @property
+    def device(self) -> torch.device:
+        """The digest device, resolved at first use (``resolve_device``)."""
+        if self._device is None:
+            self._device = resolve_device(self._device_arg)
+        return self._device
+
     def verify_entry(self, entry: IndexEntry) -> bytes | None:
         """Read-back fingerprint an entry; bytes when genuine, None when
-        stale (missing/truncated/corrupted backing). Never raises — a stale
-        entry is an expected condition, not an error."""
+        stale (missing/truncated/corrupted backing). A stale entry is an
+        expected condition, not an error; a failing device digest is an
+        error and raises."""
         try:
             data = self.read_region(entry)
         except OSError:
             return None
         expected = Digest.from_bytes(bytes.fromhex(entry.digest_hex))
-        if not verify(expected, fingerprint_bytes(data)):
+        if not verify(expected, fingerprint_on_device(data, self.device)):
             return None
         return data
 

@@ -284,6 +284,7 @@ def stream_chunk(
     granule: int = DEFAULT_STREAM_GRANULE,
     digest: bool = True,
     iov_batch: int = 1,
+    device: "torch.device | None" = None,
 ) -> tuple[Digest | None, float]:
     """Single-pass chunk move: stream source->dest in granules, fingerprinting
     each granule while it is cache-hot from the read that produced it.
@@ -305,56 +306,90 @@ def stream_chunk(
     endpoints): the syscall count per chunk drops by the batch factor while
     the per-granule cache-hot fingerprinting is unchanged — the stripe movers'
     default, since striping multiplies the number of in-flight sub-ranges.
+
+    With a ``device`` the digest is taken there, of the same bytes: each
+    granule is copied, as it streams, into a pinned host staging tensor the
+    length of the chunk, and ONE ``checksum_words`` launch (``digest_of``)
+    digests it at the chunk's end. ``cksum_seconds`` then counts the staging
+    copies and the device digest.
     """
     granule = max(1, int(granule))
     iov_batch = max(1, int(iov_batch))
-    rf = RunningFingerprint()
     ck_s = 0.0
     pos = offset
     end = offset + length
     viewfn = getattr(source, "read_view", None)
+    # sources without views always digest: the streamed bytes are not
+    # reachable afterwards
+    digest = digest or viewfn is None
+    if device is None:
+        rf = RunningFingerprint()
+    elif digest:
+        stage = torch.empty(length, dtype=torch.uint8,
+                            pin_memory=device.type == "cuda")
+        staged = stage.numpy()
+
+    def take(at: int, v) -> None:
+        nonlocal ck_s
+        t0 = time.perf_counter()
+        if device is None:
+            rf.update(v)
+        else:
+            staged[at - offset : at - offset + len(v)] = np.frombuffer(
+                v, dtype=np.uint8)
+        ck_s += time.perf_counter() - t0
+
+    def result() -> tuple[Digest | None, float]:
+        nonlocal ck_s
+        if not digest:
+            return None, ck_s
+        if device is None:
+            return rf.digest(), ck_s
+        t0 = time.perf_counter()
+        d = _digest_staged(stage, device)
+        ck_s += time.perf_counter() - t0
+        return d, ck_s
+
     if viewfn is not None:
         # fully zero-copy: digest and write straight out of the source image
         while pos < end:
-            take = min(granule * iov_batch, end - pos)
-            mv = viewfn(pos, take)
-            if len(mv) != take:
-                raise IOError(f"short read at {pos}: {len(mv)}/{take}")
+            n = min(granule * iov_batch, end - pos)
+            mv = viewfn(pos, n)
+            if len(mv) != n:
+                raise IOError(f"short read at {pos}: {len(mv)}/{n}")
             if digest:
-                t0 = time.perf_counter()
-                for g in range(0, take, granule):
-                    rf.update(mv[g : g + granule])
-                ck_s += time.perf_counter() - t0
+                for g in range(0, n, granule):
+                    take(pos + g, mv[g : g + granule])
             if iov_batch > 1:
                 write_vec(dest, pos, [mv[g : g + granule]
-                                      for g in range(0, take, granule)])
+                                      for g in range(0, n, granule)])
             else:
                 dest.write(pos, mv)
-            pos += take
-        return (rf.digest() if digest else None), ck_s
+            pos += n
+        return result()
     span = min(granule * iov_batch, length) if length else 0
     buf = pool.acquire(span)
     try:
         while pos < end:
-            take = min(span, end - pos)
-            views = [buf.view[g : min(g + granule, take)]
-                     for g in range(0, take, granule)]
+            n = min(span, end - pos)
+            views = [buf.view[g : min(g + granule, n)]
+                     for g in range(0, n, granule)]
             if len(views) == 1:
                 read_into(source, pos, views[0])
             else:
                 read_into_vec(source, pos, views)
+            at = pos
             for v in views:
-                t0 = time.perf_counter()
-                rf.update(v)
-                ck_s += time.perf_counter() - t0
+                take(at, v)
+                at += len(v)
             if len(views) == 1:
                 dest.write(pos, views[0])
             else:
                 write_vec(dest, pos, views)
-            pos += take
+            pos += n
     finally:
         buf.release()
-    return rf.digest(), ck_s
+    return result()
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -381,50 +416,77 @@ def digest_view_device(mv, device: torch.device) -> Digest:
     allocator) and copy to the card without blocking; ``digest_of`` waits
     for the residues. On ``device="cpu"`` the kernel's plain version runs.
     The per-job twin of ``_digest_rows_device``."""
-    from repro_torch.kernels import digest_of
-
     host = np.frombuffer(mv, dtype=np.uint8)
     stage = torch.empty(host.size, dtype=torch.uint8,
                         pin_memory=device.type == "cuda")
     np.copyto(stage.numpy(), host)
+    return _digest_staged(stage, device)
+
+
+def _digest_staged(stage: torch.Tensor, device: torch.device) -> Digest:
+    """Digest of a host uint8 tensor (pinned for a CUDA ``device``), copied
+    to ``device`` without blocking and digested there by ``digest_of``."""
+    from repro_torch.kernels import digest_of
+
     return digest_of(stage.to(device, non_blocking=True))
 
 
-def _digest_rows_device(rows: list["np.ndarray"],
-                        device: torch.device) -> tuple[list[Digest], int]:
-    """Batched digests with the card in the loop (twin of the reference's
-    ``_digest_rows_pallas``): each equal-length group whose byte length tiles
-    the checksum kernel is stacked once into a pinned host buffer, copied to
-    the device and digested by ONE ``checksum_many_words`` launch; everything
-    else (non-tile lengths) goes to the host GEMM stack. On ``device="cpu"``
-    the wrapper runs the kernel's plain version. Imports lazily, like the
-    reference, so host-only engines never load the kernel module. Returns
-    the digests in row order and how many rows the kernel digested."""
+def fingerprint_on_device(data, device: torch.device):
+    """Digest of a host byte view — or the digests of a list of equal-length
+    views — taken on ``device``: the card's twin of ``fingerprint_bytes`` /
+    ``fingerprint_many`` for the service's movers, dedup probes, index and
+    scrubber, and the relay's hops.
+
+    A length that is a positive multiple of the checksum tile
+    (``kernels.checksum.TILE_BYTES``, 32 KiB) is stacked into one pinned
+    host buffer, copied to ``device`` and digested by ONE
+    ``checksum_many_words`` launch; any other length goes view by view
+    through ``digest_view_device`` (``checksum_words``, the padding divided
+    back out). There is no host path for any length: on ``device="cpu"``
+    the kernels' plain versions run, and a failing launch raises to the
+    caller."""
     from repro_torch.kernels import checksum as _ck
 
+    if not isinstance(data, (list, tuple)):
+        return fingerprint_on_device([data], device)[0]
+    views = [np.frombuffer(v, dtype=np.uint8) for v in data]
+    if not views:
+        return []
+    n = int(views[0].size)
+    if any(int(v.size) != n for v in views):
+        raise ValueError(
+            f"fingerprint_on_device needs equal lengths, got "
+            f"{sorted({int(v.size) for v in views})}")
+    if n == 0 or n % _ck.TILE_BYTES:
+        return [digest_view_device(v, device) for v in views]
+    stage = torch.empty((len(views), n), dtype=torch.uint8,
+                        pin_memory=device.type == "cuda")
+    host = stage.numpy()
+    for j, v in enumerate(views):
+        np.copyto(host[j], v)
+    mat = stage.to(device, non_blocking=True).view(torch.int32)
+    res = _ck.checksum_many_words(mat).cpu().tolist()
+    return [Digest(tuple(int(x) for x in r), n) for r in res]
+
+
+def _digest_rows_device(rows: list["np.ndarray"],
+                        device: torch.device) -> list[Digest]:
+    """Batched digests with the card in the loop (twin of the reference's
+    ``_digest_rows_pallas``): each equal-length group goes through
+    ``fingerprint_on_device`` — ONE ``checksum_many_words`` launch when its
+    length tiles the checksum kernel, ``checksum_words`` row by row
+    otherwise. No row is digested on the host. On ``device="cpu"`` the
+    wrappers run the kernels' plain versions. Returns the digests in row
+    order."""
     out: list[Digest | None] = [None] * len(rows)
     groups: dict[int, list[int]] = {}
     for i, r in enumerate(rows):
         groups.setdefault(int(r.size), []).append(i)
-    host_idx: list[int] = []
-    for n, idxs in groups.items():
-        if n > 0 and n % _ck.TILE_BYTES == 0:
-            stage = torch.empty((len(idxs), n), dtype=torch.uint8,
-                                pin_memory=device.type == "cuda")
-            host = stage.numpy()
-            for row_j, i in enumerate(idxs):
-                np.copyto(host[row_j], rows[i])
-            mat = stage.to(device, non_blocking=True).view(torch.int32)
-            res = _ck.checksum_many_words(mat).cpu().tolist()
-            for row_j, i in enumerate(idxs):
-                out[i] = Digest(tuple(int(v) for v in res[row_j]), n)
-        else:
-            host_idx.extend(idxs)
-    if host_idx:
-        digs = fingerprint_many([rows[i] for i in host_idx])
-        for i, d in zip(host_idx, digs):
+    for idxs in groups.values():
+        digs = fingerprint_on_device([rows[i] for i in idxs], device)
+        for i, d in zip(idxs, digs):
             out[i] = d
-    return out, len(rows) - len(host_idx)             # type: ignore[return-value]
+    return out                                        # type: ignore[return-value]
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +526,7 @@ class IntegrityStats:
     fused_batches: int = 0       # drain rounds digested as one fused dispatch
     fused_jobs: int = 0          # jobs that rode a fused dispatch
     device_rows: int = 0         # fused rows digested by the device kernel
-    host_rows: int = 0           # fused rows digested on the host
+    host_rows: int = 0           # fused rows digested on the host (host backend)
     per_job: int = 0             # jobs verified one by one on the host
     device_jobs: int = 0         # jobs verified one by one on the device
 
@@ -493,9 +555,10 @@ class IntegrityEngine:
     GEMM; ragged lengths fall back per-item inside). Jobs larger than
     ``fuse_max_bytes`` keep the per-chunk granule-streaming path, which is
     already bandwidth-bound at that size. ``backend="device"`` (the default)
-    additionally routes tile-aligned equal-length groups through the batched
-    ``kernels.checksum.checksum_many_words`` kernel on ``device`` (one launch
-    per drain batch); the host GEMM stack handles whatever does not tile.
+    digests every row on ``device`` instead: tile-aligned equal-length groups
+    through the batched ``kernels.checksum.checksum_many_words`` kernel (one
+    launch per group), any other length row by row through
+    ``checksum_words`` — no row goes to the host.
     ``device="cuda"`` is the card and raises where there is none;
     ``device="cpu"`` runs the kernel's plain version. ``backend="host"``
     keeps every digest on the numpy path.
@@ -792,13 +855,14 @@ class IntegrityEngine:
                 self._on_error(job, e)
 
     def _digest_rows(self, rows: list[np.ndarray]) -> list[Digest]:
-        if self._backend == "device":
-            digs, on_device = _digest_rows_device(rows, self._device)
-        else:
-            digs, on_device = fingerprint_many(rows), 0
+        on_device = self._backend == "device"
+        digs = (_digest_rows_device(rows, self._device) if on_device
+                else fingerprint_many(rows))
         with self._lock:
-            self.stats.device_rows += on_device
-            self.stats.host_rows += len(rows) - on_device
+            if on_device:
+                self.stats.device_rows += len(rows)
+            else:
+                self.stats.host_rows += len(rows)
         return digs
 
     def _verify_one(self, job: VerifyJob, wid: int = 0) -> None:

@@ -20,7 +20,8 @@ import dataclasses
 import os
 from typing import Callable, Sequence
 
-from repro_torch.core.integrity import Digest, fingerprint_bytes, verify
+from repro_torch.core.dataplane import fingerprint_on_device, resolve_device
+from repro_torch.core.integrity import Digest, verify
 from repro_torch.obs import metrics as obsmetrics
 
 _M_SCANNED = obsmetrics.REGISTRY.counter(
@@ -68,7 +69,10 @@ class Scrubber:
     looked up for other landed locations of the same content; each candidate
     is itself read-back verified (``verify_entry``) before its bytes are
     trusted, and a candidate that *is* the rotted region is skipped — the
-    corpse cannot donate to itself.
+    corpse cannot donate to itself. ``device`` is where landed regions are
+    digested (``"cuda"``, the default, raises here where there is no card;
+    ``"cpu"`` runs the kernels' plain versions) — the reference digests on
+    the host.
     """
 
     def __init__(
@@ -77,7 +81,9 @@ class Scrubber:
         index=None,                                  # cas.index.ChunkIndex
         budget_bytes: int | None = None,             # per-pass read budget
         on_quarantine: Callable[[ScrubTarget], None] | None = None,
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         self.index = index
         self.budget_bytes = budget_bytes
         self.on_quarantine = on_quarantine
@@ -93,10 +99,9 @@ class Scrubber:
             return None
         return data if len(data) == target.length else None
 
-    @staticmethod
-    def _matches(target: ScrubTarget, data: bytes) -> bool:
+    def _matches(self, target: ScrubTarget, data: bytes) -> bool:
         expected = Digest.from_bytes(bytes.fromhex(target.digest_hex))
-        return verify(expected, fingerprint_bytes(data))
+        return verify(expected, fingerprint_on_device(data, self.device))
 
     def _donor_bytes(self, target: ScrubTarget) -> bytes | None:
         if self.index is None:

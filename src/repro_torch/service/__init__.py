@@ -5,10 +5,10 @@ batched (service.batcher), scheduled under a global mover budget with
 chunk-aware marginal-benefit allocation and tenant fairness
 (service.scheduler), executed with per-chunk integrity + journaling
 (service.service), and survivable across service crashes (service.store).
-Where the reference digests on the host, the port's pipelined tasks verify
-on the card: ``TransferService(device="cuda")`` (the default; ``"cpu"``
-runs the kernels' plain versions) hands ``device`` to each task's integrity
-engine. Store shards, event log, chunk journals, the content index and
+Where the reference digests on the host, the port digests on the card:
+``TransferService(device="cuda")`` (the default; ``"cpu"`` runs the
+kernels' plain versions) takes every digest there — movers, read-back and
+deferred verifies, dedup probes, the content index and the scrubber. Store shards, event log, chunk journals, the content index and
 checkpoint MANIFESTs are byte-compatible with the reference's, so a service
 root written by one package is replayed by the other.
 
@@ -17,8 +17,8 @@ root written by one package is replayed by the other.
     [tid] = svc.submit([(src, dst)], tenant="alice")
     svc.wait(tid)
 
-The virtual-time testbed (``repro.service.testbed``) waits for the fault
-campaigns it drives.
+``testbed`` runs the same scheduling stack in virtual time against the
+calibrated simulator (no device, no files).
 """
 from repro_torch.service.batcher import BatchConfig, Batcher
 from repro_torch.service.ckpt_bridge import CheckpointSubmission, submit_checkpoint
@@ -45,12 +45,22 @@ from repro_torch.service.task import (
     TaskStatus,
     TransferItem,
 )
+from repro_torch.service.testbed import (
+    FaultLog,
+    LoadReport,
+    Submission,
+    SimTask,
+    mixed_workload,
+    run_load,
+)
 
 __all__ = [
     "ACTIVE", "CANCELED", "FAILED", "PAUSED", "PENDING", "SUCCEEDED", "TERMINAL",
     "ActivationIndex", "AllocationEngine", "BatchConfig", "Batcher",
-    "CheckpointSubmission", "EventBus", "FaultReport", "ItemReport",
-    "ServiceConfig", "TaskEvent", "TaskRecord", "TaskSpec", "TaskStatus",
-    "TaskStore", "TenantQuota", "TransferItem", "TransferService",
-    "select_activations", "submit_checkpoint",
+    "CheckpointSubmission",
+    "EventBus", "FaultLog", "FaultReport", "ItemReport", "LoadReport",
+    "ServiceConfig", "SimTask", "Submission", "TaskEvent", "TaskRecord",
+    "TaskSpec", "TaskStatus", "TaskStore", "TenantQuota", "TransferItem",
+    "TransferService", "mixed_workload", "run_load", "select_activations",
+    "submit_checkpoint",
 ]

@@ -27,12 +27,13 @@ subscribe (cursor-resumable) / events_from / flush / close / kill.
 This is the port's copy of ``repro.service.service``. It differs in two
 places. ``TransferService(device=...)`` resolves the device once, at
 construction (``"cuda"``, the default, raises where there is no card;
-``"cpu"`` runs the kernels' plain versions), and hands it to each pipelined
-task's integrity engine, so the deferred verifies digest on the card — the
-reference builds that engine with no backend, on the host. And
-``integrity_stats(task_id)`` reads that engine's counters after the task.
-The serial and single-pass movers' inline digests and the dedup probes
-stay on the host, as in the reference.
+``"cpu"`` runs the kernels' plain versions), and every digest the service
+takes runs there: each pipelined task's integrity engine, the serial and
+single-pass movers' source and read-back digests, the pipelined movers'
+streaming source digest, the dedup probes, the content index's entry
+checks and the scrubber — the reference takes all of them on the host.
+And ``integrity_stats(task_id)`` reads a pipelined task's engine counters
+after the task.
 """
 from __future__ import annotations
 
@@ -61,7 +62,6 @@ from repro_torch.core.chunker import (
 from repro_torch.core.integrity import (
     EMPTY_DIGEST,
     combine_at_offsets,
-    fingerprint_bytes,
     verify,
 )
 from repro_torch.core.dataplane import (
@@ -70,6 +70,7 @@ from repro_torch.core.dataplane import (
     IntegrityEngine,
     IntegrityStats,
     VerifyJob,
+    fingerprint_on_device,
     resolve_device,
     stream_chunk,
 )
@@ -428,7 +429,7 @@ class TransferService:
             if self.cas is None:
                 self.cas = ChunkIndex(
                     os.path.join(str(self.store.root), "cas", "index.log"),
-                    scope="service")
+                    scope="service", device=self.device)
             return self.cas
 
     # ------------------------------------------------------------------
@@ -881,7 +882,7 @@ class TransferService:
         index = self.cas_index()
         with self._lock:
             if self._scrubber is None:
-                self._scrubber = Scrubber(index=index)
+                self._scrubber = Scrubber(index=index, device=self.device)
             scrubber = self._scrubber
             scrubber.index = index
             scrubber.budget_bytes = budget_bytes
@@ -1405,7 +1406,7 @@ class TransferService:
             if len(data) != chunk.length:
                 keep.append((gidx, i, chunk))
                 continue
-            want = fingerprint_bytes(data)
+            want = fingerprint_on_device(data, self.device)
             del data
             satisfied = aliased = stale_here = False
             for e in index.lookup(want.hexdigest(), chunk.length):
@@ -1426,7 +1427,7 @@ class TransferService:
                 except Exception:  # noqa: BLE001 — local copy failed
                     stale_here = True
                     continue
-                if not verify(want, fingerprint_bytes(back)):
+                if not verify(want, fingerprint_on_device(back, self.device)):
                     stale_here = True     # copy landed corrupt: wire instead
                     continue
                 satisfied, aliased = True, alias
@@ -1723,7 +1724,7 @@ class TransferService:
                             f"short read at {chunk.offset}: {len(data)}/{chunk.length}"
                         )
                     t_ck = time.perf_counter()
-                    digest = fingerprint_bytes(data)
+                    digest = fingerprint_on_device(data, self.device)
                     cksum_s = time.perf_counter() - t_ck
                     dst.write(chunk.offset, data)
                 else:
@@ -1733,11 +1734,12 @@ class TransferService:
                     digest, cksum_s = stream_chunk(
                         src, dst, chunk.offset, chunk.length,
                         pool=t.pool, granule=self.config.stream_granule,
+                        device=self.device,
                     )
                 if self.config.integrity and self.config.pipeline != "pipelined":
                     t_ck = time.perf_counter()
                     back = dst.read_back(chunk.offset, chunk.length)
-                    ok = verify(digest, fingerprint_bytes(back))
+                    ok = verify(digest, fingerprint_on_device(back, self.device))
                     cksum_s += time.perf_counter() - t_ck
                     if not ok:
                         raise IntegrityError(

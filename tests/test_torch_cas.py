@@ -35,14 +35,17 @@ PKGS = ("repro", "repro_torch")
 
 @functools.lru_cache(maxsize=None)
 def _ns(name: str) -> SimpleNamespace:
-    """One package's content plane and service under one set of names."""
+    """One package's content plane and service under one set of names. The
+    port's ``TransferService`` and ``ChunkIndex`` are bound to
+    ``device="cpu"``."""
     svc = importlib.import_module(f"{name}.service")
     cas = importlib.import_module(f"{name}.cas")
-    svc_cls = svc.TransferService
+    svc_cls, index_cls = svc.TransferService, cas.ChunkIndex
     if name == "repro_torch":
         svc_cls = functools.partial(svc.TransferService, device="cpu")
+        index_cls = functools.partial(cas.ChunkIndex, device="cpu")
     return SimpleNamespace(
-        name=name, ChunkIndex=cas.ChunkIndex,
+        name=name, ChunkIndex=index_cls,
         seed_index_from_manifest=cas.seed_index_from_manifest,
         TransferService=svc_cls, ServiceConfig=svc.ServiceConfig,
         BatchConfig=svc.BatchConfig,

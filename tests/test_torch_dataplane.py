@@ -136,10 +136,11 @@ def test_port_engine_catches_each_corruption(case):
     assert sorted(port["bad"]) == [2, 7]
     assert sorted(k for k in port["ok"] if k != "gate") == [0, 1, 3, 4, 5, 6, 8]
     assert port["err"] == []
-    # the drain fused, and the aligned rows (landed + deferred source) went
-    # through checksum_many_words, the ragged rows to the host stack
+    # the drain fused, and every row (landed + deferred source) went to the
+    # device path: the aligned rows through checksum_many_words, the ragged
+    # rows through checksum_words
     assert stats.fused_jobs == len(specs) and stats.fused_batches == 1
-    assert stats.device_rows == 12 and stats.host_rows == 6
+    assert stats.device_rows == 18 and stats.host_rows == 0
     # the gate job, taken alone, verified per job on the device path
     assert stats.device_jobs == 1 and stats.per_job == 0
 

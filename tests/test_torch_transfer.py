@@ -178,13 +178,17 @@ def test_port_imports_neither_jax_nor_the_reference():
     banned = ("jax", "jaxlib", "repro", "ml_dtypes")
     bad = []
     files = list(_port_files())
-    assert len(files) >= 42
-    # every subpackage of the port is walked, the service's included
+    assert len(files) >= 56
+    # every subpackage of the port is walked, the service's and the CLI's included
     walked = {os.path.relpath(f, os.path.join(REPO, "src", "repro_torch")) for f in files}
     for module in ("service/service.py", "service/ckpt_bridge.py", "service/store.py",
                    "cas/index.py", "resil/scrub.py", "tune/controller.py",
                    "tune/simtune.py", "core/vclock.py", "core/simulator.py",
-                   "core/scheduler.py", "obs/recorder.py"):
+                   "core/scheduler.py", "obs/recorder.py", "service/testbed.py",
+                   "faults/scenarios.py", "faults/injectors.py", "resil/health.py",
+                   "tune/harness.py", "obs/attr.py", "fabric/topology.py",
+                   "fabric/relay.py", "fabric/campaign.py", "fabric/virtual.py",
+                   "launch/transferd.py"):
         assert module in walked, module
     for path in files:
         with open(path, encoding="utf-8") as fh:
