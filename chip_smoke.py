@@ -66,7 +66,21 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      ``scrub``, ``cas stats``, ``fabric plan``, ``fabric campaign`` under
      chaos, ``fabric replicate``, ``top`` and ``trace --real``; each must
      print its success line, and the real modes must launch the kernels;
- 11. prints ``{"kernels": [...]}`` and, as the last line,
+ 11. trains gemma-2b at full width, cut to 2 of its 18 layers (744.5 M
+     params, bf16, seq 2048, batch 4), through the port's
+     ``launch.train.main`` with every host digest patched to raise: 6 steps
+     with a checkpoint of the params and the AdamW state (about 7.45 GB) at
+     step 4, then a fresh ``main`` that restores it and runs steps 5-6. The
+     losses must be finite and fall, the restored tree equal the saved one
+     bit for bit, the resumed losses equal the uninterrupted run's (within
+     ``LOSS_RTOL``), and the save and the restore launch exactly the digests
+     their chunk plans fix (``ckpt_launches``);
+ 12. serves the same weights through ``launch.serve``: a 64-token prompt and
+     32 greedy tokens for a batch of 4; the decode logits at every prompt
+     position must match the train forward (``DECODE_TOL``), and the card's
+     f32 forward of one 128-token sequence the port's own f32 forward on the
+     CPU (``F32_TOL``);
+ 13. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -928,6 +942,267 @@ def cli_path(device, reset, counts) -> dict:
     return runs
 
 
+# gemma-2b (src/repro/configs/gemma_2b.py:8) at full width, cut to 2 of its 18 layers
+TRAIN_ARGS = ["--arch", "gemma-2b", "--layers", "2", "--seq-len", "2048", "--global-batch", "4",
+              "--lr", "3e-3", "--log-every", "1"]
+TRAIN_STEPS, TRAIN_CKPT_STEP = 6, 4
+LOSS_RTOL = 2e-3                 # resumed steps against the uninterrupted run's
+SERVE_ARGS = ["--arch", "gemma-2b", "--layers", "2"]
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+SERVE_FORWARD_TOKENS = 128       # the card's forward against the port's CPU f32 forward
+DECODE_TOL = 2.0 ** -5           # bf16: max |decode - forward| over max |forward|
+F32_TOL = 2.0 ** -10             # f32 card forward against the CPU f32 forward, same scale
+BF16_PEAK_FLOPS = 989.4e12       # H100 SXM dense bf16, NVIDIA data sheet (at 700 W)
+
+
+class host_digests_raise:
+    """Every host digest the checkpoint path could reach raises while this
+    is entered: the digest module's, the data plane's, the running
+    (streaming) host fingerprint, and the names the engine and the
+    checkpoint module hold."""
+
+    def __enter__(self):
+        import importlib
+
+        def host_digest(*_a, **_k):
+            raise AssertionError("a host digest ran")
+
+        self.saved = []
+        integrity = importlib.import_module("repro_torch.core.integrity")
+        targets = [(integrity, ("fingerprint_bytes", "fingerprint_many")),
+                   (integrity.RunningFingerprint, ("update",))]
+        for mod in ("repro_torch.core.dataplane", "repro_torch.core.transfer",
+                    "repro_torch.ckpt.checkpoint"):
+            targets.append((importlib.import_module(mod),
+                            ("fingerprint_bytes", "fingerprint_many", "fingerprint_view")))
+        for obj, names in targets:
+            for name in names:
+                if name in vars(obj):
+                    self.saved.append((obj, name, vars(obj)[name]))
+                    setattr(obj, name, host_digest)
+        return self
+
+    def __exit__(self, *_exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
+def ckpt_launches(manifest: dict) -> dict:
+    """The digest launches a checkpoint of card leaves takes, fixed by its
+    chunk plan: on save the serial movers digest each chunk and its read-back
+    (``checksum_many_words`` for a tile-aligned chunk, else
+    ``checksum_words``) and each leaf is digested once on the card
+    (``checksum_words``); the restore digests each run of back-to-back
+    chunks of one tile-aligned length in one ``checksum_many_words`` and
+    every other chunk in one ``checksum_words``."""
+    from repro_torch.kernels.checksum import TILE_BYTES
+
+    save = {"checksum_words": 0, "checksum_many_words": 0}
+    restore = dict(save)
+    for entry in manifest["leaves"].values():
+        if not entry["nbytes"]:
+            continue
+        save["checksum_words"] += 1
+        prev = None
+        for c in entry["chunks"]:
+            aligned = c["length"] % TILE_BYTES == 0
+            save["checksum_many_words" if aligned else "checksum_words"] += 2
+            if not aligned:
+                restore["checksum_words"] += 1
+            elif prev is None or prev["length"] != c["length"] \
+                    or prev["offset"] + prev["length"] != c["offset"] \
+                    or prev["length"] % TILE_BYTES:
+                restore["checksum_many_words"] += 1
+            prev = c
+    return {"save": save, "restore": restore}
+
+
+def train_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 8: the port's training launcher (``launch.train.main``)
+    on gemma-2b at full width, 2 layers: 6 steps with a checkpoint of the
+    params and the AdamW state at step 4, then a fresh ``main`` that
+    restores it and runs steps 5-6; every host digest raises meanwhile."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train
+
+    records = {}
+
+    class Recording(CheckpointManager):
+        """The launcher's manager, keeping a copy of what it saved, what it
+        restored, and the seconds and launches of each."""
+
+        def save(self, step, tree, **kw):
+            records["saved"] = {k: t.clone() for k, t in flat(tree).items()}
+            sync(device)
+            reset()
+            t0 = time.perf_counter()
+            rep = super().save(step, tree, **kw)
+            sync(device)
+            records["save"] = {"seconds": time.perf_counter() - t0, "launches": counts(),
+                               "bytes": rep.total_bytes, "path": rep.path}
+            return rep
+
+        def restore(self, step=None, **kw):
+            sync(device)
+            reset()
+            t0 = time.perf_counter()
+            tree, got = super().restore(step, **kw)
+            sync(device)
+            records["restore"] = {"seconds": time.perf_counter() - t0, "launches": counts()}
+            records["restored"] = flat(tree)
+            return tree, got
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            else:
+                out[f"{prefix}{k}"] = v
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    args = TRAIN_ARGS + ["--seed", str(seed), "--device", str(device), "--ckpt-dir", root,
+                         "--steps", str(TRAIN_STEPS)]
+    real_manager = train.CheckpointManager
+    train.CheckpointManager = Recording
+    try:
+        with host_digests_raise():
+            first = train.main(args + ["--ckpt-every", str(TRAIN_CKPT_STEP)])
+            with open(os.path.join(records["save"]["path"], "MANIFEST.json")) as fh:
+                manifest = json.load(fh)
+            resumed = train.main(args + ["--ckpt-every", "0"])
+    finally:
+        train.CheckpointManager = real_manager
+        shutil.rmtree(root, ignore_errors=True)
+    losses, again = first["losses"], resumed["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"the loss falls over {TRAIN_STEPS} steps: {losses}")
+    saved, restored = records.pop("saved"), records.pop("restored")
+    check(sorted(saved) == sorted(restored) == sorted(manifest["leaves"]),
+          "the restored tree has the saved tree's leaves")
+    for key, t in saved.items():
+        r = restored[key]
+        check(r.device == t.device and r.dtype == t.dtype and r.shape == t.shape
+              and torch.equal(r.reshape(-1).view(torch.uint8), t.reshape(-1).view(torch.uint8)),
+              f"{key} restored bit for bit on the card")
+    tail = losses[TRAIN_CKPT_STEP:]
+    check(len(again) == TRAIN_STEPS - TRAIN_CKPT_STEP
+          and all(abs(a - b) <= LOSS_RTOL * abs(b) for a, b in zip(again, tail)),
+          f"the resumed steps repeat the uninterrupted run's losses: {again} vs {tail}")
+    nbytes = records["save"]["bytes"]
+    steady = sorted(first["step_seconds"][1:])[len(first["step_seconds"][1:]) // 2]
+    seq, batch = int(TRAIN_ARGS[TRAIN_ARGS.index("--seq-len") + 1]), \
+        int(TRAIN_ARGS[TRAIN_ARGS.index("--global-batch") + 1])
+    model = train.with_layers(train.build_model("gemma-2b", smoke="--smoke" in TRAIN_ARGS),
+                              int(TRAIN_ARGS[TRAIN_ARGS.index("--layers") + 1]))
+    n_params = model.cfg.param_count()
+    return {"losses": losses, "resumed_losses": again, "loss_rtol": LOSS_RTOL,
+            "params": n_params, "tokens_per_step": seq * batch,
+            "step_ms": [s * 1e3 for s in first["step_seconds"]],
+            "resumed_step_ms": [s * 1e3 for s in resumed["step_seconds"]],
+            "steady_step_ms": steady * 1e3, "tokens_per_s": seq * batch / steady,
+            "model_flop_share": 6 * n_params * seq * batch / steady / BF16_PEAK_FLOPS,
+            "ckpt_bytes": nbytes, "leaves": len(manifest["leaves"]),
+            "chunks": sum(len(e["chunks"]) for e in manifest["leaves"].values()),
+            "save_s": records["save"]["seconds"],
+            "save_GBps": nbytes / records["save"]["seconds"] / 1e9,
+            "restore_s": records["restore"]["seconds"],
+            "restore_GBps": nbytes / records["restore"]["seconds"] / 1e9,
+            "expected_launches": ckpt_launches(manifest),
+            "launches_save": records["save"]["launches"],
+            "launches_restore": records["restore"]["launches"],
+            "launches": {k: records["save"]["launches"][k] + records["restore"]["launches"][k]
+                         for k in records["save"]["launches"]}}
+
+
+def serve_path(seed: int, device) -> dict:
+    """Main path, part 9: the port's serving launcher (``launch.serve``) on the
+    train phase's weights (gemma-2b, full width, 2 layers, the same seed):
+    greedy decode of a 64-token prompt and 32 new tokens for a batch of 4,
+    its logits at every prompt position held to the train forward of the
+    same weights, and the card's forward of one 128-token sequence, in f32,
+    held to the port's own f32 forward on the CPU. The bf16 forward's
+    distance from the f32 one is reported, not bounded: with the
+    reference's init (wk and wv scaled by 1/sqrt(KV heads), 1 for MQA) the
+    attention logits reach hundreds and the softmax is nearly one-hot, so
+    bf16 rounding flips near-tied keys and moves single logits far."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.launch import serve, train
+    from repro_torch.optim.adamw import tree_map
+
+    layers = int(SERVE_ARGS[SERVE_ARGS.index("--layers") + 1])
+    model = train.with_layers(train.build_model("gemma-2b", smoke="--smoke" in SERVE_ARGS),
+                              layers)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        seqs = serve.main(SERVE_ARGS + ["--batch", str(SERVE_BATCH), "--prompt-len",
+                                        str(SERVE_PROMPT), "--gen", str(SERVE_GEN),
+                                        "--seed", str(seed), "--device", str(device)])
+    check(seqs.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN)
+          and (seqs >= 0).all() and (seqs < model.cfg.vocab).all(),
+          f"serve.main generated ({SERVE_BATCH}, {SERVE_PROMPT + SERVE_GEN}) tokens")
+    params = model.init_params(seed, device)
+    prompts = serve.prompts_for(seed, SERVE_BATCH, SERVE_PROMPT, model.cfg.vocab, device)
+    serve.generate(model, params, prompts, 2, SERVE_PROMPT + 2)       # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    again = serve.generate(model, params, prompts, SERVE_GEN, SERVE_PROMPT + SERVE_GEN)
+    sync(device)
+    wall = time.perf_counter() - t0
+    check(np.array_equal(again.cpu().numpy(), seqs), "generate repeats serve.main's tokens")
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+
+    with torch.no_grad():
+        full = model.logits(params, prompts).float()
+        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT, device=device)
+        worst = 0.0
+        for t in range(SERVE_PROMPT):
+            pos = torch.full((SERVE_BATCH,), t, dtype=torch.int32, device=device)
+            lg, cache = model.decode_step(params, cache, prompts[:, t:t + 1], pos)
+            worst = max(worst, float((lg[:, 0].float() - full[:, t]).abs().max()))
+        decode_scale = float(full.abs().max())
+        del cache, full
+        check(worst <= DECODE_TOL * decode_scale,
+              f"decode logits match the train forward: max |err| {worst:.4g} > "
+              f"{DECODE_TOL} x {decode_scale:.4g}")
+        gen = torch.Generator().manual_seed(seed + 11)
+        tokens = torch.randint(0, model.cfg.vocab, (1, SERVE_FORWARD_TOKENS), generator=gen,
+                               dtype=torch.int32)
+        bf16 = model.logits(params, tokens.to(device)).float().cpu()
+        f32_model = type(model)(dataclasses.replace(model.cfg, dtype=torch.float32))
+        params32 = tree_map(lambda t: t.float(), params)
+        card = f32_model.logits(params32, tokens.to(device)).cpu()
+        ref = f32_model.logits(tree_map(lambda t: t.cpu(), params32), tokens)
+        del params32
+    f32_err = float((card - ref).abs().max())
+    f32_scale = float(ref.abs().max())
+    check(f32_err <= F32_TOL * f32_scale,
+          f"the card's f32 forward matches the CPU f32 forward: max |err| {f32_err:.4g} > "
+          f"{F32_TOL} x {f32_scale:.4g}")
+    check(bool(torch.isfinite(bf16).all()), "the card's bf16 forward is finite")
+    bf16_err = (bf16 - ref).abs()
+    agree = float((bf16.argmax(-1) == ref.argmax(-1)).float().mean())
+    return {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+            "decode_steps": steps, "seconds": wall, "ms_per_decode_step": wall / steps * 1e3,
+            "tokens_per_s": SERVE_BATCH * steps / wall,
+            "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / wall,
+            "decode_vs_forward_max_abs_err": worst, "decode_logit_scale": decode_scale,
+            "decode_tolerance": f"{DECODE_TOL} x max|forward logits|",
+            "f32_forward_max_abs_err": f32_err, "f32_logit_scale": f32_scale,
+            "f32_tolerance": f"{F32_TOL} x max|f32 logits|",
+            "bf16_vs_f32_max_abs_err": float(bf16_err.max()),
+            "bf16_vs_f32_mean_abs_err": float(bf16_err.mean()),
+            "f32_mean_abs_logit": float(ref.abs().mean()), "bf16_argmax_agreement": agree,
+            "serve_main": buf.getvalue().strip().splitlines()[0]}
+
+
 def digest_latency(device, iters: int = 200, threads: int = 16) -> dict:
     """Host-clock latency of one card digest of a host byte view
     (``fingerprint_on_device``: staging copy, host-to-device copy, launch,
@@ -1099,11 +1374,28 @@ def main() -> int:
               f"transferd {name} digested on the card")
     for name in ("testbed", "fabric_plan", "fabric_campaign"):
         check(sum(cli[name]["launches"].values()) == 0, f"transferd {name} used no device")
+    trn = train_path(args.seed, device, reset, counts)
+    print("train " + json.dumps(trn))
+    print(f"train: {trn['steady_step_ms']:.1f} ms/step, {trn['tokens_per_s']:.0f} tokens/s, "
+          f"{100 * trn['model_flop_share']:.1f}% of the bf16 dense peak (6 x {trn['params']} "
+          f"params x {trn['tokens_per_step']} tokens); checkpoint {trn['ckpt_bytes'] / 1e9:.2f} GB "
+          f"saved in {trn['save_s']:.2f} s ({trn['save_GBps']:.2f} GB/s), restored in "
+          f"{trn['restore_s']:.2f} s ({trn['restore_GBps']:.2f} GB/s); launches save "
+          f"{trn['launches_save']}, restore {trn['launches_restore']}")
+    for what in ("save", "restore"):
+        got, want = trn[f"launches_{what}"], trn["expected_launches"][what]
+        check(got == {**got, **want} and got["checksum_copy_words"] == got["matmul_digest"] == 0,
+              f"the checkpoint {what} launched exactly {want}: {got}")
+    srv = serve_path(args.seed, device)
+    print("serve " + json.dumps(srv))
+    print(f"serve: {srv['ms_per_decode_step']:.2f} ms per decoded token (batch "
+          f"{srv['batch']}), {srv['tokens_per_s']:.0f} tokens/s")
     # each kernel's launches over every main-path run
     runs = [mpath["launches"], ckpt["launches"], svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],
             relay["plain"]["launches"],
-            relay["tuned"]["launches"], *(r["launches"] for r in cli.values())]
+            relay["tuned"]["launches"], *(r["launches"] for r in cli.values()),
+            trn["launches"]]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in launches}
     print("launches all paths " + json.dumps(launches))
 

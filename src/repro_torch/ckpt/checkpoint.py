@@ -17,11 +17,14 @@ and journals, so either package restores what the other saved.
         <leaf-key>.bin             raw little-endian bytes
         <leaf-key>.journal         chunk-completion journal (kept for audit)
 
-Where the port differs: ``device``. Save hands it to ``ChunkedTransfer``,
-and a leaf that lies on the card is also digested there (``digest_of``, the
-``checksum_words`` kernel) and held against the digest of the bytes written,
-so a fault between the card and the file is caught at save. Restore returns
-tensors on ``device``. A request for the card without one raises.
+Where the port differs: ``device``. Every digest runs there. Save hands
+it to ``ChunkedTransfer``, whose movers digest each chunk and its read-back
+on ``device``, and a leaf that lies on the card is also digested there
+(``digest_of``, the ``checksum_words`` kernel) and held against the digest
+of the bytes written, so a fault between the card and the file is caught at
+save. Restore copies each leaf file to ``device`` once, checks its chunks
+there (``fingerprint_ranges_on_device``) and returns that copy as the
+tensor. A request for the card without one raises.
 """
 from __future__ import annotations
 
@@ -39,8 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.chunker import plan_chunks
-from repro_torch.core.dataplane import resolve_device
-from repro_torch.core.integrity import Digest, fingerprint_bytes
+from repro_torch.core.dataplane import (
+    fingerprint_on_device,
+    fingerprint_ranges_on_device,
+    resolve_device,
+)
+from repro_torch.core.integrity import Digest
 from repro_torch.core.journal import ChunkJournal
 from repro_torch.core.transfer import BufferSource, ChunkedTransfer, FileDest, IntegrityError
 from repro_torch.kernels import digest_of
@@ -195,7 +202,7 @@ def save_checkpoint(
             digest = report.file_digest
             skipped = report.skipped_chunks
         else:
-            digest = fingerprint_bytes(b"")
+            digest = fingerprint_on_device(b"", dev)
             skipped = 0
         journal.close()
         dest.close()
@@ -248,9 +255,12 @@ def restore_checkpoint(
     """Read + verify a checkpoint directory -> (nested dict of tensors on
     ``device``, step).
 
-    Verification is per-chunk and parallel across movers; all bad chunks of a
-    leaf are collected before raising CorruptionError (so an operator knows
-    the exact byte ranges to re-replicate).
+    Verification is per chunk, on ``device``: each leaf file is copied there
+    once, its chunks are digested in place (tile-aligned runs in one
+    ``checksum_many_words`` launch) and the same copy becomes the tensor.
+    All bad chunks of a leaf are collected before raising CorruptionError
+    (so an operator knows the exact byte ranges to re-replicate).
+    ``movers`` is kept for the reference's signature.
     """
     dev = resolve_device(device)
     path = str(path)
@@ -263,23 +273,21 @@ def restore_checkpoint(
         raw = np.fromfile(os.path.join(path, entry["file"]), dtype=np.uint8)
         if raw.nbytes != entry["nbytes"]:
             raise CorruptionError(key, [-1])  # truncated file
-        if verify_chunks and entry["nbytes"]:
-            bad = []
-
-            def check(c):
-                expect = c["digest"]
-                got = fingerprint_bytes(raw[c["offset"] : c["offset"] + c["length"]])
-                if expect is None or got.hexdigest() != expect:
-                    bad.append(c["index"])
-
-            with ThreadPoolExecutor(max_workers=movers) as ex:
-                list(ex.map(check, entry["chunks"]))
-            if bad:
-                raise CorruptionError(key, sorted(bad))
-            whole = Digest.from_bytes(bytes.fromhex(entry["digest"]))
-            if whole.length != entry["nbytes"]:
-                raise CorruptionError(key, [-1])
-        leaves[key] = tensor_from_bytes(raw, entry["dtype"], entry["shape"], dev)
+        if not (verify_chunks and entry["nbytes"]):
+            leaves[key] = tensor_from_bytes(raw, entry["dtype"], entry["shape"], dev)
+            return
+        flat = torch.from_numpy(raw).to(dev)
+        chunks = entry["chunks"]
+        got = fingerprint_ranges_on_device(
+            flat, [(c["offset"], c["length"]) for c in chunks])
+        bad = sorted(c["index"] for c, d in zip(chunks, got)
+                     if c["digest"] is None or d.hexdigest() != c["digest"])
+        if bad:
+            raise CorruptionError(key, bad)
+        whole = Digest.from_bytes(bytes.fromhex(entry["digest"]))
+        if whole.length != entry["nbytes"]:
+            raise CorruptionError(key, [-1])
+        leaves[key] = flat.view(DTYPES[entry["dtype"]]).reshape(list(entry["shape"]))
 
     for item in manifest["leaves"].items():
         load_leaf(item)

@@ -469,6 +469,37 @@ def fingerprint_on_device(data, device: torch.device):
     return [Digest(tuple(int(x) for x in r), n) for r in res]
 
 
+def fingerprint_ranges_on_device(flat: torch.Tensor,
+                                 ranges: "list[tuple[int, int]]") -> list[Digest]:
+    """Digests of ``(offset, length)`` byte ranges of one uint8 tensor that
+    already lies on its device (a checkpoint leaf read back to the card):
+    the twin of ``fingerprint_on_device`` with no staging copy. A run of
+    back-to-back ranges of one tile-aligned length is digested in place by
+    ONE ``checksum_many_words`` launch over a (ranges, words) view; any other
+    range by ``digest_of`` (``checksum_words``, the padding divided back
+    out). On a CPU tensor the kernels' plain versions run. Returns the
+    digests in range order."""
+    from repro_torch.kernels import checksum as _ck
+    from repro_torch.kernels import digest_of
+
+    out: list[Digest | None] = [None] * len(ranges)
+    i = 0
+    while i < len(ranges):
+        off, n = ranges[i]
+        j = i + 1
+        if n and n % _ck.TILE_BYTES == 0 and off % 4 == 0:
+            while j < len(ranges) and ranges[j] == (off + (j - i) * n, n):
+                j += 1
+            mat = flat[off : off + (j - i) * n].view(torch.int32).view(j - i, n // 4)
+            res = _ck.checksum_many_words(mat).cpu().tolist()
+            for k, r in enumerate(res):
+                out[i + k] = Digest(tuple(int(x) for x in r), n)
+        else:
+            out[i] = digest_of(flat[off : off + n])
+        i = j
+    return out
+
+
 def _digest_rows_device(rows: list["np.ndarray"],
                         device: torch.device) -> list[Digest]:
     """Batched digests with the card in the loop (twin of the reference's

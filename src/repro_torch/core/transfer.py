@@ -15,10 +15,16 @@ engine verifies chunks concurrently with subsequent moves — the journal
 record commits only after the deferred verification lands.
 
 This is the port's copy of ``repro.core.transfer``. It differs in one
-place: ``ChunkedTransfer(device=...)`` hands ``device`` to the integrity
-engine it builds, so a pipelined transfer's fused verification digests run
-in the CUDA kernels (``device="cuda"``, the default) or in their plain
-versions (``device="cpu"``). The reference wires no backend there.
+place: ``ChunkedTransfer(device=...)``. Every digest the engine takes runs
+on ``device`` — the movers' source and read-back digests on every pipeline
+and the dedup probes through ``core.dataplane.fingerprint_on_device``, the
+streamed digests through ``stream_chunk(device=)``, and the pipelined
+verification in the integrity engine it builds — in the CUDA kernels
+(``device="cuda"``, the default) or in their plain versions
+(``device="cpu"``). The device is resolved in the constructor on every
+pipeline, so a request for the card without one raises before anything
+moves; a failing launch is an error, never a corrupt chunk. The reference
+digests on the host.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch.core.dataplane import (
     BufferPool,
     IntegrityEngine,
     VerifyJob,
+    fingerprint_on_device,
     read_back_fingerprint,
     resolve_device,
     stream_chunk,
@@ -52,7 +59,6 @@ from repro_torch.core.integrity import (
     Digest,
     combine_at_offsets,
     describe_mismatch,
-    fingerprint_bytes,
     merge_all,
     verify,
 )
@@ -450,7 +456,7 @@ class ChunkedTransfer:
         iov_batch: int = 1,                # granules per vectored I/O syscall
         dedup_index=None,                  # cas.ChunkIndex of the dest endpoint
         dedup_target: str = "",            # dest's canonical path in that index
-        device="cuda",                     # where pipelined verify digests run
+        device="cuda",                     # where every digest runs
     ):
         if source.nbytes != plan.total_bytes:
             raise ValueError(f"source has {source.nbytes} bytes, plan expects {plan.total_bytes}")
@@ -487,9 +493,9 @@ class ChunkedTransfer:
         self.integrity = integrity
         self.pipeline = pipeline
         # the port's one deliberate difference from the reference engine:
-        # the integrity engine it builds digests on ``device`` (the card
-        # unless the caller asks for "cpu"); checked now, not mid-run
-        self.device = resolve_device(device) if pipeline == "pipelined" else device
+        # every digest runs on ``device`` (the card unless the caller asks
+        # for "cpu"); checked now on every pipeline, not mid-run
+        self.device = resolve_device(device)
         self.integrity_workers = integrity_workers
         self.stream_granule = max(1, int(stream_granule))
         self.journal = journal
@@ -615,7 +621,7 @@ class ChunkedTransfer:
             # Source-side fingerprint while the data is in hand (the
             # paper's "modest cost incurred when first reading the file").
             t_ck = time.perf_counter()
-            src_digest = fingerprint_bytes(data)
+            src_digest = fingerprint_on_device(data, self.device)
             cksum_s = time.perf_counter() - t_ck
             self.dest.write(chunk.offset, data)
             return src_digest, cksum_s
@@ -631,7 +637,7 @@ class ChunkedTransfer:
         return stream_chunk(
             self.source, self.dest, chunk.offset, chunk.length,
             pool=self._pool, granule=self.stream_granule,
-            digest=not defer_src, iov_batch=self.iov_batch,
+            digest=not defer_src, iov_batch=self.iov_batch, device=self.device,
         )
 
     # -- dedup negotiation (content plane) ---------------------------------
@@ -665,7 +671,7 @@ class ChunkedTransfer:
             if len(data) != c.length:
                 keep.append(c)
                 continue
-            want = fingerprint_bytes(data)
+            want = fingerprint_on_device(data, self.device)
             del data
             satisfied = False
             demoted_here = False
@@ -696,7 +702,7 @@ class ChunkedTransfer:
                 except Exception:  # noqa: BLE001 — local copy failed
                     demoted_here = True
                     continue
-                if not verify(want, fingerprint_bytes(back)):
+                if not verify(want, fingerprint_on_device(back, self.device)):
                     # the local copy landed corrupt — wire move instead
                     demoted_here = True
                     continue
@@ -800,10 +806,11 @@ class ChunkedTransfer:
                     self.fault_injector(chunk, attempts)
                 src_digest, cksum_s = self._copy_chunk(chunk)
                 if self.integrity and self.pipeline == "serial":
-                    # classic inline verification, kept verbatim
+                    # classic inline verification: whole-chunk read-back,
+                    # digested on the device
                     t_ck = time.perf_counter()
                     back = self.dest.read_back(chunk.offset, chunk.length)
-                    dst_digest = fingerprint_bytes(back)
+                    dst_digest = fingerprint_on_device(back, self.device)
                     cksum_s += time.perf_counter() - t_ck
                     if not verify(src_digest, dst_digest):
                         raise _ChunkCorruption(src_digest, dst_digest)
@@ -812,7 +819,8 @@ class ChunkedTransfer:
                     t_ck = time.perf_counter()
                     dst_digest = read_back_fingerprint(
                         self.dest, chunk.offset, chunk.length,
-                        pool=self._pool, granule=self.stream_granule)
+                        pool=self._pool, granule=self.stream_granule,
+                        device=self.device)
                     cksum_s += time.perf_counter() - t_ck
                     if not verify(src_digest, dst_digest):
                         raise _ChunkCorruption(src_digest, dst_digest)

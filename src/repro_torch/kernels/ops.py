@@ -31,6 +31,8 @@ def _pow_mod(base: int, exp: int) -> int:
 def _to_words(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Flatten + reinterpret as int32 words (little-endian), zero-padding to 4B."""
     flat = x.contiguous().reshape(-1).view(torch.uint8)
+    if flat.storage_offset() % 4:     # a byte slice off a word boundary
+        flat = flat.clone()
     nbytes = int(flat.numel())
     pad = (-nbytes) % 4
     if pad:

@@ -1,1 +1,2 @@
-"""Launchers: the ``transferd`` command-line entry point."""
+"""Launchers: the ``transferd`` command-line entry point, and the dense
+transformer's ``train`` and ``serve`` launchers with their ``steps``."""

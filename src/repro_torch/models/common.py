@@ -1,0 +1,366 @@
+"""Shared model components: configs, norms, RoPE, GQA attention, MLPs.
+
+Twin of ``repro.models.common`` in plain torch ops. Params are nested dicts
+of tensors, as in the reference, with the layers stacked on a leading axis;
+a model walks that axis in a Python loop (the reference's ``lax.scan``) and
+recomputes each block in its backward pass under ``remat="full"``
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+
+Attention is written out in einsums, as the reference writes it in
+``jnp``: ``F.scaled_dot_product_attention`` takes no logit soft-cap, and no
+Pallas kernel computes it, so no hand-written kernel is due. Long queries
+take the blocked online-softmax path over KV chunks, short ones (decode,
+smoke shapes) the dense path; both mask invalid cache slots (position -1).
+
+The port runs a world of one device: the reference's sharding helpers
+(``ShardingMixin``, ``constrain``, ``shardable``, the param and cache
+specs) have no counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+Params = Any
+
+
+# ---------------------------------------------------------------------------
+# config
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None     # default d_model // n_heads
+    act: str = "silu"               # silu (SwiGLU) | gelu (GeGLU)
+    rope_theta: float = 10000.0
+    # attention pattern, repeated to cover n_layers: "g"=global, "l"=local
+    attn_pattern: str = "g"
+    window: int = 4096              # local-attention window
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    post_norms: bool = False        # gemma2-style post-attn/post-mlp norms
+    tie_embeddings: bool = True
+    embed_scale: bool = False       # gemma: scale embeddings by sqrt(d)
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # hybrid (recurrentgemma)
+    lru_width: int | None = None
+    conv1d_size: int = 4
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    enc_positions: int = 1500
+    # vlm
+    n_vis_tokens: int = 0
+    # numerics / memory
+    dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"             # full | dots | none
+    ssm_bf16: bool = False          # SSD intra-chunk matmuls in bf16
+    # applicability notes (long_500k etc.)
+    subquadratic: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def layer_kinds(self) -> tuple[str, ...]:
+        pat = self.attn_pattern
+        reps = -(-self.n_layers // len(pat))
+        return tuple((pat * reps)[: self.n_layers])
+
+    def param_count(self) -> int:
+        """Total parameters (embedding included once when tied)."""
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.family == "ssm":
+            d_in = d * self.ssm_expand
+            nh = d_in // self.ssm_head_dim
+            per = (d * (2 * d_in + 2 * self.ssm_state + nh)   # in_proj (z,x,B,C,dt)
+                   + (d_in + 2 * self.ssm_state) * self.ssm_conv
+                   + nh * 2                                    # A_log, D
+                   + d_in * d + 2 * d)                         # out_proj + norms
+            body = self.n_layers * per
+        elif self.family == "moe":
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+            body = self.n_layers * (attn + mlp + 2 * d)
+        elif self.family == "hybrid":
+            kinds = self.layer_kinds()
+            n_rec = sum(1 for k in kinds if k == "r")
+            n_att = self.n_layers - n_rec
+            w = self.lru_width or d
+            rec = d * w * 2 + w * self.conv1d_size + w * 4 + w * d  # in/out + conv + gates
+            mlp = 3 * d * f
+            body = n_rec * (rec + mlp + 2 * d) + n_att * (attn + mlp + 2 * d)
+        elif self.family == "encdec":
+            mlp = 2 * d * f  # whisper uses plain GELU MLP (no gating)
+            enc = self.n_enc_layers * (attn + mlp + 2 * d)
+            dec = self.n_layers * (2 * attn + mlp + 3 * d)
+            body = enc + dec + self.enc_positions * d
+        else:
+            mlp = 3 * d * f
+            body = self.n_layers * (attn + mlp + 2 * d)
+        embed = v * d * (1 if self.tie_embeddings else 2)
+        return body + embed + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense = self.param_count() - self.n_layers * self.n_experts * 3 * d * f
+        return dense + self.n_layers * self.top_k * 3 * d * f
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+_TRUNC_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))   # Phi(-2)
+_TRUNC_HI = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))    # Phi(2)
+
+
+def trunc_normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times ``scale``, by inverting
+    the CDF of uniform draws of ``gen`` on its device (f32, then cast to
+    ``dtype``)."""
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    x = torch.erfinv((_TRUNC_LO + (_TRUNC_HI - _TRUNC_LO) * u) * 2.0 - 1.0)
+    x = x.mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return x.mul_(scale).to(dtype)
+
+
+class Initializer:
+    """Deterministic per-leaf init from a path-derived seed of an explicit
+    ``torch.Generator`` on ``device`` (drawn where the weights live: a
+    full-width model draws in milliseconds on the card, in seconds on a
+    host). The card's generator is not the CPU's, so one seed gives each
+    its own weights; neither can equal ``jax.random``, and parity with the
+    reference goes through ``convert.params_from_reference``."""
+
+    def __init__(self, seed: int, dtype, device):
+        self.seed = int(seed)
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def __call__(self, path: str, shape: Sequence[int], scale: float | None = None):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * 1_000_003 + zlib.crc32(path.encode())) % (1 << 62))
+        if scale is None:
+            scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+        return trunc_normal(gen, shape, scale, self.dtype)
+
+    def zeros(self, shape):
+        return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
+             unit_offset: bool = True) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = (1.0 + scale.float()) if unit_offset else scale.float()
+    return (x * w).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    ang = positions[..., :, None].float() * freq  # (..., seq, half)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return logits
+    return torch.tanh(logits / cap) * cap
+
+
+ATTN_BLOCK_KV = 512   # KV chunk for the online-softmax (flash-style) path
+ATTN_DENSE_MAX = 1024  # use the dense path when S_q <= this (decode, smoke)
+
+
+def _attn_mask(q_pos, kv_pos, causal, window):
+    """(B, Sq, Skv) bool mask from absolute positions (-1 kv = invalid slot)."""
+    mask = kv_pos[:, None, :] >= 0
+    if causal:
+        mask = mask & (q_pos[:, :, None] >= kv_pos[:, None, :])
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
+    return mask
+
+
+def attention(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, KVH, hd)
+    v: torch.Tensor,          # (B, T, KVH, hd)
+    *,
+    causal: bool,
+    q_positions: torch.Tensor,     # (B, S) absolute positions of queries
+    kv_positions: torch.Tensor,    # (B, T) absolute positions of keys (-1 = invalid)
+    window: int | None = None,     # local attention window (None = global)
+    logit_cap: float | None = None,
+    block_kv: int = ATTN_BLOCK_KV,
+) -> torch.Tensor:
+    """GQA attention with sliding-window and soft-cap support, in f32.
+
+    Long sequences use an online-softmax loop over KV chunks: peak logits
+    memory drops from O(S*T) to O(S*block_kv). Short-q (decode) and smoke
+    shapes take the dense path.
+    """
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    assert H % KVH == 0
+    G = H // KVH
+    qf = q.float().reshape(B, S, KVH, G, hd)
+    T = k.shape[1]
+
+    if S <= ATTN_DENSE_MAX or T <= block_kv:
+        kf, vf = k.float(), v.float()
+        logits = torch.einsum("bskgh,btkh->bkgst", qf, kf) / math.sqrt(hd)
+        logits = softcap(logits, logit_cap)
+        mask = _attn_mask(q_positions, kv_positions, causal, window)
+        logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgst,btkh->bskgh", probs, vf)
+        return out.reshape(B, S, H, hd).to(q.dtype)
+
+    # ---- blocked online-softmax path
+    pad = (-T) % block_kv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+    m = torch.full((B, KVH, G, S), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KVH, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KVH, G, S, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], block_kv):
+        kc = k[:, start : start + block_kv].float()
+        vc = v[:, start : start + block_kv].float()
+        pc = kv_positions[:, start : start + block_kv]
+        logits = torch.einsum("bskgh,btkh->bkgst", qf, kc) / math.sqrt(hd)
+        logits = softcap(logits, logit_cap)
+        mask = _attn_mask(q_positions, pc, causal, window)
+        logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + torch.sum(p, dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bkgst,btkh->bkgsh", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return out.to(q.dtype)
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
+def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
+              act: str) -> torch.Tensor:
+    h = act_fn(act)(x @ wg) * (x @ wi)
+    return h @ wo
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  mask: torch.Tensor | None = None,
+                  final_cap: float | None = None) -> torch.Tensor:
+    logits = softcap(logits.float(), final_cap)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def chunked_xent(
+    h: torch.Tensor,            # (B, S, D) final hidden states
+    w: torch.Tensor,            # (D, V) unembedding
+    labels: torch.Tensor,       # (B, S)
+    *,
+    final_cap: float | None = None,
+    mask: torch.Tensor | None = None,
+    seq_chunk: int = 512,
+) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V) f32 logits.
+
+    The unembed matmul + log-softmax run per seq-chunk and are recomputed in
+    the backward pass: peak logits memory falls from O(S*V) to
+    O(seq_chunk*V) — at gemma's 256k vocab and 8192 tokens a step, 8.4 GB of
+    f32 logits against one chunk's.
+    """
+    B, S, D = h.shape
+    if S <= seq_chunk:
+        logits = torch.einsum("bsd,dv->bsv", h, w)
+        return cross_entropy(logits, labels, mask=mask, final_cap=final_cap)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    pad = (-S) % seq_chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    mask = mask.float()
+
+    def body(hh, ll, mm):
+        logits = softcap(torch.einsum("bsd,dv->bsv", hh, w).float(), final_cap)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, ll.long()[..., None])[..., 0]
+        return torch.sum(nll * mm)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, h.shape[1], seq_chunk):
+        sl = slice(s, s + seq_chunk)
+        part = (checkpoint(body, h[:, sl], labels[:, sl], mask[:, sl], use_reentrant=False)
+                if torch.is_grad_enabled() else body(h[:, sl], labels[:, sl], mask[:, sl]))
+        total = total + part
+    return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def maybe_remat(fn, cfg: ModelConfig):
+    """``remat="full"``: recompute ``fn`` in the backward pass
+    (``torch.utils.checkpoint``); ``"none"``: keep its activations."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r}: the port has 'full' and 'none' (torch has no "
+            "save-the-dots policy)")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped

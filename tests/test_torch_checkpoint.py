@@ -241,6 +241,97 @@ def test_manifests_are_equal(tmp_path):
         assert lines[0] == lines[1], name
 
 
+@pytest.mark.parametrize("first", ["ref", "port"])
+def test_resaved_files_are_byte_identical(tmp_path, first):
+    """A checkpoint saved by one package, restored by the other and saved
+    again there, has the same MANIFEST and leaf files, byte for byte."""
+    _, jckpt = _ref()
+    ref = ref_tree()
+    a, b = tmp_path / "a", tmp_path / "b"
+    if first == "ref":
+        jckpt.save_checkpoint(a, 3, ref, chunk_bytes=4096)
+        got, _ = restore_checkpoint(a / "step_00000003", device="cpu")
+        save_checkpoint(b, 3, got, device="cpu", chunk_bytes=4096)
+    else:
+        save_checkpoint(a, 3, state_from_reference(ref), device="cpu", chunk_bytes=4096)
+        got, _ = jckpt.restore_checkpoint(a / "step_00000003")
+        jckpt.save_checkpoint(b, 3, got, chunk_bytes=4096)
+    da, db = a / "step_00000003", b / "step_00000003"
+    assert (db / "MANIFEST.json").read_bytes() == (da / "MANIFEST.json").read_bytes()
+    bins = sorted(p.name for p in da.glob("*.bin"))
+    assert bins == sorted(p.name for p in db.glob("*.bin")) and len(bins) == len(flat(ref))
+    for name in bins:
+        assert (db / name).read_bytes() == (da / name).read_bytes(), name
+
+
+def _counting(monkeypatch):
+    """Calls of the two digest wrappers (on the CPU their plain versions
+    run and count no launch), with every host digest raising."""
+    import importlib
+
+    from repro_torch.kernels import checksum as ck
+
+    def host_digest(*_a, **_k):
+        raise AssertionError("a host digest ran")
+
+    integrity = importlib.import_module("repro_torch.core.integrity")
+    for fn in ("fingerprint_bytes", "fingerprint_many"):
+        monkeypatch.setattr(integrity, fn, host_digest)
+    monkeypatch.setattr(integrity.RunningFingerprint, "update", host_digest)
+    for mod in ("repro_torch.core.dataplane", "repro_torch.core.transfer",
+                "repro_torch.ckpt.checkpoint"):
+        m = importlib.import_module(mod)
+        for fn in ("fingerprint_bytes", "fingerprint_many", "fingerprint_view"):
+            monkeypatch.setattr(m, fn, host_digest, raising=False)
+    calls = {"checksum_words": 0, "checksum_many_words": 0}
+    for name in calls:
+        real = getattr(ck, name)
+
+        def wrapped(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(ck, name, wrapped)
+    return calls
+
+
+def test_save_and_restore_take_no_host_digest(tmp_path, monkeypatch):
+    """With every host digest raising, a save and a restore of torch state
+    pass: the movers digest each chunk and its read-back on the device (one
+    wrapper call each), and the restore digests each leaf's run of
+    tile-aligned chunks in one ``checksum_many_words`` call and every other
+    chunk in one ``checksum_words`` call. A flipped byte, in the aligned run
+    and in the ragged last chunk, is still reported by chunk."""
+    calls = _counting(monkeypatch)
+    gen = torch.Generator().manual_seed(5)
+    state = {"w": torch.randn(64, 4096, generator=gen),              # 8 aligned chunks
+             "tail": torch.randn(100_003, generator=gen),            # 3 aligned + 1 ragged
+             "b": torch.randn(777, generator=gen).to(torch.bfloat16),  # 1 ragged
+             "step": torch.tensor(4, dtype=torch.int32)}             # 1 ragged
+    mgr = CheckpointManager(tmp_path, device="cpu")
+    mgr.save(4, state, chunk_bytes=128 * 1024)
+    assert calls == {"checksum_many_words": 2 * (8 + 3), "checksum_words": 2 * 3}
+    for name in calls:
+        calls[name] = 0
+    got, step = mgr.restore()
+    assert calls == {"checksum_many_words": 2, "checksum_words": 3}
+    assert step == 4
+    for key, t in state.items():
+        assert got[key].dtype == t.dtype and torch.equal(got[key], t), key
+    man = json.loads((tmp_path / "step_00000004" / "MANIFEST.json").read_text())
+    chunks = man["leaves"]["tail"]["chunks"]
+    assert [c["length"] for c in chunks] == [128 * 1024] * 3 + [400_012 - 3 * 128 * 1024]
+    with open(tmp_path / "step_00000004" / "tail.bin", "r+b") as fh:
+        for c in (chunks[1], chunks[3]):
+            fh.seek(c["offset"] + 7)
+            byte = fh.read(1)
+            fh.seek(c["offset"] + 7)
+            fh.write(bytes([byte[0] ^ 0x04]))
+    with pytest.raises(CorruptionError) as ei:
+        mgr.restore()
+    assert (ei.value.leaf, ei.value.bad_chunks) == ("tail", [1, 3])
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------

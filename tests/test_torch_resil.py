@@ -803,3 +803,33 @@ def test_service_scrub_equal_across_packages(tmp_path):
     port = _service_rot_and_scrub(_ns("repro_torch"), tmp_path / "b", payload, 4)
     assert port == ref
     assert ref[0][3] == 2 and ref[3] == payload
+
+
+def test_scrub_after_a_delta_checkpoint_raises(pkg, tmp_path):
+    """Pins a fault of the reference that the port shares (ROADMAP Queue 3):
+    on a service with a content index, ``scrub()`` after a full and a delta
+    checkpoint save raises ``FileNotFoundError``. A checkpoint task's scrub
+    targets name its leaf files under ``step_N.tmp/``, which the commit
+    renames to ``step_N/``; the scrubber reads the missing region as rot,
+    finds a donor through the index and opens the missing path to repair
+    it. Neither package is fixed here: when one is, this test says so."""
+    svc_mod = importlib.import_module(f"{pkg.name}.service")
+    cfg = pkg.ServiceConfig(dedup="on", mover_budget=4, max_concurrent_tasks=3,
+                            chunk_bytes=32 * 1024, tick_s=0.002)
+    svc = pkg.TransferService(tmp_path / "svc", cfg)
+    r = np.random.default_rng(3)
+    state = {"w": r.standard_normal((96, 512)).astype(np.float32),
+             "b": r.standard_normal(700).astype(np.float32)}
+    if pkg.name == "repro_torch":
+        import torch
+        state = {k: torch.from_numpy(v) for k, v in state.items()}
+    try:
+        svc_mod.submit_checkpoint(svc, tmp_path / "ckpt", 1, state).wait(60)
+        state["w"][:4] += 1.0
+        sub = svc_mod.submit_checkpoint(svc, tmp_path / "ckpt", 2, state, delta=True)
+        sub.wait(60)
+        assert sub.status().chunks_deduped > 0
+        with pytest.raises(FileNotFoundError, match=r"step_0000000\d\.tmp"):
+            svc.scrub()
+    finally:
+        svc.close()

@@ -93,8 +93,7 @@ def test_journals_are_byte_identical(payload, tmp_path, pipeline):
         p = plan if mod is jc else plan_from_reference(plan)
         # one integrity worker keeps verdicts (and so journal lines) in order
         mod.ChunkedTransfer(mod.BufferSource(payload), mod.BufferDest(len(payload)), p,
-                            journal=j, pipeline=pipeline, integrity_workers=1,
-                            **(kw if pipeline == "pipelined" else {})).run()
+                            journal=j, pipeline=pipeline, integrity_workers=1, **kw).run()
         j.close()
         paths.append(path)
     ref_bytes, port_bytes = paths[0].read_bytes(), paths[1].read_bytes()
@@ -151,18 +150,80 @@ def test_journal_resume_across_packages(payload, tmp_path, first, second):
 
 
 def test_transfer_without_device_needs_a_card(payload):
-    """Pipelined transfers verify on the card by default: with no card they
-    refuse to start rather than run on the CPU unasked."""
+    """Every pipeline digests on the card by default: with no card the
+    engine refuses to start rather than run on the CPU unasked."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default transfer is valid here")
     plan = plan_from_reference(_plan(len(payload)))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tc.ChunkedTransfer(tc.BufferSource(payload), tc.BufferDest(len(payload)),
-                           plan, pipeline="pipelined")
-    # the serial engine builds no integrity engine and needs no card
+    for pipeline in ("serial", "single_pass", "pipelined"):
+        for device in ({}, {"device": "cuda"}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                tc.ChunkedTransfer(tc.BufferSource(payload), tc.BufferDest(len(payload)),
+                                   plan, pipeline=pipeline, **device)
+    # the serial engine builds no integrity engine; on "cpu" its movers
+    # digest through the kernels' plain versions
     rep = tc.ChunkedTransfer(tc.BufferSource(payload), tc.BufferDest(len(payload)),
-                             plan).run()
+                             plan, device="cpu").run()
     assert rep.file_digest == tc.fingerprint_bytes(payload)
+
+
+@pytest.fixture
+def host_digests_raise(monkeypatch):
+    """Every host digest the engine and the checkpoint could reach raises:
+    the digest module's, the data plane's, the running (streaming) host
+    fingerprint, and any name the engine or the checkpoint imported."""
+    import importlib
+
+    def host_digest(*_a, **_k):
+        raise AssertionError("a host digest ran")
+
+    integrity = importlib.import_module("repro_torch.core.integrity")
+    for fn in ("fingerprint_bytes", "fingerprint_many"):
+        monkeypatch.setattr(integrity, fn, host_digest)
+    monkeypatch.setattr(integrity.RunningFingerprint, "update", host_digest)
+    for mod in ("repro_torch.core.dataplane", "repro_torch.core.transfer",
+                "repro_torch.ckpt.checkpoint"):
+        m = importlib.import_module(mod)
+        for fn in ("fingerprint_bytes", "fingerprint_many", "fingerprint_view"):
+            monkeypatch.setattr(m, fn, host_digest, raising=False)
+
+
+@pytest.mark.parametrize("pipeline", ["serial", "single_pass", "pipelined"])
+def test_every_pipeline_digests_on_the_device(payload, tmp_path, host_digests_raise,
+                                              pipeline):
+    """With every host digest raising, each pipeline moves, verifies and
+    journals the payload — tile-aligned chunks and the ragged tail — from a
+    buffer and from a file (no views), and a second transfer into a content
+    index dedups every chunk: the source, read-back and probe digests all
+    run on the device (the kernels' plain versions on "cpu")."""
+    from repro_torch.cas import ChunkIndex
+
+    want = jc.fingerprint_bytes(payload)      # the reference's oracle
+    plan = plan_from_reference(_plan(len(payload)))
+    src_path = tmp_path / "src.bin"
+    src_path.write_bytes(payload)
+    for source in (tc.BufferSource(payload), tc.FileSource(str(src_path))):
+        dst = tc.BufferDest(len(payload))
+        rep = tc.ChunkedTransfer(source, dst, plan, pipeline=pipeline, device="cpu").run()
+        assert bytes(dst.buf) == payload and _key(rep.file_digest) == _key(want)
+    index = ChunkIndex(tmp_path / "index.log", device="cpu")
+    out = str(tmp_path / "out.bin")
+    try:
+        reps = []
+        for i in range(2):
+            journal = tc.ChunkJournal(tmp_path / f"{i}.journal")
+            dst = tc.FileDest(out, len(payload))
+            reps.append(tc.ChunkedTransfer(
+                tc.BufferSource(payload), dst, plan, journal=journal, pipeline=pipeline,
+                dedup_index=index, dedup_target=out, device="cpu").run())
+            journal.close()
+            dst.close()
+    finally:
+        index.close()
+    assert reps[0].deduped_chunks == 0
+    assert reps[1].deduped_chunks == plan.n_chunks and reps[1].dedup_demoted == 0
+    assert all(_key(r.file_digest) == _key(want) for r in reps)
+    assert (tmp_path / "out.bin").read_bytes() == payload
 
 
 def _port_files():
@@ -178,7 +239,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     banned = ("jax", "jaxlib", "repro", "ml_dtypes")
     bad = []
     files = list(_port_files())
-    assert len(files) >= 56
+    assert len(files) >= 74
     # every subpackage of the port is walked, the service's and the CLI's included
     walked = {os.path.relpath(f, os.path.join(REPO, "src", "repro_torch")) for f in files}
     for module in ("service/service.py", "service/ckpt_bridge.py", "service/store.py",
@@ -188,7 +249,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "faults/scenarios.py", "faults/injectors.py", "resil/health.py",
                    "tune/harness.py", "obs/attr.py", "fabric/topology.py",
                    "fabric/relay.py", "fabric/campaign.py", "fabric/virtual.py",
-                   "launch/transferd.py"):
+                   "launch/transferd.py", "distributed/mesh.py", "models/common.py",
+                   "models/transformer.py", "configs/registry.py", "configs/gemma_2b.py",
+                   "configs/gemma2_2b.py", "configs/mistral_nemo_12b.py", "configs/yi_34b.py",
+                   "convert.py", "optim/adamw.py", "data/pipeline.py", "launch/steps.py",
+                   "launch/train.py", "launch/serve.py", "core/transfer.py",
+                   "ckpt/checkpoint.py"):
         assert module in walked, module
     for path in files:
         with open(path, encoding="utf-8") as fh:
