@@ -4,9 +4,9 @@ Twin of ``repro.configs.registry``. Each ``repro_torch/configs/<arch>.py``
 defines ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
 reduced same-family config for CPU tests), field for field the reference's
 with torch dtypes. ``ARCHS``, ``SHAPES``, ``skip_reason`` and ``cells`` are
-the reference's. The port has the dense family so far: an arch of another
-family, or its config, raises ``NotImplementedError`` naming ROADMAP
-Queue 1 — a refusal, not a fallback.
+the reference's. The port has the dense, moe, ssm and hybrid families: an
+arch of another family (encdec, vlm), or its config, raises
+``NotImplementedError`` naming ROADMAP Queue 1 — a refusal, not a fallback.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ ARCHS = (
 )
 
 # the archs whose family and config the port has
-PORTED = ("gemma-2b", "gemma2-2b", "yi-34b", "mistral-nemo-12b")
+PORTED = ("gemma-2b", "gemma2-2b", "yi-34b", "mistral-nemo-12b", "qwen3-moe-30b-a3b",
+          "grok-1-314b", "mamba2-370m", "recurrentgemma-2b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +58,8 @@ def skip_reason(arch: str, shape: str) -> str | None:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1: the moe, "
-        "ssm, hybrid, encdec and vlm families)")
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1: the encdec "
+        "and vlm families)")
 
 
 def _module(arch: str):
@@ -75,11 +76,16 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
 
 
 def model_class(cfg: ModelConfig):
+    from repro_torch.models.hybrid import RecurrentGemmaLM
+    from repro_torch.models.moe import MoELM
+    from repro_torch.models.ssm import Mamba2LM
     from repro_torch.models.transformer import DenseLM
 
-    if cfg.family != "dense":
+    families = {"dense": DenseLM, "moe": MoELM, "ssm": Mamba2LM,
+                "hybrid": RecurrentGemmaLM}
+    if cfg.family not in families:
         raise _not_ported(f"model family {cfg.family!r}")
-    return DenseLM
+    return families[cfg.family]
 
 
 def build_model(arch: str, mesh=None, *, smoke: bool = False,

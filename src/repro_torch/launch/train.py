@@ -47,10 +47,14 @@ def parse_mesh(spec: str, device="cuda"):
 
 
 def with_layers(model, n_layers: int | None):
-    """The same arch at ``n_layers`` layers (width unchanged)."""
+    """The same arch at ``n_layers`` layers (width unchanged), rebuilt with
+    the model's own arguments as the reference's ``_rebuild`` does (a MoE's
+    capacity factor ``cf``). The hybrid derives its blocks and its
+    recurrent tail from ``n_layers`` (3 layers: one block, no tail)."""
     if not n_layers:
         return model
-    return type(model)(dataclasses.replace(model.cfg, n_layers=n_layers), model.mesh)
+    kw = {"cf": model.cf} if model.cfg.family == "moe" else {}
+    return type(model)(dataclasses.replace(model.cfg, n_layers=n_layers), model.mesh, **kw)
 
 
 def restore_into(mgr: CheckpointManager):

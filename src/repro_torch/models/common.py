@@ -170,6 +170,9 @@ class Initializer:
     def zeros(self, shape):
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
+    def ones(self, shape):
+        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+
 
 # ---------------------------------------------------------------------------
 # building blocks

@@ -1,0 +1,282 @@
+"""RecurrentGemma (Griffin): RG-LRU recurrent blocks + local MQA, 2:1 pattern.
+
+Twin of ``repro.models.hybrid``. Layer layout (26 layers): repeating
+(recurrent, recurrent, local-attention) blocks — 8 full blocks — plus a
+2-layer recurrent tail. The main stack walks the 8 blocks; the tail is a
+second stack with its own stacked params.
+
+RG-LRU recurrence:
+    r_t = sigmoid(x_t W_a + b_a)          (recurrence gate)
+    i_t = sigmoid(x_t W_x + b_x)          (input gate)
+    log a_t = -c * softplus(Lambda) * r_t (c = 8)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Training runs the recurrence as a log-depth scan over the sequence
+(Hillis-Steele: log2(l) rounds of the associative combine, where the
+reference calls ``lax.associative_scan``). Decode carries (recurrent state,
+conv window, local-attn KV ring) and updates the cache in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common as cm
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.transformer import DenseLM
+
+_C = 8.0  # RG-LRU gate sharpness constant
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over dim 1 with h_{-1} = 0, in log2(l)
+    rounds: round d combines each position with the one d before it,
+    (a_l, b_l) then (a_r, b_r) -> (a_l * a_r, a_r * b_l + b_r)."""
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rg_lru(x, gates_a, gates_x, lam, h0=None):
+    """x: (b,l,w). gates: pre-activations (b,l,w). lam: (w,). Returns (y, h_last)."""
+    r = torch.sigmoid(gates_a.float())
+    i = torch.sigmoid(gates_x.float())
+    log_a = -_C * F.softplus(lam.float())[None, None, :] * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * x.float()
+    if h0 is not None:
+        # fold the carried state into the first step: h_1 = a_1 h0 + b_1
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
+    h = linear_scan(a, b)
+    return h.to(x.dtype), h[:, -1]
+
+
+def rg_lru_step(h, x_t, ga_t, gx_t, lam):
+    """One decode step. h: (b,w); x_t/gates: (b,w)."""
+    r = torch.sigmoid(ga_t.float())
+    i = torch.sigmoid(gx_t.float())
+    a = torch.exp(-_C * F.softplus(lam.float())[None, :] * r)
+    h = a * h.float() + torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) * i * x_t.float()
+    return h, h
+
+
+class RecurrentGemmaLM(torch.nn.Module):
+    PATTERN = ("r", "r", "a")
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = mesh
+        self.w = cfg.lru_width or cfg.d_model
+        kinds = []
+        while len(kinds) < cfg.n_layers:
+            kinds.extend(self.PATTERN)
+        self.kinds = tuple(kinds[: cfg.n_layers])
+        self.n_blocks = cfg.n_layers // len(self.PATTERN)
+        self.n_tail = cfg.n_layers - self.n_blocks * len(self.PATTERN)
+        assert all(k == "r" for k in self.kinds[self.n_blocks * 3:]), self.kinds
+
+    # -- params ----------------------------------------------------------------
+    def _rec_params(self, ini, n, tag):
+        cfg, D, w = self.cfg, self.cfg.d_model, self.w
+        return {
+            "ln": ini.zeros((n, D)),
+            "wx": ini(f"{tag}.wx", (n, D, w)),
+            "wy": ini(f"{tag}.wy", (n, D, w)),
+            "conv_w": ini(f"{tag}.conv", (n, w, cfg.conv1d_size), scale=0.5),
+            "wa": ini(f"{tag}.wa", (n, w, w), scale=1.0 / math.sqrt(w)),
+            "ba": ini.zeros((n, w)),
+            "wxg": ini(f"{tag}.wxg", (n, w, w), scale=1.0 / math.sqrt(w)),
+            "bxg": ini.zeros((n, w)),
+            "lam": ini.ones((n, w)),
+            "wo": ini(f"{tag}.wo", (n, w, D), scale=1.0 / math.sqrt(w)),
+            "ln2": ini.zeros((n, D)),
+            "mi": ini(f"{tag}.mi", (n, D, cfg.d_ff)),
+            "mg": ini(f"{tag}.mg", (n, D, cfg.d_ff)),
+            "mo": ini(f"{tag}.mo", (n, cfg.d_ff, D), scale=1.0 / math.sqrt(cfg.d_ff)),
+        }
+
+    def _attn_params(self, ini, n, tag):
+        cfg, D = self.cfg, self.cfg.d_model
+        H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        return {
+            "ln": ini.zeros((n, D)),
+            "wq": ini(f"{tag}.wq", (n, D, H, hd)),
+            "wk": ini(f"{tag}.wk", (n, D, KVH, hd)),
+            "wv": ini(f"{tag}.wv", (n, D, KVH, hd)),
+            "wo": ini(f"{tag}.wo", (n, H, hd, D), scale=1.0 / math.sqrt(H * hd)),
+            "ln2": ini.zeros((n, D)),
+            "mi": ini(f"{tag}.mi", (n, D, cfg.d_ff)),
+            "mg": ini(f"{tag}.mg", (n, D, cfg.d_ff)),
+            "mo": ini(f"{tag}.mo", (n, cfg.d_ff, D), scale=1.0 / math.sqrt(cfg.d_ff)),
+        }
+
+    def init_params(self, seed: int = 0, device="cuda") -> Any:
+        cfg = self.cfg
+        ini = cm.Initializer(seed, cfg.dtype, device)
+        params = {
+            "embed": ini("embed", (cfg.vocab, cfg.d_model), scale=1.0),
+            "final_norm": ini.zeros((cfg.d_model,)),
+            "rec0": self._rec_params(ini, self.n_blocks, "rec0"),
+            "rec1": self._rec_params(ini, self.n_blocks, "rec1"),
+            "attn": self._attn_params(ini, self.n_blocks, "attn"),
+        }
+        if self.n_tail:
+            params["tail"] = self._rec_params(ini, self.n_tail, "tail")
+        return params
+
+    # -- sub-layer applications ---------------------------------------------
+    def _mlp(self, x, lp):
+        h = cm.rms_norm(x, lp["ln2"])
+        g = cm.act_fn("gelu")(torch.einsum("bld,df->blf", h, lp["mg"]))
+        u = torch.einsum("bld,df->blf", h, lp["mi"])
+        return x + torch.einsum("blf,fd->bld", g * u, lp["mo"])
+
+    def _rec_in(self, x, lp, conv_cache=None):
+        """The recurrent layer up to the RG-LRU: (x branch, gelu branch,
+        recurrence and input gate pre-activations, new conv window)."""
+        h = cm.rms_norm(x, lp["ln"])
+        xb = torch.einsum("bld,dw->blw", h, lp["wx"])
+        yb = cm.act_fn("gelu")(torch.einsum("bld,dw->blw", h, lp["wy"]))
+        xb, new_conv = _causal_conv(xb, lp["conv_w"], cache=conv_cache)
+        ga = torch.einsum("blw,wu->blu", xb, lp["wa"]) + lp["ba"]
+        gx = torch.einsum("blw,wu->blu", xb, lp["wxg"]) + lp["bxg"]
+        return xb, yb, ga, gx, new_conv
+
+    def _rec_layer(self, x, lp, conv_cache=None, h0=None):
+        """Returns (x_out, new_conv_cache, h_last)."""
+        xb, yb, ga, gx, new_conv = self._rec_in(x, lp, conv_cache)
+        hseq, h_last = rg_lru(xb, ga, gx, lp["lam"], h0=h0)
+        out = torch.einsum("blw,wd->bld", hseq.to(x.dtype) * yb, lp["wo"])
+        return self._mlp(x + out, lp), new_conv, h_last
+
+    def _qkv(self, x, lp, q_pos):
+        cfg = self.cfg
+        h = cm.rms_norm(x, lp["ln"])
+        q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
+        k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
+        v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+        return cm.rope(q, q_pos, cfg.rope_theta), cm.rope(k, q_pos, cfg.rope_theta), v
+
+    def _attn_layer(self, x, lp, q_pos):
+        q, k, v = self._qkv(x, lp, q_pos)
+        o = cm.attention(q, k, v, causal=True, q_positions=q_pos,
+                         kv_positions=q_pos, window=self.cfg.window)
+        o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
+        return self._mlp(x + o, lp)
+
+    def _embed(self, params, tokens):
+        x = F.embedding(tokens.long(), params["embed"]).to(self.cfg.dtype)
+        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+
+    @staticmethod
+    def _layer(tree, i):
+        return {k: t[i] for k, t in tree.items()}
+
+    # -- train ------------------------------------------------------------------
+    def hidden(self, params, tokens):
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        names = ("rec0", "rec1", "attn")
+        keys = {n: list(params[n]) for n in names}
+
+        def body(x, *leaves):
+            it = iter(leaves)
+            blk = {n: {k: next(it) for k in keys[n]} for n in names}
+            x, _, _ = self._rec_layer(x, blk["rec0"])
+            x, _, _ = self._rec_layer(x, blk["rec1"])
+            return self._attn_layer(x, blk["attn"], pos)
+
+        step = cm.maybe_remat(body, cfg)
+        for b in range(self.n_blocks):
+            x = step(x, *(params[n][k][b] for n in names for k in keys[n]))
+        if self.n_tail:
+            tkeys = list(params["tail"])
+
+            def tail_body(x, *leaves):
+                return self._rec_layer(x, dict(zip(tkeys, leaves)))[0]
+
+            tail_step = cm.maybe_remat(tail_body, cfg)
+            for j in range(self.n_tail):
+                x = tail_step(x, *(params["tail"][k][j] for k in tkeys))
+        return cm.rms_norm(x, params["final_norm"])
+
+    def _out_w(self, params):
+        return params["embed"].T.to(self.cfg.dtype)
+
+    def logits(self, params, tokens):
+        x = self.hidden(params, tokens)
+        return torch.einsum("bld,vd->blv", x, params["embed"].to(self.cfg.dtype))
+
+    forward = logits
+
+    def loss(self, params, batch):
+        tokens = batch["tokens"]
+        h = self.hidden(params, tokens[:, :-1])
+        return cm.chunked_xent(h, self._out_w(params), tokens[:, 1:],
+                               final_cap=self.cfg.final_softcap)
+
+    # -- decode -------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
+        cfg = self.cfg
+        nb, w, k = self.n_blocks, self.w, cfg.conv1d_size
+        T = min(cfg.window, max_len)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        cache = {
+            "h0": zeros((nb, batch, w), torch.float32),
+            "c0": zeros((nb, batch, k - 1, w), cfg.dtype),
+            "h1": zeros((nb, batch, w), torch.float32),
+            "c1": zeros((nb, batch, k - 1, w), cfg.dtype),
+            "ak": zeros((nb, batch, T, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+            "av": zeros((nb, batch, T, cfg.n_kv_heads, cfg.hd), cfg.dtype),
+            "ap": torch.full((nb, batch, T), -1, dtype=torch.int32, device=device),
+        }
+        if self.n_tail:
+            cache["ht"] = zeros((self.n_tail, batch, w), torch.float32)
+            cache["ct"] = zeros((self.n_tail, batch, k - 1, w), cfg.dtype)
+        return cache
+
+    def _rec_step(self, x, lp, h_cache, c_cache):
+        """x: (B,1,D). Updates this layer's state ``h_cache`` (B, w) and conv
+        window ``c_cache`` in place; returns x_out."""
+        xb, yb, ga, gx, new_conv = self._rec_in(x, lp, c_cache)
+        h_new, hs = rg_lru_step(h_cache, xb[:, 0], ga[:, 0], gx[:, 0], lp["lam"])
+        h_cache.copy_(h_new)
+        c_cache.copy_(new_conv)
+        out = torch.einsum("blw,wd->bld", hs[:, None].to(x.dtype) * yb, lp["wo"])
+        return self._mlp(x + out, lp)
+
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
+        the cache updated in place."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        q_pos = pos[:, None]
+        for b in range(self.n_blocks):
+            x = self._rec_step(x, self._layer(params["rec0"], b), cache["h0"][b], cache["c0"][b])
+            x = self._rec_step(x, self._layer(params["rec1"], b), cache["h1"][b], cache["c1"][b])
+            lp = self._layer(params["attn"], b)
+            ck, cv, cp = cache["ak"][b], cache["av"][b], cache["ap"][b]
+            q, k, v = self._qkv(x, lp, q_pos)
+            DenseLM._cache_write(ck, cv, cp, k, v, pos, pos % ck.shape[1])
+            o = cm.attention(q, ck, cv, causal=True, q_positions=q_pos,
+                             kv_positions=cp, window=cfg.window)
+            o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
+            x = self._mlp(x + o, lp)
+        for j in range(self.n_tail):
+            x = self._rec_step(x, self._layer(params["tail"], j), cache["ht"][j], cache["ct"][j])
+        x = cm.rms_norm(x, params["final_norm"])
+        logits = torch.einsum("bld,vd->blv", x, params["embed"].to(cfg.dtype))
+        return cm.softcap(logits, cfg.final_softcap), cache

@@ -1,0 +1,239 @@
+"""Mamba-2 (state-space duality / SSD) language model.
+
+Twin of ``repro.models.ssm``. SSD is a chunking algorithm: the sequence is
+cut into chunks; the work inside a chunk becomes dense matmuls, and the
+work across chunks a tiny state recurrence over the chunk count (a loop of
+``l / chunk`` steps, 8 at seq 2048, where the reference runs a
+``lax.scan``). Faithful to the minimal-SSD reference: inputs folded as
+(x*dt, A*dt, B, C); depthwise causal conv over (x, B, C); gated RMSNorm
+before the out-projection; D skip connection. Decode carries (conv window,
+SSM state) per layer and updates the cache in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common as cm
+from repro_torch.models.common import ModelConfig
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """log-decay matrix: out[..., i, j] = sum_{k=j+1..i} a[..., k], -inf for j>i."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]          # (..., i, j) = cs_i - cs_j
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x, a, B, C, chunk: int, h0=None):
+    """SSD dual form. x:(b,l,h,p)  a:(b,l,h) log-decay  B,C:(b,l,n).
+
+    Returns (y (b,l,h,p) f32, final_state (b,h,p,n)). Single B/C group
+    (mamba2 ngroups=1) broadcast over heads.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-l) % chunk
+    if pad:  # causal: zero-pad the tail, outputs for real positions unchanged
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        a = F.pad(a, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        out, last = ssd_chunked(x, a, B, C, chunk, h0)
+        return out[:, :l], last
+    c = l // chunk
+    xq = x.reshape(b, c, chunk, h, p)
+    aq = a.reshape(b, c, chunk, h).float()
+    Bq = B.reshape(b, c, chunk, n)
+    Cq = C.reshape(b, c, chunk, n)
+
+    acs = torch.cumsum(aq, dim=2)                        # (b,c,q,h) f32 decays
+    # 1) intra-chunk (dense): Y_diag[q] = sum_{s<=q} C_q.B_s L[q,s] x_s
+    L = torch.exp(_segsum(aq.permute(0, 1, 3, 2)))      # (b,c,h,q,s)
+    G = torch.einsum("bcqn,bcsn->bcqs", Cq, Bq)          # (b,c,q,s)
+    M = G[:, :, None] * L.to(G.dtype)                    # (b,c,h,q,s)
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", M, xq).float()
+
+    # 2) per-chunk end states
+    decay_tail = torch.exp(acs[:, :, -1:, :] - acs)      # (b,c,q,h)
+    states = torch.einsum("bcqn,bcqhp->bchpn", Bq.float(),
+                          decay_tail[..., None] * xq.float())
+
+    # 3) inter-chunk recurrence (a loop over the chunks' states)
+    chunk_decay = torch.exp(acs[:, :, -1, :])            # (b,c,h)
+    carry = torch.zeros((b, h, p, n), dtype=states.dtype, device=x.device) \
+        if h0 is None else h0
+    state_in = []
+    for j in range(c):
+        state_in.append(carry)                           # the state BEFORE chunk j
+        carry = states[:, j] + chunk_decay[:, j, :, None, None] * carry
+    state_in = torch.stack(state_in, dim=1)              # (b,c,h,p,n)
+
+    # 4) inter-chunk contribution
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cq.float(), state_in) \
+        * torch.exp(acs)[..., None]
+    y = (y_diag + y_off).reshape(b, l, h, p)
+    return y, carry
+
+
+def ssd_step(state, x_t, a_t, B_t, C_t):
+    """One decode step. state:(b,h,p,n) x_t:(b,h,p) a_t:(b,h) B_t,C_t:(b,n)."""
+    decay = torch.exp(a_t)[..., None, None]
+    state = decay * state + torch.einsum("bhp,bn->bhpn", x_t, B_t)
+    y = torch.einsum("bhpn,bn->bhp", state, C_t)
+    return state, y
+
+
+def _causal_conv(x, w, cache=None):
+    """Depthwise causal conv. x:(b,l,d) w:(d,k). cache:(b,k-1,d) prev inputs."""
+    k = w.shape[1]
+    if cache is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    else:
+        pad = cache
+    xp = torch.cat([pad, x], dim=1)                      # (b, l+k-1, d)
+    out = sum(xp[:, i : i + x.shape[1]] * w[:, i] for i in range(k))
+    new_cache = xp[:, -(k - 1):, :] if k > 1 else pad
+    return out, new_cache
+
+
+class Mamba2LM(torch.nn.Module):
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = mesh
+        self.d_inner = cfg.d_model * cfg.ssm_expand
+        self.nheads = self.d_inner // cfg.ssm_head_dim
+        self.n_state = cfg.ssm_state
+
+    # -- params ---------------------------------------------------------------
+    def init_params(self, seed: int = 0, device="cuda") -> Any:
+        cfg = self.cfg
+        ini = cm.Initializer(seed, cfg.dtype, device)
+        L, D, di, nh, ns = cfg.n_layers, cfg.d_model, self.d_inner, self.nheads, self.n_state
+        conv_d = di + 2 * ns
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=device))
+        blocks = {
+            "ln": ini.zeros((L, D)),
+            "w_in": ini("w_in", (L, D, 2 * di + 2 * ns + nh)),
+            "conv_w": ini("conv_w", (L, conv_d, cfg.ssm_conv), scale=0.5),
+            "A_log": ini.zeros((L, nh)) + a_log.to(cfg.dtype)[None],
+            "D": ini.ones((L, nh)),
+            "dt_bias": ini.zeros((L, nh)),
+            "norm_scale": ini.zeros((L, di)),
+            "w_out": ini("w_out", (L, di, D), scale=1.0 / math.sqrt(di)),
+        }
+        return {
+            "embed": ini("embed", (cfg.vocab, D), scale=1.0),
+            "final_norm": ini.zeros((D,)),
+            "blocks": blocks,
+        }
+
+    # -- shared projections ----------------------------------------------------
+    def _split_proj(self, h, lp):
+        di, ns = self.d_inner, self.n_state
+        zxbcdt = torch.einsum("bld,de->ble", h, lp["w_in"])
+        z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, ns, ns, self.nheads], dim=-1)
+        dt = F.softplus(dt.float() + lp["dt_bias"].float())
+        return z, xin, Bc, Cc, dt
+
+    def _finish(self, y, z, x_res, dt, lp):
+        """Gated norm + D-skip + out projection. y:(b,l,h,p)."""
+        cfg = self.cfg
+        nh, hd = self.nheads, cfg.ssm_head_dim
+        b, l = y.shape[0], y.shape[1]
+        xh = x_res.reshape(b, l, nh, hd)
+        y = y + lp["D"].float()[None, None, :, None] * xh.float()
+        y = y.reshape(b, l, self.d_inner).to(cfg.dtype)
+        y = cm.rms_norm(y * F.silu(z), lp["norm_scale"])
+        return torch.einsum("ble,ed->bld", y, lp["w_out"])
+
+    def _conv_split(self, xin, Bc, Cc, lp, cache=None):
+        conv_in = torch.cat([xin, Bc, Cc], dim=-1)
+        conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], cache=cache)
+        conv_out = F.silu(conv_out)
+        xc, Bc, Cc = torch.split(conv_out, [self.d_inner, self.n_state, self.n_state], dim=-1)
+        return xc, Bc, Cc, new_conv
+
+    def _embed(self, params, tokens):
+        return F.embedding(tokens.long(), params["embed"]).to(self.cfg.dtype)
+
+    # -- train forward -----------------------------------------------------------
+    def hidden(self, params, tokens):
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        nh, hd = self.nheads, cfg.ssm_head_dim
+        keys = list(params["blocks"])
+
+        def body(x, *leaves):
+            lp = dict(zip(keys, leaves))
+            h = cm.rms_norm(x, lp["ln"])
+            z, xin, Bc, Cc, dt = self._split_proj(h, lp)
+            xc, Bc, Cc, _ = self._conv_split(xin, Bc, Cc, lp)
+            A = -torch.exp(lp["A_log"].float())                       # (nh,)
+            a = dt * A[None, None, :]                                  # (b,l,nh)
+            ssd_dt = torch.bfloat16 if cfg.ssm_bf16 else torch.float32
+            xh = xc.reshape(B, -1, nh, hd).float()
+            xdt = (xh * dt[..., None]).to(ssd_dt)
+            y, _ = ssd_chunked(xdt, a, Bc.to(ssd_dt), Cc.to(ssd_dt),
+                               chunk=min(cfg.ssm_chunk, xh.shape[1]))
+            return x + self._finish(y, z, xc, dt, lp)
+
+        step = cm.maybe_remat(body, cfg)
+        for i in range(cfg.n_layers):
+            x = step(x, *(params["blocks"][key][i] for key in keys))
+        return cm.rms_norm(x, params["final_norm"])
+
+    def _out_w(self, params):
+        return params["embed"].T.to(self.cfg.dtype)
+
+    def logits(self, params, tokens):
+        x = self.hidden(params, tokens)
+        return torch.einsum("bld,vd->blv", x, params["embed"].to(self.cfg.dtype))
+
+    forward = logits
+
+    def loss(self, params, batch):
+        tokens = batch["tokens"]
+        h = self.hidden(params, tokens[:, :-1])
+        return cm.chunked_xent(h, self._out_w(params), tokens[:, 1:])
+
+    # -- decode ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
+        cfg = self.cfg
+        conv_d = self.d_inner + 2 * self.n_state
+        return {
+            "ssm": torch.zeros((cfg.n_layers, batch, self.nheads, cfg.ssm_head_dim,
+                                self.n_state), dtype=torch.float32, device=device),
+            "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_d),
+                                dtype=cfg.dtype, device=device),
+        }
+
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
+        the cache updated in place."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        x = self._embed(params, tokens)                                # (B,1,D)
+        nh, hd = self.nheads, cfg.ssm_head_dim
+        for i in range(cfg.n_layers):
+            lp = {k: t[i] for k, t in params["blocks"].items()}
+            h = cm.rms_norm(x, lp["ln"])
+            z, xin, Bc, Cc, dt = self._split_proj(h, lp)
+            xc, Bc, Cc, new_conv = self._conv_split(xin, Bc, Cc, lp, cache=cache["conv"][i])
+            A = -torch.exp(lp["A_log"].float())
+            a = (dt * A[None, None, :])[:, 0]                          # (B,nh)
+            xdt = xc.reshape(B, nh, hd).float() * dt[:, 0, :, None]
+            new_ssm, y = ssd_step(cache["ssm"][i], xdt, a, Bc[:, 0].float(), Cc[:, 0].float())
+            cache["ssm"][i] = new_ssm
+            cache["conv"][i] = new_conv
+            x = x + self._finish(y[:, None], z, xc, dt, lp)
+        x = cm.rms_norm(x, params["final_norm"])
+        logits = torch.einsum("bld,vd->blv", x, params["embed"].to(cfg.dtype))
+        return logits, cache

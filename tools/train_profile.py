@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where a train step and a decode step of the port spend the card's time.
 
-    python3 tools/train_profile.py [--layers 2] [--seq-len 2048] [--global-batch 4]
-                                   [--steps 2] [--out FILE] [--device cpu --smoke]
+    python3 tools/train_profile.py [--arch gemma-2b] [--layers 2] [--seq-len 2048]
+                                   [--global-batch 4] [--steps 2] [--out FILE]
+                                   [--device cpu --smoke]
 
-gemma-2b at full width (``repro_torch.launch``'s model, cut to ``--layers``
-of its 18 layers, bf16, seeded weights), the train step of
+``--arch`` (gemma-2b by default; any arch the port's registry builds) at
+full width (``repro_torch.launch``'s model, cut to ``--layers`` of its
+layers, 0 for all of them, bf16, seeded weights), the train step of
 ``launch.steps.build_train_step`` (remat, chunked cross-entropy, AdamW) on
 the data pipeline's batches, and the decode step of ``launch.serve`` at
 batch 4 over a 96-token cache. After two untimed warm-up steps each,
@@ -30,6 +32,7 @@ import time
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--global-batch", type=int, default=4)
@@ -64,7 +67,7 @@ def main() -> None:
         if on_card:
             torch.cuda.synchronize(device)
 
-    model = with_layers(build_model("gemma-2b", smoke=args.smoke), args.layers)
+    model = with_layers(build_model(args.arch, smoke=args.smoke), args.layers)
     params = model.init_params(0, device)
     ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10)
     opt = adamw.init(params, ocfg)
@@ -118,7 +121,7 @@ def main() -> None:
                          "calls": calls} for k, ms, calls in kernels[: args.top]]}
 
     dtype = str(model.cfg.dtype).replace("torch.", "")
-    out = {"card": smi, "config": f"gemma-2b, {args.layers} layers, {dtype}, seq {args.seq_len}, "
+    out = {"card": smi, "config": f"{args.arch}, {model.cfg.n_layers} layers, {dtype}, seq {args.seq_len}, "
                                   f"batch {args.global_batch}" + (" (smoke)" if args.smoke else ""),
            "train": measure(run_train, args.steps),
            "decode": measure(run_decode, prompt + gen - 1)}
