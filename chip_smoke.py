@@ -93,7 +93,26 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      depth (48 layers, a 3.7 GB checkpoint); ``train_hybrid`` (3 steps, no
      checkpoint) and ``serve_hybrid`` recurrentgemma-2b cut to one 2:1
      period (3 layers);
- 14. prints ``{"kernels": [...]}`` and, as the last line,
+ 14. the encdec and vlm families: ``train_encdec`` trains the whole of
+     whisper-large-v3 (32 encoder and 32 decoder layers at full width,
+     1.535 B params, 1500 encoder frames of zero embeddings, decoder seq
+     448, batch 4; a checkpoint of about 15.35 GB) as phase 11 trains
+     gemma-2b, except that at the reference's init its grad norm overflows
+     f32 at every step (the clip zeroes the update), which the phase
+     requires and reports; ``train_encdec_cut`` shows the same launcher
+     learning on whisper cut to 1+1 layers (finite grad norms, a falling
+     loss); ``serve_encdec`` serves the whole model by the reference's
+     protocol (``build_prefill_step``, ``prefill_cross``, then
+     ``build_serve_step``'s step) over seeded frame embeddings, holding the
+     prefill to ``dec_logits``' last position, and decode to the forward
+     and the card to the CPU in f32 on the leading layer of each stack
+     (``ENCDEC_CHECK_LAYERS``);
+     ``train_vlm`` trains internvl2-2b at full width cut to 2 of 24 layers
+     (2048 text tokens after the 256-token visual prefix; a checkpoint of
+     about 5.05 GB) and ``serve_vlm`` serves it text-only as phase 12, then
+     ``prefill_vlm`` holds its prefill step over seeded patch embeddings to
+     ``logits_mm`` and the card's f32 ``logits_mm`` to the CPU's;
+ 15. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -977,6 +996,23 @@ HYBRID_TRAIN_ARGS = ["--arch", "recurrentgemma-2b", "--layers", "3", "--seq-len"
                      "--global-batch", "4", "--lr", "3e-3", "--log-every", "1"]
 HYBRID_SERVE_ARGS = ["--arch", "recurrentgemma-2b", "--layers", "3"]
 HYBRID_TRAIN_STEPS = 3
+# whisper-large-v3 (src/repro/configs/whisper_large_v3.py:10) whole: 32 encoder and 32 decoder
+# layers at full width, 1500 encoder frames; the decoder at Whisper's 448 target positions
+ENCDEC_TRAIN_ARGS = ["--arch", "whisper-large-v3", "--seq-len", "448", "--global-batch", "4",
+                     "--lr", "3e-3", "--log-every", "1"]
+ENCDEC_SERVE_ARGS = ["--arch", "whisper-large-v3"]
+# At the reference's init whisper's attention logits have a std of ~48 (wq and wk scaled by
+# 1/sqrt(heads)), so its layers amplify rounding: in f32 on the CPU one sequence alone and in a
+# batch differs by 3.9e-5 of the largest logit at 1+1 layers, 3.5e-4 at 2+2, 8e-3 at 4+4 and
+# 0.36 at 8+8, and the grad norm grows ~10x a layer (2.4e3 at 1+1, 4.6e9 at 6+6), past f32 at
+# 32+32. So serve_encdec holds its tolerances on the leading layer of each stack (the same
+# weights), and train_encdec's learning is checked on a model of that depth.
+ENCDEC_CHECK_LAYERS = 1
+# internvl2-2b (src/repro/configs/internvl2_2b.py:10) at full width, 2 of 24 layers; 2048 text
+# tokens after the 256-token visual prefix
+VLM_TRAIN_ARGS = ["--arch", "internvl2-2b", "--layers", "2", "--seq-len", "2048",
+                  "--global-batch", "4", "--lr", "3e-3", "--log-every", "1"]
+VLM_SERVE_ARGS = ["--arch", "internvl2-2b", "--layers", "2"]
 NO_DROP_CF = 16.0                # MoE capacity factor of the checks: no token dropped
 FLIP_SHARE_BF16 = 0.15           # MoE: tokens whose top-k set differs, decode vs forward, bf16
 FLIP_SHARE_F32 = 0.03            # the same in f32 (decode vs forward, card vs CPU)
@@ -984,6 +1020,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
 SERVE_FORWARD_TOKENS = 128       # the card's forward against the port's CPU f32 forward
 DECODE_TOL = 2.0 ** -5           # bf16: max |decode - forward| over max |forward|
 F32_TOL = 2.0 ** -10             # f32 card forward against the CPU f32 forward, same scale
+PREFILL_TOL = 2.0 ** -7          # bf16 prefill step against the forward's last position: an ulp
 BF16_PEAK_FLOPS = 989.4e12       # H100 SXM dense bf16, NVIDIA data sheet (at 700 W)
 
 
@@ -1054,30 +1091,32 @@ def _arg(args: list, flag: str, default=None):
 
 
 def smoke_model(args: list, *, cf: float | None = None, dtype=None):
-    """The model a launcher builds from ``args`` (arch, ``--layers``), with
-    a MoE's capacity factor ``cf`` and the dtype overridden where given."""
-    import dataclasses
-
+    """The model a launcher builds from ``args`` (arch, ``--layers``, both
+    stacks of an encdec), with a MoE's capacity factor ``cf`` and the dtype
+    overridden where given."""
     from repro_torch.configs.registry import build_model
+    from repro_torch.launch.train import with_layers
 
     kw = {"cf": cf} if cf is not None else {}
     model = build_model(_arg(args, "--arch"), smoke="--smoke" in args, **kw)
-    cfg = model.cfg
-    if _arg(args, "--layers"):
-        cfg = dataclasses.replace(cfg, n_layers=int(_arg(args, "--layers")))
-    if dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
-    return type(model)(cfg, None, **kw)
+    model = with_layers(model, int(_arg(args, "--layers", 0)))
+    return model if dtype is None else smoke_model_like(model, dtype)
 
 
-def flop_counts(model, tokens: int) -> dict:
-    """Model FLOPs a train step of ``tokens`` tokens: 6 x the params each token
-    touches (a MoE's: the top-k experts, ``active_param_count``), and for a
-    MoE apart the FLOPs its expert matmuls run over the padded capacity
-    (E x C rows a layer, C from ``capacity``)."""
+def flop_counts(model, batch: int, seq: int) -> dict:
+    """Model FLOPs of a train step of ``batch`` sequences of ``seq`` tokens: 6 x
+    the params each token touches (a MoE's: the top-k experts,
+    ``active_param_count``), and for a MoE apart the FLOPs its expert
+    matmuls run over the padded capacity (E x C rows a layer, C from
+    ``capacity``). An encdec counts its matmul weights per stack: the
+    encoder's over the frames, the decoder's and the tied embedding's over
+    the tokens, the cross-attention ``wk`` and ``wv`` over the frames. A
+    vlm's sequences are its visual prefix and the tokens."""
     cfg = model.cfg
+    tokens = batch * (seq + cfg.n_vis_tokens)
     out = {"params": cfg.param_count(), "active_params": cfg.active_param_count(),
-           "model_flops": 6 * cfg.active_param_count() * tokens}
+           "tokens": tokens, "model_flops": 6 * cfg.active_param_count() * tokens,
+           "flop_count": f"6 x {cfg.active_param_count()} active params x {tokens} tokens"}
     if cfg.family == "moe":
         from repro_torch.models.moe import capacity
 
@@ -1086,18 +1125,31 @@ def flop_counts(model, tokens: int) -> dict:
         dense = cfg.active_param_count() - cfg.n_layers * cfg.top_k * expert
         out.update(capacity=C, executed_flops=6 * (dense * tokens
                                                    + cfg.n_layers * cfg.n_experts * C * expert))
+    if cfg.family == "encdec":
+        D, A = cfg.d_model, cfg.d_model * cfg.n_heads * cfg.hd
+        mlp = 2 * D * cfg.d_ff
+        frames = batch * cfg.enc_positions
+        enc = cfg.n_enc_layers * (4 * A + mlp)
+        dec = cfg.n_layers * (6 * A + mlp) + cfg.vocab * D
+        cross_kv = cfg.n_layers * 2 * A
+        out.update(frames=frames, model_flops=6 * ((enc + cross_kv) * frames + dec * tokens),
+                   flop_count=f"6 x ({enc} encoder + {cross_kv} cross K/V weights x {frames} "
+                              f"frames + {dec} decoder and embedding weights x {tokens} tokens)")
     return out
 
 
 def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_STEPS,
-               ckpt_step=TRAIN_CKPT_STEP) -> dict:
+               ckpt_step=TRAIN_CKPT_STEP, learns: bool = True) -> dict:
     """Main path, part 8: the port's training launcher (``launch.train.main``)
     on ``args`` (gemma-2b at full width, 2 layers, by default): ``steps``
     steps with a checkpoint of the params and the AdamW state at
     ``ckpt_step``, then a fresh ``main`` that restores it and runs the rest;
     every host digest raises meanwhile. With ``ckpt_step`` None, the steps
     alone. The saved tree is kept on the host and the restored one held to
-    it bit for bit, leaf by leaf."""
+    it bit for bit, leaf by leaf. The losses must be finite; with
+    ``learns``, every grad norm finite and the loss falling; without, every
+    grad norm must overflow f32 (the clip then zeroes each update: whisper
+    whole at the reference's init, ``ENCDEC_CHECK_LAYERS``)."""
     import shutil
     import tempfile
 
@@ -1142,14 +1194,23 @@ def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_ST
 
     seq, batch = int(_arg(args, "--seq-len")), int(_arg(args, "--global-batch"))
     model = smoke_model(args)
-    flops = flop_counts(model, seq * batch)
+    flops = flop_counts(model, batch, seq)
     base = args + ["--seed", str(seed), "--device", str(device), "--steps", str(steps)]
+    def held(run):
+        losses, norms = run["losses"], run["grad_norms"]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"finite losses {losses}")
+        if learns:
+            check(all(np.isfinite(norms)), f"finite grad norms {norms}")
+            check(losses[-1] < losses[0], f"the loss falls over {steps} steps: {losses}")
+        else:
+            check(not any(np.isfinite(norms)),
+                  f"every grad norm overflows f32, so no step moves the weights: {norms}")
+        return losses
+
     if ckpt_step is None:
         reset()
         first = train.main(base)
-        losses = first["losses"]
-        check(len(losses) == steps and all(np.isfinite(losses)), f"finite losses {losses}")
-        check(losses[-1] < losses[0], f"the loss falls over {steps} steps: {losses}")
+        losses = held(first)
         out = {"losses": losses, "launches": counts()}
     else:
         root = tempfile.mkdtemp(prefix="chip-smoke-train-")
@@ -1164,9 +1225,7 @@ def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_ST
         finally:
             train.CheckpointManager = real_manager
             shutil.rmtree(root, ignore_errors=True)
-        losses, again = first["losses"], resumed["losses"]
-        check(len(losses) == steps and all(np.isfinite(losses)), f"finite losses {losses}")
-        check(losses[-1] < losses[0], f"the loss falls over {steps} steps: {losses}")
+        losses, again = held(first), resumed["losses"]
         saved, restored = records.pop("saved"), records.pop("restored")
         check(sorted(saved) == sorted(restored) == sorted(manifest["leaves"]),
               "the restored tree has the saved tree's leaves")
@@ -1199,10 +1258,12 @@ def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_ST
                             for k in records["save"]["launches"]}}
     steady = sorted(first["step_seconds"][1:])[len(first["step_seconds"][1:]) // 2]
     out.update({"arch": _arg(args, "--arch"), "layers": model.cfg.n_layers,
-                "tokens_per_step": seq * batch,
+                "grad_norms": first["grad_norms"], "tokens_per_step": flops["tokens"],
                 "step_ms": [x * 1e3 for x in first["step_seconds"]],
-                "steady_step_ms": steady * 1e3, "tokens_per_s": seq * batch / steady,
+                "steady_step_ms": steady * 1e3, "tokens_per_s": flops["tokens"] / steady,
                 **flops, "model_flop_share": flops["model_flops"] / steady / BF16_PEAK_FLOPS})
+    if model.cfg.family == "encdec":
+        out["enc_layers"] = model.cfg.n_enc_layers
     if "executed_flops" in flops:
         out["executed_flop_share"] = flops["executed_flops"] / steady / BF16_PEAK_FLOPS
     return out
@@ -1213,13 +1274,15 @@ def topk_sets(route_log: list, k: int) -> list:
     return [torch.topk(p, k, dim=-1).indices.sort(dim=-1).values.cpu() for p in route_log]
 
 
-def decode_vs_forward(model, params, prompts, device) -> dict:
+def decode_vs_forward(model, params, prompts, device, audio=None) -> dict:
     """Decode the prompts token by token and hold each step's logits to the
     train forward's at that position (soft-capped as decode caps them).
     The scale is the largest uncapped forward logit: the cap is 1-Lipschitz,
     so it cannot grow an error made before it. A MoE logs its routing: a
     token whose top-k set differs between the two in any layer is left out
-    of the error and counted in ``flipped_share``."""
+    of the error and counted in ``flipped_share``. An encdec decodes over
+    the encoder output of ``audio`` (``prefill_cross``) against
+    ``dec_logits`` on the same encoder output."""
     from repro_torch.models.common import softcap
 
     moe = model.cfg.family == "moe"
@@ -1227,12 +1290,17 @@ def decode_vs_forward(model, params, prompts, device) -> dict:
     k = model.cfg.top_k
     with torch.no_grad():
         model.route_log = [] if moe else None
-        raw = model.logits(params, prompts).float()
+        if audio is None:
+            raw = model.logits(params, prompts).float()
+        else:
+            raw = model.dec_logits(params, prompts, model.encode(params, audio)).float()
         full = softcap(raw, model.cfg.final_softcap)
         fwd_sets = topk_sets(model.route_log or [], k)
         scale = float(raw.abs().max())
         del raw
         cache = model.init_cache(B, S, device=device)
+        if audio is not None:
+            cache = model.prefill_cross(params, cache, audio)
         flipped = torch.zeros((B, S), dtype=torch.bool)
         errs = torch.zeros((B, S))
         for t in range(S):
@@ -1311,17 +1379,15 @@ def serve_path(seed: int, device, args=SERVE_ARGS, *, f32_cpu: bool = True,
         out["capacity_factor"] = cf
 
     def hold(name, res, tol, flip_max, bounded=True):
-        for key, val in res.items():
-            out[f"{name}_{key}"] = val
-        out[f"{name}_tolerance"] = (f"{tol} x max|uncapped forward logits|" if bounded
-                                    else "measured, not bounded")
         if moe:
             check(res["flipped_share"] <= flip_max,
                   f"{name}: the two runs route the same experts: "
                   f"{res['flipped_share']:.3%} of tokens flipped > {flip_max:.0%}")
         if bounded:
-            check(res["max_abs_err"] <= tol * res["scale"],
-                  f"{name}: max |err| {res['max_abs_err']:.4g} > {tol} x {res['scale']:.4g}")
+            hold_to(out, name, res, tol)
+        else:
+            out.update({f"{name}_{key}": val for key, val in res.items()})
+            out[f"{name}_tolerance"] = "measured, not bounded"
 
     hold("decode_vs_forward", decode_vs_forward(model, params, prompts, device), DECODE_TOL,
          FLIP_SHARE_BF16, bf16_decode_bound)
@@ -1359,6 +1425,210 @@ def serve_path(seed: int, device, args=SERVE_ARGS, *, f32_cpu: bool = True,
                 "bf16_vs_f32_mean_abs_err": float(bf16_err.mean()),
                 "f32_mean_abs_logit": float(ref.abs().mean()),
                 "bf16_argmax_agreement": float((bf16.argmax(-1) == ref.argmax(-1)).float().mean())})
+    return out
+
+
+def hold_to(out: dict, name: str, res: dict, tol: float) -> None:
+    """Record ``res`` under ``name`` and require its error within ``tol`` of
+    its scale."""
+    for key, val in res.items():
+        out[f"{name}_{key}"] = val
+    out[f"{name}_tolerance"] = f"{tol} x max|uncapped forward logits|"
+    check(res["max_abs_err"] <= tol * res["scale"],
+          f"{name}: max |err| {res['max_abs_err']:.4g} > {tol} x {res['scale']:.4g}")
+
+
+def seeded_embeddings(seed: int, batch: int, rows: int, model, device) -> torch.Tensor:
+    """A stubbed frontend's output (frame or patch embeddings), standard
+    normal, drawn on the host so every device gets the same."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, rows, model.cfg.d_model), generator=gen).to(device, model.cfg.dtype)
+
+
+def cpu_forward_check(model, params, forward, *inputs) -> dict:
+    """``forward(model, params, *inputs)`` of a f32 copy on the card against
+    the same on the CPU: the error, the scale and the CPU's seconds."""
+    from repro_torch.optim.adamw import tree_map
+
+    f32 = smoke_model_like(model, torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        card = forward(f32, params32, *(x.float() if x.is_floating_point() else x
+                                        for x in inputs)).cpu()
+        params32 = tree_map(lambda t: t.cpu(), params32)
+        t0 = time.perf_counter()
+        host = forward(f32, params32, *(x.cpu().float() if x.is_floating_point() else x.cpu()
+                                        for x in inputs))
+        seconds = time.perf_counter() - t0
+    return {"max_abs_err": float((card - host).abs().max()), "scale": float(host.abs().max()),
+            "cpu_seconds": seconds}
+
+
+def smoke_model_like(model, dtype):
+    """``model`` rebuilt with ``dtype`` (its own arguments kept)."""
+    import dataclasses
+
+    from repro_torch.launch.train import rebuild
+
+    return rebuild(model, dataclasses.replace(model.cfg, dtype=dtype))
+
+
+def batch_sensitivity(model, params, forward, *inputs) -> float:
+    """How far ``forward`` of the first sequence alone lies from the same
+    sequence as row 0 of the batch ``inputs``: the same function summed in
+    another order, over the largest logit."""
+    with torch.no_grad():
+        batch = forward(model, params, *inputs)[:1].float()
+        alone = forward(model, params, *(x[:1] for x in inputs)).float()
+    return float((alone - batch).abs().max() / batch.abs().max())
+
+
+def serve_encdec_path(seed: int, device, args=ENCDEC_SERVE_ARGS) -> dict:
+    """Main path, part 10: whisper's serve protocol, the reference's
+    (``generate`` refuses an encdec): ``launch.steps.build_prefill_step`` and
+    ``prefill_cross`` over a seeded ``audio_embed`` for a batch of 4, then
+    the decode loop through ``build_serve_step``'s step: a 64-token prompt
+    and 32 greedy tokens, with the train phase's weights (the same seed),
+    the whole model. The prefill's logits must equal ``dec_logits``' last
+    position (within a bf16 ulp, ``PREFILL_TOL``). On the leading
+    ``ENCDEC_CHECK_LAYERS`` layers of each stack (the same weights), the f32
+    decode logits at every prompt position must lie within ``F32_TOL`` of
+    the forward's on the same encoder output, and the card's f32 ``encode``
+    + ``dec_logits`` of one sequence within ``F32_TOL`` of the port's own
+    f32 forward on the CPU. At the whole depth, and in bf16, decode against
+    forward is measured, not bounded, beside the forward's own sensitivity
+    to summation order (``batch_sensitivity``): the model amplifies
+    rounding ~3x a layer (``ENCDEC_CHECK_LAYERS``)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.launch.train import with_layers
+    from repro_torch.optim.adamw import tree_map
+
+    model = smoke_model(args)
+    cfg = model.cfg
+    params = model.init_params(seed, device)
+    B = SERVE_BATCH
+    prompts = serve.prompts_for(seed, B, SERVE_PROMPT, cfg.vocab, device)
+    audio = seeded_embeddings(seed + 13, B, cfg.enc_positions, model, device)
+    prefill = build_prefill_step(model).fn
+    step = build_serve_step(model).fn
+
+    def decode(gen):
+        """The serve loop over the prompt and ``gen`` greedy tokens: the
+        tokens and the loop's seconds (``prefill_cross`` before it)."""
+        cache = model.prefill_cross(params, model.init_cache(B, SERVE_PROMPT + gen,
+                                                             device=device), audio)
+        sync(device)
+        t0 = time.perf_counter()
+        tok, pos, out = prompts[:, :1], torch.zeros(B, dtype=torch.int32, device=device), []
+        for t in range(SERVE_PROMPT + gen - 1):
+            tok, cache, pos = step(params, cache, tok, pos)
+            if t + 1 < SERVE_PROMPT:
+                tok = prompts[:, t + 1:t + 2]
+            out.append(tok)
+        seqs = torch.cat([prompts[:, :1]] + out, dim=1)
+        sync(device)
+        return seqs, time.perf_counter() - t0
+
+    batch = {"tokens": prompts, "audio_embed": audio}
+    prefill(params, batch)                                     # warm-up
+    decode(2)
+    sync(device)
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    seqs, wall = decode(SERVE_GEN)
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    check(seqs.shape == (B, SERVE_PROMPT + SERVE_GEN) and bool((seqs >= 0).all())
+          and bool((seqs < cfg.vocab).all())
+          and torch.equal(seqs[:, :SERVE_PROMPT], prompts),
+          f"the serve loop generated ({B}, {SERVE_PROMPT + SERVE_GEN}) tokens after the prompt")
+    with torch.no_grad():
+        full = model.dec_logits(params, prompts, model.encode(params, audio))[:, -1:].float()
+    prefill_err = float((last.float() - full).abs().max())
+    check(prefill_err <= PREFILL_TOL * float(full.abs().max()),
+          f"the prefill step's logits equal dec_logits' last position: {prefill_err:.4g}")
+    out = {"arch": _arg(args, "--arch"), "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+           "batch": B, "prompt": SERVE_PROMPT, "generated": SERVE_GEN, "decode_steps": steps,
+           "seconds": wall, "ms_per_decode_step": wall / steps * 1e3,
+           "tokens_per_s": B * steps / wall, "generated_tokens_per_s": B * SERVE_GEN / wall,
+           "prefill_ms": prefill_s * 1e3, "prefill_max_abs_err": prefill_err,
+           "prefill_scale": float(full.abs().max()), "prefill_tolerance": PREFILL_TOL,
+           "check_layers": ENCDEC_CHECK_LAYERS}
+
+    def forward(m, p, tok, aud):
+        return m.dec_logits(p, tok, m.encode(p, aud))
+
+    def leading(tree, n):
+        return {**tree, "enc": tree_map(lambda t: t[:n], tree["enc"]),
+                "dec": tree_map(lambda t: t[:n], tree["dec"])}
+
+    def measure(name, res):
+        out.update({f"{name}_{k}": v for k, v in res.items()})
+        out[f"{name}_tolerance"] = "measured, not bounded"
+
+    n = ENCDEC_CHECK_LAYERS
+    measure("decode_vs_forward", decode_vs_forward(model, params, prompts, device, audio))
+    cut, cut_params = with_layers(model, n), leading(params, n)
+    measure("cut_decode_vs_forward", decode_vs_forward(cut, cut_params, prompts, device, audio))
+    f32_model, audio32 = smoke_model_like(model, torch.float32), audio.float()
+    params32 = tree_map(lambda t: t.float(), params)
+    del params, cut_params
+    measure("f32_decode_vs_forward",
+            decode_vs_forward(f32_model, params32, prompts, device, audio32))
+    out["f32_batch_sensitivity"] = batch_sensitivity(f32_model, params32, forward, prompts,
+                                                     audio32)
+    cut32, cut_params32 = with_layers(f32_model, n), leading(params32, n)
+    del params32
+    out["cut_f32_batch_sensitivity"] = batch_sensitivity(cut32, cut_params32, forward, prompts,
+                                                         audio32)
+    hold_to(out, "cut_f32_decode_vs_forward",
+            decode_vs_forward(cut32, cut_params32, prompts, device, audio32), F32_TOL)
+    tokens = serve.prompts_for(seed + 11, 1, SERVE_FORWARD_TOKENS, cfg.vocab, device)
+    hold_to(out, "cut_f32_card_vs_cpu",
+            cpu_forward_check(cut32, cut_params32, forward, tokens, audio32[:1]), F32_TOL)
+    return out
+
+
+def vlm_prefill_path(seed: int, device, args=VLM_SERVE_ARGS) -> dict:
+    """Main path, part 11: the vlm's prefill step (``build_prefill_step``) over
+    a seeded ``vis_embed`` of 256 patch embeddings and 128 tokens for a batch
+    of 4: its logits must equal ``logits_mm``' last position (within a bf16
+    ulp, ``PREFILL_TOL``), and the card's f32 ``logits_mm`` of one sequence
+    the port's own f32 one on the CPU (``F32_TOL``)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step
+
+    model = smoke_model(args)
+    cfg = model.cfg
+    params = model.init_params(seed, device)
+    B = SERVE_BATCH
+    tokens = serve.prompts_for(seed + 11, B, SERVE_FORWARD_TOKENS, cfg.vocab, device)
+    vis = seeded_embeddings(seed + 17, B, cfg.n_vis_tokens, model, device)
+    prefill = build_prefill_step(model).fn
+    batch = {"tokens": tokens, "vis_embed": vis}
+    prefill(params, batch)                                    # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    with torch.no_grad():
+        full = model.logits_mm(params, tokens, vis)[:, -1:].float()
+    err = float((last.float() - full).abs().max())
+    check(err <= PREFILL_TOL * float(full.abs().max()),
+          f"the vlm prefill step's logits equal logits_mm's last position: {err:.4g}")
+    out = {"arch": _arg(args, "--arch"), "layers": cfg.n_layers, "batch": B,
+           "vis_tokens": cfg.n_vis_tokens, "text_tokens": SERVE_FORWARD_TOKENS,
+           "prefill_ms": prefill_s * 1e3, "prefill_max_abs_err": err,
+           "prefill_scale": float(full.abs().max()), "prefill_tolerance": PREFILL_TOL}
+
+    def forward(m, p, tok, v):
+        return m.logits_mm(p, tok, v)
+
+    hold_to(out, "f32_card_vs_cpu",
+            cpu_forward_check(model, params, forward, tokens[:1], vis[:1]), F32_TOL)
     return out
 
 
@@ -1533,14 +1803,18 @@ def main() -> int:
               f"transferd {name} digested on the card")
     for name in ("testbed", "fabric_plan", "fabric_campaign"):
         check(sum(cli[name]["launches"].values()) == 0, f"transferd {name} used no device")
-    def train_phase(name, train_args, steps, ckpt_step):
+    def train_phase(name, train_args, steps, ckpt_step, learns=True):
         torch.cuda.empty_cache()
-        out = train_path(args.seed, device, reset, counts, train_args, steps, ckpt_step)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = train_path(args.seed, device, reset, counts, train_args, steps, ckpt_step, learns)
+        out["peak_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
         print(f"{name} " + json.dumps(out))
-        line = (f"{name}: {out['arch']} {out['layers']} layers, {out['steady_step_ms']:.1f} "
+        layers = (f"{out['enc_layers']}+{out['layers']}" if "enc_layers" in out
+                  else f"{out['layers']}")
+        line = (f"{name}: {out['arch']} {layers} layers, {out['steady_step_ms']:.1f} "
                 f"ms/step, {out['tokens_per_s']:.0f} tokens/s, {100 * out['model_flop_share']:.1f}% "
-                f"of the bf16 dense peak (6 x {out['active_params']} active params x "
-                f"{out['tokens_per_step']} tokens)")
+                f"of the bf16 dense peak ({out['flop_count']}), peak {out['peak_GB']:.1f} GB, "
+                f"grad norms {out['grad_norms'][0]:.4g} .. {out['grad_norms'][-1]:.4g}")
         if "executed_flop_share" in out:
             line += (f", {100 * out['executed_flop_share']:.1f}% counting the experts' padded "
                      f"capacity (C = {out['capacity']})")
@@ -1591,13 +1865,50 @@ def main() -> int:
     srv_ssm = serve_phase("serve_ssm", SSM_SERVE_ARGS, bf16_decode_bound=False)
     trn_hyb = train_phase("train_hybrid", HYBRID_TRAIN_ARGS, HYBRID_TRAIN_STEPS, None)
     srv_hyb = serve_phase("serve_hybrid", HYBRID_SERVE_ARGS)
-    del srv, srv_moe, srv_grok, srv_ssm, srv_hyb
+    trn_enc = train_phase("train_encdec", ENCDEC_TRAIN_ARGS, TRAIN_STEPS, TRAIN_CKPT_STEP,
+                          learns=False)
+    trn_enc_cut = train_phase("train_encdec_cut",
+                              ENCDEC_TRAIN_ARGS + ["--layers", str(ENCDEC_CHECK_LAYERS)],
+                              TRAIN_STEPS, None)
+    torch.cuda.empty_cache()
+    srv_enc = serve_encdec_path(args.seed, device)
+    print("serve_encdec " + json.dumps(srv_enc))
+    print(f"serve_encdec: {srv_enc['arch']} {srv_enc['enc_layers']}+{srv_enc['layers']} layers, "
+          f"{srv_enc['ms_per_decode_step']:.2f} ms per decoded token (batch {srv_enc['batch']}), "
+          f"prefill {srv_enc['prefill_ms']:.1f} ms; prefill vs forward "
+          f"{srv_enc['prefill_max_abs_err']:.4g} of {srv_enc['prefill_scale']:.4g}; whole depth, "
+          f"measured: decode vs forward bf16 {srv_enc['decode_vs_forward_max_abs_err']:.4g} of "
+          f"{srv_enc['decode_vs_forward_scale']:.4g}, f32 "
+          f"{srv_enc['f32_decode_vs_forward_max_abs_err']:.4g} of "
+          f"{srv_enc['f32_decode_vs_forward_scale']:.4g}, f32 batch sensitivity "
+          f"{srv_enc['f32_batch_sensitivity']:.3g}; {srv_enc['check_layers']}+"
+          f"{srv_enc['check_layers']} layers: decode vs forward bf16 "
+          f"{srv_enc['cut_decode_vs_forward_max_abs_err']:.4g} of "
+          f"{srv_enc['cut_decode_vs_forward_scale']:.4g} (measured), f32 "
+          f"{srv_enc['cut_f32_decode_vs_forward_max_abs_err']:.4g} of "
+          f"{srv_enc['cut_f32_decode_vs_forward_scale']:.4g}, f32 card vs CPU "
+          f"{srv_enc['cut_f32_card_vs_cpu_max_abs_err']:.4g} of "
+          f"{srv_enc['cut_f32_card_vs_cpu_scale']:.4g}, f32 batch sensitivity "
+          f"{srv_enc['cut_f32_batch_sensitivity']:.3g} [{smi}]")
+    trn_vlm = train_phase("train_vlm", VLM_TRAIN_ARGS, TRAIN_STEPS, TRAIN_CKPT_STEP)
+    srv_vlm = serve_phase("serve_vlm", VLM_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    pre_vlm = vlm_prefill_path(args.seed, device)
+    print("prefill_vlm " + json.dumps(pre_vlm))
+    print(f"prefill_vlm: {pre_vlm['arch']} {pre_vlm['layers']} layers, {pre_vlm['vis_tokens']} + "
+          f"{pre_vlm['text_tokens']} positions, batch {pre_vlm['batch']}: "
+          f"{pre_vlm['prefill_ms']:.2f} ms; prefill vs forward {pre_vlm['prefill_max_abs_err']:.4g} "
+          f"of {pre_vlm['prefill_scale']:.4g}; f32 card vs CPU "
+          f"{pre_vlm['f32_card_vs_cpu_max_abs_err']:.4g} of {pre_vlm['f32_card_vs_cpu_scale']:.4g} "
+          f"[{smi}]")
+    del srv, srv_moe, srv_grok, srv_ssm, srv_hyb, srv_enc, srv_vlm, pre_vlm
     # each kernel's launches over every main-path run
     runs = [mpath["launches"], ckpt["launches"], svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],
             relay["plain"]["launches"],
             relay["tuned"]["launches"], *(r["launches"] for r in cli.values()),
-            trn["launches"], trn_moe["launches"], trn_ssm["launches"], trn_hyb["launches"]]
+            trn["launches"], trn_moe["launches"], trn_ssm["launches"], trn_hyb["launches"],
+            trn_enc["launches"], trn_enc_cut["launches"], trn_vlm["launches"]]
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in launches}
     print("launches all paths " + json.dumps(launches))
 

@@ -4,9 +4,8 @@ Twin of ``repro.configs.registry``. Each ``repro_torch/configs/<arch>.py``
 defines ``CONFIG`` (the exact published configuration) and ``SMOKE`` (a
 reduced same-family config for CPU tests), field for field the reference's
 with torch dtypes. ``ARCHS``, ``SHAPES``, ``skip_reason`` and ``cells`` are
-the reference's. The port has the dense, moe, ssm and hybrid families: an
-arch of another family (encdec, vlm), or its config, raises
-``NotImplementedError`` naming ROADMAP Queue 1 — a refusal, not a fallback.
+the reference's, and every arch builds its family's twin; an unknown arch
+raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -21,10 +20,6 @@ ARCHS = (
     "mamba2-370m", "qwen3-moe-30b-a3b", "grok-1-314b", "recurrentgemma-2b",
     "internvl2-2b",
 )
-
-# the archs whose family and config the port has
-PORTED = ("gemma-2b", "gemma2-2b", "yi-34b", "mistral-nemo-12b", "qwen3-moe-30b-a3b",
-          "grok-1-314b", "mamba2-370m", "recurrentgemma-2b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,17 +51,9 @@ def skip_reason(arch: str, shape: str) -> str | None:
     return None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1: the encdec "
-        "and vlm families)")
-
-
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(arch)
-    if arch not in PORTED:
-        raise _not_ported(f"arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_')}")
 
 
@@ -76,22 +63,29 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
 
 
 def model_class(cfg: ModelConfig):
+    from repro_torch.models.encdec import WhisperLM
     from repro_torch.models.hybrid import RecurrentGemmaLM
     from repro_torch.models.moe import MoELM
     from repro_torch.models.ssm import Mamba2LM
     from repro_torch.models.transformer import DenseLM
+    from repro_torch.models.vlm import InternVLM
 
-    families = {"dense": DenseLM, "moe": MoELM, "ssm": Mamba2LM,
-                "hybrid": RecurrentGemmaLM}
-    if cfg.family not in families:
-        raise _not_ported(f"model family {cfg.family!r}")
-    return families[cfg.family]
+    return {
+        "dense": DenseLM, "moe": MoELM, "ssm": Mamba2LM,
+        "hybrid": RecurrentGemmaLM, "encdec": WhisperLM, "vlm": InternVLM,
+    }[cfg.family]
 
 
 def build_model(arch: str, mesh=None, *, smoke: bool = False,
                 shape: str | None = None, **kw: Any):
     cfg = get_config(arch, smoke=smoke)
-    return model_class(cfg)(cfg, mesh, **kw)
+    cls = model_class(cfg)
+    if cfg.family == "encdec":
+        cell = SHAPES.get(shape or "", None)
+        max_target = max(kw.pop("max_target", 448),
+                         (cell.seq_len if cell else 448))
+        return cls(cfg, mesh, max_target=max_target, **kw)
+    return cls(cfg, mesh, **kw)
 
 
 def cells(include_skipped: bool = False):

@@ -19,7 +19,10 @@ from repro_torch.launch.train import parse_mesh, with_layers
 
 @torch.no_grad()
 def generate(model, params, prompts: torch.Tensor, gen: int, max_len: int) -> torch.Tensor:
-    """Greedy decode: feed prompt tokens, then sample ``gen`` new ones."""
+    """Greedy decode: feed prompt tokens, then sample ``gen`` new ones. An
+    encdec serves through ``prefill_cross`` and the serve step instead."""
+    if model.cfg.family == "encdec":
+        raise NotImplementedError("use prefill_cross + decode for enc-dec")
     B, Lp = prompts.shape
     cache = model.init_cache(B, max_len, device=prompts.device)
     tok = prompts[:, :1]

@@ -97,9 +97,23 @@ def build_train_step(
 # prefill (forward producing logits — the compute profile of ingest)
 # ---------------------------------------------------------------------------
 def build_prefill_step(model, mesh=None) -> StepBundle:
+    """Last-position logits of a batch: an encdec's decoder over its encoded
+    ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix."""
+    family = model.cfg.family
+    if family == "encdec":
+        def hidden(params, batch):
+            enc = model.encode(params, batch["audio_embed"])
+            return model.dec_hidden(params, batch["tokens"], enc)
+    elif family == "vlm":
+        def hidden(params, batch):
+            return model.hidden_mm(params, batch["tokens"], batch["vis_embed"])
+    else:
+        def hidden(params, batch):
+            return model.hidden(params, batch["tokens"])
+
     @torch.no_grad()
     def prefill(params, batch):
-        h = model.hidden(params, batch["tokens"])
+        h = hidden(params, batch)
         return torch.einsum("bsd,dv->bsv", h[:, -1:], model._out_w(params))
 
     return StepBundle(prefill, model, "prefill")

@@ -15,7 +15,10 @@ cpu``). Fault tolerance is the reference's:
 
 Where the port differs: ``--device`` (default ``cuda``; a request for the
 card without one raises) and ``--layers N``, which overrides the config's
-``n_layers`` (depth only, never width) so a full-width model fits a run.
+``n_layers`` (an encdec's ``n_enc_layers`` too; depth only, never width) so
+a full-width model fits a run. An encdec's batch carries zero frame
+embeddings and a vlm's zero patch embeddings beside the tokens, as the
+reference's. ``main`` also returns each step's seconds and grad norm.
 
 Usage (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
@@ -26,6 +29,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+
+import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import ShapeCell, build_model
@@ -46,15 +51,42 @@ def parse_mesh(spec: str, device="cuda"):
     return make_mesh(tuple(dims), names, device=device)
 
 
+def rebuild(model, cfg):
+    """``model``'s class on ``cfg``, with the model's own arguments (the
+    reference's ``_rebuild``): an encdec's ``max_target``, a MoE's capacity
+    factor ``cf``."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw["max_target"] = model.max_target
+    if cfg.family == "moe":
+        kw["cf"] = model.cf
+    return type(model)(cfg, model.mesh, **kw)
+
+
 def with_layers(model, n_layers: int | None):
-    """The same arch at ``n_layers`` layers (width unchanged), rebuilt with
-    the model's own arguments as the reference's ``_rebuild`` does (a MoE's
-    capacity factor ``cf``). The hybrid derives its blocks and its
-    recurrent tail from ``n_layers`` (3 layers: one block, no tail)."""
+    """The same arch at ``n_layers`` layers (width unchanged), as the
+    reference's ``_with_layers``: an encdec gets ``n_layers`` in both
+    stacks. The hybrid derives its blocks and its recurrent tail from
+    ``n_layers`` (3 layers: one block, no tail)."""
     if not n_layers:
         return model
-    kw = {"cf": model.cf} if model.cfg.family == "moe" else {}
-    return type(model)(dataclasses.replace(model.cfg, n_layers=n_layers), model.mesh, **kw)
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
+    return rebuild(model, cfg)
+
+
+def modality_inputs(cfg, batch: int, device) -> dict:
+    """The stubbed frontends' inputs a batch carries beside its tokens, zeros
+    as the reference's launcher adds them: an encdec's frame embeddings
+    ``audio_embed`` (batch, enc_positions, D), a vlm's patch embeddings
+    ``vis_embed`` (batch, n_vis_tokens, D)."""
+    rows = {"encdec": ("audio_embed", cfg.enc_positions),
+            "vlm": ("vis_embed", cfg.n_vis_tokens)}.get(cfg.family)
+    if rows is None:
+        return {}
+    key, n = rows
+    return {key: torch.zeros((batch, n, cfg.d_model), dtype=cfg.dtype, device=device)}
 
 
 def restore_into(mgr: CheckpointManager):
@@ -110,16 +142,18 @@ def main(argv=None) -> dict:
                    global_batch=args.global_batch, seed=args.seed),
         mesh, start_step=start)
 
-    losses, step_seconds = [], []
+    losses, step_seconds, grad_norms = [], [], []
     t0 = time.perf_counter()
     try:
         for step in range(start, args.steps):
             t_step = time.perf_counter()
             batch = next(data)
+            batch.update(modality_inputs(cfg, args.global_batch, dev))
             params, opt, stats = step_fn(params, opt, batch)
             loss = float(stats["loss"])        # waits for the step
             step_seconds.append(time.perf_counter() - t_step)
             losses.append(loss)
+            grad_norms.append(float(stats["grad_norm"]))
             if args.log_every and (step + 1) % args.log_every == 0:
                 dt = (time.perf_counter() - t0) / max(1, len(losses))
                 print(f"step {step+1:5d}  loss {loss:8.4f}  "
@@ -134,7 +168,7 @@ def main(argv=None) -> dict:
     finally:
         data.close()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "step_seconds": step_seconds}
+            "step_seconds": step_seconds, "grad_norms": grad_norms}
 
 
 if __name__ == "__main__":

@@ -122,8 +122,12 @@ class DenseLM(torch.nn.Module):
     # -- train forward -------------------------------------------------------
     def hidden(self, params, tokens):
         """Backbone: final-normed hidden states (B, S, D)."""
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
+        return self._backbone(params, self._embed(params, tokens))
+
+    def _backbone(self, params, x):
+        """The blocks and the final norm over embedded inputs ``x`` (B, S, D)
+        at positions 0..S-1."""
+        B, S = x.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
 
         def body(x, *leaves):

@@ -207,7 +207,7 @@ def _fields(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch", treg.PORTED)
+@pytest.mark.parametrize("arch", treg.ARCHS)
 def test_configs_copy_the_reference_field_for_field(arch):
     for smoke in (False, True):
         want = _fields(jreg.get_config(arch, smoke=smoke))
@@ -222,7 +222,9 @@ def test_configs_copy_the_reference_field_for_field(arch):
 
 
 def test_registry_matches_and_refuses_unported_families():
-    """Every ported arch builds its family's twin; encdec and vlm refuse."""
+    """Every arch of the reference builds its family's twin (an encdec with
+    the reference's ``max_target`` rule); an arch outside ``ARCHS`` raises
+    ``KeyError``."""
     assert treg.ARCHS == jreg.ARCHS
     assert {k: dataclasses.astuple(v) for k, v in treg.SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in jreg.SHAPES.items()}
@@ -230,16 +232,15 @@ def test_registry_matches_and_refuses_unported_families():
     for arch in jreg.ARCHS:
         for shape in jreg.SHAPES:
             assert treg.skip_reason(arch, shape) == jreg.skip_reason(arch, shape)
-        if arch in treg.PORTED:
-            assert type(treg.build_model(arch, smoke=True)).__name__ == \
-                type(jreg.build_model(arch, smoke=True)).__name__
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            treg.build_model(arch, smoke=True)
-        family = jreg.get_config(arch).family
-        cfg = dataclasses.replace(treg.get_config("gemma-2b", smoke=True), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            treg.model_class(cfg)
+        for smoke in (False, True):
+            assert type(treg.build_model(arch, smoke=smoke)).__name__ == \
+                type(jreg.build_model(arch, smoke=smoke)).__name__
+    for shape in (None, *jreg.SHAPES):
+        for kw in ({}, {"max_target": 100}, {"max_target": 1000}):
+            assert treg.build_model("whisper-large-v3", shape=shape, **kw).max_target == \
+                jreg.build_model("whisper-large-v3", shape=shape, **kw).max_target
+    with pytest.raises(KeyError):
+        treg.build_model("gpt-2")
 
 
 # ---------------------------------------------------------------------------

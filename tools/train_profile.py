@@ -9,9 +9,11 @@
 full width (``repro_torch.launch``'s model, cut to ``--layers`` of its
 layers, 0 for all of them, bf16, seeded weights), the train step of
 ``launch.steps.build_train_step`` (remat, chunked cross-entropy, AdamW) on
-the data pipeline's batches, and the decode step of ``launch.serve`` at
-batch 4 over a 96-token cache. After two untimed warm-up steps each,
-``torch.profiler`` records ``--steps`` steps. Prints, and writes to
+the data pipeline's batches (an encdec's and a vlm's with the launcher's
+zero frame or patch embeddings), and the decode step of ``launch.serve``
+at batch 4 over a 96-token cache (an encdec's after ``prefill_cross``).
+After two untimed warm-up steps each, ``torch.profiler`` records
+``--steps`` steps. Prints, and writes to
 ``--out``, one JSON object: the wall milliseconds a step (host clock around
 steps that end in a synchronize), the device milliseconds a step summed
 over kernels, the device's idle share of the wall time, and the kernels
@@ -51,7 +53,7 @@ def main() -> None:
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.launch.serve import prompts_for
     from repro_torch.launch.steps import build_serve_step, build_train_step
-    from repro_torch.launch.train import with_layers
+    from repro_torch.launch.train import modality_inputs, with_layers
     from repro_torch.optim import adamw
 
     device = torch.device(args.device)
@@ -82,11 +84,16 @@ def main() -> None:
     def run_train(n):
         nonlocal params, opt
         for _ in range(n):
-            params, opt, stats = train_step(params, opt, next(data))
+            batch = next(data)
+            batch.update(modality_inputs(model.cfg, args.global_batch, device))
+            params, opt, stats = train_step(params, opt, batch)
             float(stats["loss"])
 
     def run_decode(n):
         cache = model.init_cache(B, prompt + gen, device=device)
+        if model.cfg.family == "encdec":           # zero frames, as the train batches carry
+            cache = model.prefill_cross(params, cache,
+                                        modality_inputs(model.cfg, B, device)["audio_embed"])
         tok, pos = prompts[:, :1], torch.zeros(B, dtype=torch.int32, device=device)
         for t in range(n):
             tok, cache, pos = serve_step(params, cache, tok, pos)
