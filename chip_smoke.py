@@ -112,7 +112,22 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      about 5.05 GB) and ``serve_vlm`` serves it text-only as phase 12, then
      ``prefill_vlm`` holds its prefill step over seeded patch embeddings to
      ``logits_mm`` and the card's f32 ``logits_mm`` to the CPU's;
- 15. prints ``{"kernels": [...]}`` and, as the last line,
+ 15. the dry run (``repro_torch.launch.dryrun``), with the launch counts at
+     0 (it digests nothing): (a) on four cells at full width, at each probe
+     depth, the walk on fake tensors against ``measure``, the same step run
+     on the card — gemma-2b's train step (seq 4096, batch 4; 1 and 2
+     layers), qwen3-moe-30b-a3b's decode_32k (batch 128, a 32k cache; 1 and
+     2 layers), mamba2-370m's prefill_32k (batch 32, halved until the
+     walk's peak is under 60 GB; 1 and 2 layers) and recurrentgemma-2b's
+     long_500k (3, 6 and 8 layers): FLOPs and argument bytes equal, the
+     walk's peak within 10 % of the card's, the step's ms and FLOP share
+     printed; (b) ``dryrun.main`` in process, ``--mesh one --no-probes``,
+     over one registry cell a family at full depth and batch (gemma-2b
+     train_4k, qwen3-moe decode_32k, mamba2 long_500k, recurrentgemma-2b
+     prefill_32k, whisper decode_32k, internvl2-2b train_4k): none may
+     fail, each peak printed against the card's memory; then a ``--mesh
+     single`` cell must record the production mesh's ``RuntimeError``;
+ 16. prints ``{"kernels": [...]}`` and, as the last line,
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
@@ -1022,6 +1037,16 @@ DECODE_TOL = 2.0 ** -5           # bf16: max |decode - forward| over max |forwar
 F32_TOL = 2.0 ** -10             # f32 card forward against the CPU f32 forward, same scale
 PREFILL_TOL = 2.0 ** -7          # bf16 prefill step against the forward's last position: an ulp
 BF16_PEAK_FLOPS = 989.4e12       # H100 SXM dense bf16, NVIDIA data sheet (at 700 W)
+# the dry run (launch.dryrun): walk against card on four cells, then full-depth walks
+DRYRUN_TRAIN_SEQ, DRYRUN_TRAIN_BATCH = 4096, 4      # gemma-2b's train cell of the smoke
+DRYRUN_PREFILL_BATCH = 32        # mamba2-370m prefill_32k: halved until the walk's peak fits
+DRYRUN_PREFILL_MAX_BYTES = 60e9
+DRYRUN_PEAK_REL = 0.10           # the walk's peak against max_memory_allocated on the card
+# one cell a family; whisper's decode_32k, not its prefill_32k, whose walk alone
+# (64 KV blocks a decoder layer, 32 layers) takes 44 s on the card's host
+DRYRUN_FULL = [("gemma-2b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+               ("mamba2-370m", "long_500k"), ("recurrentgemma-2b", "prefill_32k"),
+               ("whisper-large-v3", "decode_32k"), ("internvl2-2b", "train_4k")]
 
 
 class host_digests_raise:
@@ -1673,6 +1698,111 @@ def digest_latency(device, iters: int = 200, threads: int = 16) -> dict:
     return out
 
 
+def dryrun_cells():
+    """Part (a) of the dry-run phase: (name, arch, depths, build(depth, batch)
+    -> StepBundle, batch) for each cell the card checks, at full width."""
+    from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
+    from repro_torch.launch.steps import (_with_layers, build_cell, build_prefill_step,
+                                          build_train_step)
+
+    def cut(arch, n):
+        return _with_layers(build_model(arch), n)
+
+    def train(n, batch):
+        return build_train_step(cut("gemma-2b", n), cell=ShapeCell(
+            "train_smoke", DRYRUN_TRAIN_SEQ, batch, "train"))
+
+    def prefill(n, batch):
+        cell = SHAPES["prefill_32k"]
+        return build_prefill_step(cut("mamba2-370m", n), cell=ShapeCell(
+            cell.name, cell.seq_len, batch, cell.kind))
+
+    return [
+        ("train", "gemma-2b", [1, 2], train, DRYRUN_TRAIN_BATCH),
+        ("decode", "qwen3-moe-30b-a3b", [1, 2],
+         lambda n, _b: build_cell("qwen3-moe-30b-a3b", "decode_32k", layers_override=n),
+         SHAPES["decode_32k"].global_batch),
+        ("prefill", "mamba2-370m", [1, 2], prefill, DRYRUN_PREFILL_BATCH),
+        ("long", "recurrentgemma-2b", [3, 6, 8],
+         lambda n, _b: build_cell("recurrentgemma-2b", "long_500k", layers_override=n),
+         SHAPES["long_500k"].global_batch),
+    ]
+
+
+def dryrun_path(device, reset, counts) -> dict:
+    """Main path, part 12: the dry run (``launch.dryrun``). (a) On each cell
+    of ``dryrun_cells``, at each depth, in this process: the walk on fake
+    tensors against ``measure`` on the card — FLOPs and argument bytes
+    equal, the walk's peak within ``DRYRUN_PEAK_REL`` of the card's; the
+    prefill cell's batch is halved until its walk's peak is under
+    ``DRYRUN_PREFILL_MAX_BYTES``. (b) ``dryrun.main`` over ``DRYRUN_FULL``
+    (one cell a family, full depth, the registry's batch, ``--mesh one
+    --no-probes``): no cell may fail; then a ``--mesh single`` cell must
+    record the production mesh's ``RuntimeError``."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    reset()
+    out: dict = {"checked": [], "full": {}}
+    for name, arch, depths, build, batch in dryrun_cells():
+        if name == "prefill":
+            while dryrun.walk(build(max(depths), batch), device)["peak_bytes"] \
+                    >= DRYRUN_PREFILL_MAX_BYTES:
+                batch //= 2
+                print(f"dryrun: {arch} prefill_32k cut to batch {batch} "
+                      f"(walk's peak at {max(depths)} layers over "
+                      f"{DRYRUN_PREFILL_MAX_BYTES / 1e9:.0f} GB)")
+        for n in depths:
+            bundle = build(n, batch)
+            walked = dryrun.walk(bundle, device)
+            torch.cuda.empty_cache()
+            card = dryrun.measure(bundle, device)
+            del bundle
+            torch.cuda.empty_cache()
+            row = {"cell": name, "arch": arch, "layers": n, "batch": batch,
+                   "walk": walked, "card": card, "step_ms": card["step_ms"],
+                   "flop_share": card["flops_per_device"] / (card["step_ms"] * 1e-3)
+                   / BF16_PEAK_FLOPS,
+                   "peak_rel_err": walked["peak_bytes"] / card["peak_bytes"] - 1}
+            out["checked"].append(row)
+            what = f"dryrun {name} {arch} at {n} layers"
+            check(walked["flops_per_device"] == card["flops_per_device"],
+                  f"{what}: walk FLOPs {walked['flops_per_device']} == card "
+                  f"{card['flops_per_device']}")
+            check(walked["argument_bytes"] == card["argument_bytes"],
+                  f"{what}: walk argument bytes {walked['argument_bytes']} == card "
+                  f"{card['argument_bytes']}")
+            check(abs(row["peak_rel_err"]) <= DRYRUN_PEAK_REL,
+                  f"{what}: walk peak {walked['peak_bytes']} within "
+                  f"{DRYRUN_PEAK_REL:.0%} of the card's {card['peak_bytes']}")
+    out["checked_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    path = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"), "dryrun.json")
+    for arch, shape in DRYRUN_FULL:
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "one", "--no-probes",
+                     "--device", "cuda", "--out", path])
+    single = dryrun.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--mesh", "single",
+                          "--no-probes", "--device", "cuda", "--out", path])
+    for arch, shape in DRYRUN_FULL:
+        rec = single[f"{arch}|{shape}|one|auto|mb0"]
+        check("error" not in rec, f"dryrun {arch} {shape} walked: {rec.get('error')}")
+        out["full"][f"{arch}|{shape}"] = {k: rec[k] for k in (
+            "flops_per_device", "bytes_accessed", "argument_bytes", "output_bytes",
+            "temp_bytes", "peak_bytes", "walk_s", "microbatches")}
+    err = single["gemma-2b|decode_32k|single|auto|mb0"].get("error", "")
+    check(err.startswith("RuntimeError: need 256 devices"),
+          f"the single-pod mesh recorded its RuntimeError: {err!r}")
+    out["single_error"] = err
+    out["full_s"] = time.perf_counter() - t1
+    torch.cuda.synchronize(device)
+    out["launches"] = counts()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1902,6 +2032,25 @@ def main() -> int:
           f"{pre_vlm['f32_card_vs_cpu_max_abs_err']:.4g} of {pre_vlm['f32_card_vs_cpu_scale']:.4g} "
           f"[{smi}]")
     del srv, srv_moe, srv_grok, srv_ssm, srv_hyb, srv_enc, srv_vlm, pre_vlm
+    torch.cuda.empty_cache()
+    dry = dryrun_path(device, reset, counts)
+    print("dryrun " + json.dumps(dry))
+    for r in dry["checked"]:
+        w, c = r["walk"], r["card"]
+        print(f"dryrun {r['cell']}: {r['arch']} {r['layers']} layers, batch {r['batch']}: "
+              f"{c['flops_per_device'] / 1e12:.2f} TFLOP (walk = card), argument "
+              f"{c['argument_bytes'] / 1e9:.3f} GB (walk = card), peak walk "
+              f"{w['peak_bytes'] / 1e9:.3f} GB / card {c['peak_bytes'] / 1e9:.3f} GB "
+              f"({100 * r['peak_rel_err']:+.2f}%), {r['step_ms']:.2f} ms a step, "
+              f"{100 * r['flop_share']:.1f}% of {BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s [{smi}]")
+    for key, r in dry["full"].items():
+        print(f"dryrun full {key}: peak {r['peak_bytes'] / 1e9:.2f} GB of "
+              f"{props.total_memory / 1e9:.2f} GB on the card, "
+              f"{r['flops_per_device'] / 1e12:.2f} TFLOP, {r['bytes_accessed'] / 1e12:.2f} TB "
+              f"accessed, walked in {r['walk_s']:.1f} s")
+    print(f"dryrun: checked {dry['checked_s']:.1f} s, full-depth walks {dry['full_s']:.1f} s, "
+          f"phase {dry['seconds']:.1f} s; single-pod mesh: {dry['single_error']}")
+    check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     # each kernel's launches over every main-path run
     runs = [mpath["launches"], ckpt["launches"], svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],

@@ -8,8 +8,12 @@ accumulation over a scan), which bounds activation memory.
 ``sync_mode``: "auto" is one step on one device. "chunked" crosses pods
 through the chunked collectives; on one pod it is the same path, exactly as
 the reference decides (``n_pods > 1``). A mesh of more than one pod raises
-until ``repro_torch.distributed`` is ported (ROADMAP Queue 1). The dry
-run's ``build_cell`` waits with it.
+until ``repro_torch.distributed`` is ported (ROADMAP Queue 1).
+
+``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
+and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
+(``launch.dryrun``) walks a step on fake tensors made from them. The port
+has no shardings to carry.
 """
 from __future__ import annotations
 
@@ -17,8 +21,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.configs.registry import SHAPES, ShapeCell
+from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
 from repro_torch.distributed.mesh import POD, axis_size
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -26,11 +31,43 @@ from repro_torch.optim.adamw import tree_leaves, tree_map
 
 @dataclasses.dataclass
 class StepBundle:
-    """One step function and what it runs."""
+    """One step function, what it runs, and its arguments' shapes."""
 
     fn: Callable
     model: Any
     kind: str
+    in_shapes: Any = None     # meta tensors matching fn's positional args
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _param_shapes(model) -> Any:
+    """``model.init_params``'s tree as meta tensors: the init runs once on
+    fake tensors (its generators need a real device type), allocating
+    nothing."""
+    with FakeTensorMode():
+        params = model.init_params(0, "cpu")
+    return tree_map(_meta, params)
+
+
+def _batch_shapes(model, cell: ShapeCell) -> dict:
+    """The train/prefill batch of ``cell`` as meta tensors: tokens (B, S+1)
+    for train, (B, S) otherwise; a vlm's ``vis_embed`` takes
+    ``n_vis_tokens`` of the positions, an encdec adds ``audio_embed``."""
+    cfg = model.cfg
+    B, S = cell.global_batch, cell.seq_len
+    meta = dict(device="meta")
+    shapes: dict[str, torch.Tensor] = {}
+    tok_len = S + 1 if cell.kind == "train" else S
+    if cfg.family == "vlm":
+        tok_len = max(2, tok_len - cfg.n_vis_tokens)
+        shapes["vis_embed"] = torch.empty((B, cfg.n_vis_tokens, cfg.d_model), dtype=cfg.dtype, **meta)
+    if cfg.family == "encdec":
+        shapes["audio_embed"] = torch.empty((B, cfg.enc_positions, cfg.d_model), dtype=cfg.dtype, **meta)
+    shapes["tokens"] = torch.empty((B, tok_len), dtype=torch.int32, **meta)
+    return shapes
 
 
 def _value_and_grad(model, params, batch):
@@ -90,15 +127,18 @@ def build_train_step(
         params, opt, stats = adamw.apply(params, grads, opt, ocfg)
         return params, opt, {"loss": loss, **stats}
 
-    return StepBundle(step, model, "train")
+    p_shapes = _param_shapes(model)
+    shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell))
+    return StepBundle(step, model, "train", shapes)
 
 
 # ---------------------------------------------------------------------------
 # prefill (forward producing logits — the compute profile of ingest)
 # ---------------------------------------------------------------------------
-def build_prefill_step(model, mesh=None) -> StepBundle:
+def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> StepBundle:
     """Last-position logits of a batch: an encdec's decoder over its encoded
-    ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix."""
+    ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix.
+    ``in_shapes`` is ``cell``'s (None without a cell)."""
     family = model.cfg.family
     if family == "encdec":
         def hidden(params, batch):
@@ -116,17 +156,83 @@ def build_prefill_step(model, mesh=None) -> StepBundle:
         h = hidden(params, batch)
         return torch.einsum("bsd,dv->bsv", h[:, -1:], model._out_w(params))
 
-    return StepBundle(prefill, model, "prefill")
+    shapes = None if cell is None else (_param_shapes(model), _batch_shapes(model, cell))
+    return StepBundle(prefill, model, "prefill", shapes)
 
 
 # ---------------------------------------------------------------------------
 # decode (one serve step: next-token + cache update)
 # ---------------------------------------------------------------------------
-def build_serve_step(model, mesh=None) -> StepBundle:
+def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
+                     weight_stationary: bool = False) -> StepBundle:
+    """One decode step over a cache of ``cell.seq_len`` positions for
+    ``cell.global_batch`` sequences (``in_shapes``; None without a cell).
+    ``weight_stationary`` picks the reference's serve-time param shardings;
+    on a world of one device it changes nothing."""
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, cache = model.decode_step(params, cache, tokens, pos)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], cache, pos + 1
 
-    return StepBundle(serve_step, model, "decode")
+    shapes = None
+    if cell is not None:
+        B, T = cell.global_batch, cell.seq_len
+        shapes = (_param_shapes(model), model.init_cache(B, T, device="meta"),
+                  torch.empty((B, 1), dtype=torch.int32, device="meta"),
+                  torch.empty((B,), dtype=torch.int32, device="meta"))
+    return StepBundle(serve_step, model, "decode", shapes)
+
+
+# ---------------------------------------------------------------------------
+# cell entry point
+# ---------------------------------------------------------------------------
+# Grad-accumulation defaults that fit each arch's train_4k step in 16 GB/chip
+# (the reference's, from its dry run's memory analysis).
+DEFAULT_MICROBATCHES = {
+    "yi-34b": 4, "grok-1-314b": 8, "mistral-nemo-12b": 2, "whisper-large-v3": 2,
+    "mamba2-370m": 2, "recurrentgemma-2b": 4,
+}
+
+
+def build_cell(arch: str, shape: str, mesh=None, *, sync_mode: str = "auto",
+               microbatches: int = 0, layers_override: int | None = None,
+               cfg_overrides: dict | None = None,
+               weight_stationary: bool = False) -> StepBundle:
+    cell = SHAPES[shape]
+    model = build_model(arch, mesh, shape=shape)
+    if cfg_overrides:
+        model = _rebuild(model, dataclasses.replace(model.cfg, **cfg_overrides))
+    if layers_override is not None:
+        model = _with_layers(model, layers_override)
+    if cell.kind == "train":
+        if microbatches == 0:
+            microbatches = DEFAULT_MICROBATCHES.get(arch, 1)
+        return build_train_step(model, mesh, cell=cell, sync_mode=sync_mode,
+                                microbatches=microbatches)
+    if cell.kind == "prefill":
+        return build_prefill_step(model, mesh, cell=cell)
+    return build_serve_step(model, mesh, cell=cell,
+                            weight_stationary=weight_stationary)
+
+
+def _rebuild(model, cfg):
+    """``model``'s class on ``cfg`` and on its mesh, with the model's own
+    arguments: an encdec's ``max_target``, a MoE's capacity factor ``cf``."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw["max_target"] = model.max_target
+    if cfg.family == "moe":
+        kw["cf"] = model.cf
+    return type(model)(cfg, model.mesh, **kw)
+
+
+def _with_layers(model, n_layers: int):
+    """Same arch with a reduced layer count (the dry run's probes, the
+    launchers' ``--layers``): an encdec gets ``n_layers`` in both stacks.
+    The hybrid derives its blocks and its recurrent tail from ``n_layers``
+    (3 layers: one block, no tail)."""
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
+    return _rebuild(model, cfg)

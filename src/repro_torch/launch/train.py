@@ -27,7 +27,6 @@ Usage (CPU, reduced config):
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -36,7 +35,7 @@ from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import ShapeCell, build_model
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.distributed.mesh import make_mesh
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import _rebuild, _with_layers, build_train_step
 from repro_torch.optim import adamw
 
 
@@ -51,29 +50,15 @@ def parse_mesh(spec: str, device="cuda"):
     return make_mesh(tuple(dims), names, device=device)
 
 
-def rebuild(model, cfg):
-    """``model``'s class on ``cfg``, with the model's own arguments (the
-    reference's ``_rebuild``): an encdec's ``max_target``, a MoE's capacity
-    factor ``cf``."""
-    kw = {}
-    if cfg.family == "encdec":
-        kw["max_target"] = model.max_target
-    if cfg.family == "moe":
-        kw["cf"] = model.cf
-    return type(model)(cfg, model.mesh, **kw)
+rebuild = _rebuild     # the launchers' name for the reference's ``_rebuild``
 
 
 def with_layers(model, n_layers: int | None):
-    """The same arch at ``n_layers`` layers (width unchanged), as the
-    reference's ``_with_layers``: an encdec gets ``n_layers`` in both
-    stacks. The hybrid derives its blocks and its recurrent tail from
-    ``n_layers`` (3 layers: one block, no tail)."""
+    """The same arch at ``n_layers`` layers (width unchanged,
+    ``steps._with_layers``); no override keeps ``model``."""
     if not n_layers:
         return model
-    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
-    if cfg.family == "encdec":
-        cfg = dataclasses.replace(cfg, n_enc_layers=n_layers)
-    return rebuild(model, cfg)
+    return _with_layers(model, n_layers)
 
 
 def modality_inputs(cfg, batch: int, device) -> dict:

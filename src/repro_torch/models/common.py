@@ -351,6 +351,16 @@ def chunked_xent(
     return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
+def layer_slices(stacked: Sequence[torch.Tensor]) -> list[tuple[torch.Tensor, ...]]:
+    """Each layer's leaves, from leaves stacked on a leading layer axis: one
+    ``unbind`` per leaf. Indexing the stack per layer (``t[i]``) would give
+    each layer's gradient its own zero-filled copy of the whole stack in the
+    backward pass (``select_backward``), summed layer by layer: traffic that
+    grows with the square of the depth. ``unbind``'s backward stacks the
+    layers' gradients once; the sums are the same."""
+    return list(zip(*(t.unbind(0) for t in stacked)))
+
+
 def maybe_remat(fn, cfg: ModelConfig):
     """``remat="full"``: recompute ``fn`` in the backward pass
     (``torch.utils.checkpoint``); ``"none"``: keep its activations."""

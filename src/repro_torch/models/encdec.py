@@ -135,8 +135,8 @@ class WhisperLM(torch.nn.Module):
             return layer(x, *args[:len(extra)], lp)
 
         step = cm.maybe_remat(body, self.cfg)
-        for i in range(stack[keys[0][0]][keys[0][1]].shape[0]):
-            x = step(x, *extra, *(stack[sub][k][i] for sub, k in keys))
+        for leaves in cm.layer_slices([stack[sub][k] for sub, k in keys]):
+            x = step(x, *extra, *leaves)
         return x
 
     @staticmethod

@@ -197,8 +197,8 @@ class RecurrentGemmaLM(torch.nn.Module):
             return self._attn_layer(x, blk["attn"], pos)
 
         step = cm.maybe_remat(body, cfg)
-        for b in range(self.n_blocks):
-            x = step(x, *(params[n][k][b] for n in names for k in keys[n]))
+        for leaves in cm.layer_slices([params[n][k] for n in names for k in keys[n]]):
+            x = step(x, *leaves)
         if self.n_tail:
             tkeys = list(params["tail"])
 
@@ -206,8 +206,8 @@ class RecurrentGemmaLM(torch.nn.Module):
                 return self._rec_layer(x, dict(zip(tkeys, leaves)))[0]
 
             tail_step = cm.maybe_remat(tail_body, cfg)
-            for j in range(self.n_tail):
-                x = tail_step(x, *(params["tail"][k][j] for k in tkeys))
+            for leaves in cm.layer_slices([params["tail"][k] for k in tkeys]):
+                x = tail_step(x, *leaves)
         return cm.rms_norm(x, params["final_norm"])
 
     def _out_w(self, params):

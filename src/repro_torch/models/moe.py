@@ -63,9 +63,12 @@ def capacity(t_sub: int, cfg: ModelConfig, tp: int, cf: float = 2.0) -> int:
 def bucket_slots(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Each assignment's 0-based rank among the assignments to its expert,
     in their order in ``flat_e``: the reference's ``sum(cumsum(one_hot) *
-    one_hot) - 1``, by a stable sort by expert."""
+    one_hot) - 1``, by a stable sort by expert. The bucket sizes come from a
+    ``scatter_add_`` into ``n_experts`` zeros, whose shape does not depend on
+    the data (``bincount``'s does), so the step walks on fake tensors."""
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = torch.zeros(n_experts, dtype=flat_e.dtype, device=flat_e.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts                 # each bucket's first
     slot = torch.empty_like(flat_e)
     slot[order] = torch.arange(flat_e.numel(), device=flat_e.device) - starts[flat_e[order]]

@@ -186,8 +186,8 @@ class Mamba2LM(torch.nn.Module):
             return x + self._finish(y, z, xc, dt, lp)
 
         step = cm.maybe_remat(body, cfg)
-        for i in range(cfg.n_layers):
-            x = step(x, *(params["blocks"][key][i] for key in keys))
+        for leaves in cm.layer_slices([params["blocks"][key] for key in keys]):
+            x = step(x, *leaves)
         return cm.rms_norm(x, params["final_norm"])
 
     def _out_w(self, params):

@@ -139,9 +139,9 @@ class DenseLM(torch.nn.Module):
             return x
 
         step = cm.maybe_remat(body, self.cfg)
-        for b in range(self.n_blocks):
-            blk = self._block(params, b)
-            x = step(x, *(t for i in range(len(self.pattern)) for t in blk[str(i)].values()))
+        stacked = [t for i in range(len(self.pattern)) for t in params["blocks"][str(i)].values()]
+        for leaves in cm.layer_slices(stacked):
+            x = step(x, *leaves)
         return cm.rms_norm(x, params["final_norm"])
 
     def _out_w(self, params):
