@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases card,collectives]
 
-Run from the root of a checkout, on a machine with one CUDA card. In order:
+Run from the root of a checkout, on a machine with one CUDA card (four for
+the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
+the one-card phases alone). In order:
 
   1. prints the card: torch's device name, and nvidia-smi's name and power
      limit (every number below is this card's, at that limit);
@@ -127,8 +129,25 @@ Run from the root of a checkout, on a machine with one CUDA card. In order:
      prefill_32k, whisper decode_32k, internvl2-2b train_4k): none may
      fail, each peak printed against the card's memory; then a ``--mesh
      single`` cell must record the production mesh's ``RuntimeError``;
- 16. prints ``{"kernels": [...]}`` and, as the last line,
-     ``{"ok": true, "device": {...}}``.
+ 16. the four-card phase ``collectives`` (``collectives_path``): with fewer
+     than four cards it prints ``collectives: not run, needs 4 cards, N
+     visible`` and runs nothing in its place (NCCL refuses two ranks on one
+     card). Else, one rank a card under ``python -m torch.distributed.run``
+     (this file's ``--rank-worker`` mode): (a) every chunked collective of
+     ``repro_torch.distributed.chunked`` against NCCL's monolithic call on
+     256 MiB a rank, f32 and bf16, n_chunks 1, 4 and 16 (gathers
+     byte-equal, reductions within (A-1)·u·Σ|x| of float64), and
+     ``ag_matmul`` / ``matmul_rs`` at mistral-nemo-12b's up-projection,
+     each timed against its monolithic pair; (b) gemma-2b at full width, 2
+     layers, 4 sequences a card on a 2x2x1 mesh through ``launch.train``:
+     6 steps under "auto" and under "chunked" (losses finite, falling,
+     within ``LOSS_RTOL`` of each other and, at step 1, of one card on the
+     same 16 sequences), a checkpoint at step 4 saved by rank 0 and
+     restored bit-equal on every rank with exact launch counts, the
+     resumed steps equal to the uninterrupted run's, then the same root
+     resumed on two ranks (elastic);
+ 17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
+     last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no CPU
 path: without a card, or outside a checkout, it exits with code 2.
@@ -198,6 +217,14 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def nvidia_smi_cards(query: str) -> list[str]:
+    """``nvidia_smi``'s answer for every card, in index order."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return [line.strip() for line in out.stdout.strip().splitlines()]
 
 
 def sync(device) -> None:
@@ -1163,32 +1190,26 @@ def flop_counts(model, batch: int, seq: int) -> dict:
     return out
 
 
-def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_STEPS,
-               ckpt_step=TRAIN_CKPT_STEP, learns: bool = True) -> dict:
-    """Main path, part 8: the port's training launcher (``launch.train.main``)
-    on ``args`` (gemma-2b at full width, 2 layers, by default): ``steps``
-    steps with a checkpoint of the params and the AdamW state at
-    ``ckpt_step``, then a fresh ``main`` that restores it and runs the rest;
-    every host digest raises meanwhile. With ``ckpt_step`` None, the steps
-    alone. The saved tree is kept on the host and the restored one held to
-    it bit for bit, leaf by leaf. The losses must be finite; with
-    ``learns``, every grad norm finite and the loss falling; without, every
-    grad norm must overflow f32 (the clip then zeroes each update: whisper
-    whole at the reference's init, ``ENCDEC_CHECK_LAYERS``)."""
-    import shutil
-    import tempfile
+def flat_tree(tree, prefix=""):
+    """A nested dict's leaves keyed by their "/"-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
+
+def recording_manager(records: dict, device, reset, counts):
+    """The launcher's ``CheckpointManager``, keeping in ``records`` a host
+    copy of what it saved (``saved``), the restored tree (``restored``), and
+    the seconds and launches of each (``save``, ``restore``)."""
     from repro_torch.ckpt import CheckpointManager
-    from repro_torch.launch import train
-
-    records = {}
 
     class Recording(CheckpointManager):
-        """The launcher's manager, keeping a host copy of what it saved, what
-        it restored, and the seconds and launches of each."""
-
         def save(self, step, tree, **kw):
-            records["saved"] = {k: t.to("cpu", copy=True) for k, t in flat(tree).items()}
+            records["saved"] = {k: t.to("cpu", copy=True) for k, t in flat_tree(tree).items()}
             sync(device)
             reset()
             t0 = time.perf_counter()
@@ -1205,18 +1226,31 @@ def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_ST
             tree, got = super().restore(step, **kw)
             sync(device)
             records["restore"] = {"seconds": time.perf_counter() - t0, "launches": counts()}
-            records["restored"] = flat(tree)
+            records["restored"] = flat_tree(tree)
             return tree, got
 
-    def flat(tree, prefix=""):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out.update(flat(v, f"{prefix}{k}/"))
-            else:
-                out[f"{prefix}{k}"] = v
-        return out
+    return Recording
 
+
+def train_path(seed: int, device, reset, counts, args=TRAIN_ARGS, steps=TRAIN_STEPS,
+               ckpt_step=TRAIN_CKPT_STEP, learns: bool = True) -> dict:
+    """Main path, part 8: the port's training launcher (``launch.train.main``)
+    on ``args`` (gemma-2b at full width, 2 layers, by default): ``steps``
+    steps with a checkpoint of the params and the AdamW state at
+    ``ckpt_step``, then a fresh ``main`` that restores it and runs the rest;
+    every host digest raises meanwhile. With ``ckpt_step`` None, the steps
+    alone. The saved tree is kept on the host and the restored one held to
+    it bit for bit, leaf by leaf. The losses must be finite; with
+    ``learns``, every grad norm finite and the loss falling; without, every
+    grad norm must overflow f32 (the clip then zeroes each update: whisper
+    whole at the reference's init, ``ENCDEC_CHECK_LAYERS``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    records = {}
+    Recording = recording_manager(records, device, reset, counts)
     seq, batch = int(_arg(args, "--seq-len")), int(_arg(args, "--global-batch"))
     model = smoke_model(args)
     flops = flop_counts(model, batch, seq)
@@ -1803,24 +1837,212 @@ def dryrun_path(device, reset, counts) -> dict:
     return out
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
+# ---------------------------------------------------------------------------
+# the four-card phase: the chunked collectives and the chunked gradient sync
+# ---------------------------------------------------------------------------
+COLL_CARDS = 4                   # one rank a card, NCCL over the four
+COLL_BYTES = 256 * MiB           # a rank's tensor in each collective
+COLL_ROWS = 4096                 # rows of a gathered / all-reduced shard
+COLL_CHUNKS = (1, 4, 16)         # n_chunks timed; default_n_chunks(256 MiB) is 4
+COLL_ITERS = 20
+# mistral-nemo-12b's up-projection (src/repro/configs/mistral_nemo_12b.py:10): K 5120,
+# N 14336, 4096 tokens, bf16; the weight's K rows sharded over the four ranks
+AGMM_TOKENS, AGMM_K, AGMM_N = 4096, 5120, 14336
+# gemma-2b at full width, 2 layers, 4 sequences a card (global batch 16) on a 2x2x1 mesh
+TRAIN_DIST_ARGS = ["--arch", "gemma-2b", "--layers", "2", "--seq-len", "2048",
+                   "--global-batch", "16", "--lr", "3e-3", "--log-every", "1"]
+TRAIN_DIST_MESH, ELASTIC_MESH = "2x2x1", "1x2x1"
+TRAIN_DIST_STEPS, TRAIN_DIST_CKPT = 6, 4
+ONE_CARD_MICROBATCHES = 4        # the one-card step 1 over the same 16 sequences
+ELASTIC_MICROBATCHES = 2         # 8 sequences a card on two ranks, 4 at a time
+RANKS_TIMEOUT_S = 600            # a world of ranks that runs longer fails the phase
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke runs only on the card",
-              file=sys.stderr)
-        return 2
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: no src/repro_torch beside {__file__}: run from a checkout",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, src)
-    from repro_torch.kernels import _build
+
+def unit_roundoff(dtype) -> float:
+    return 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+
+
+def world_ms(fn, device, iters: int = COLL_ITERS) -> float:
+    """Mean milliseconds a call of a collective on this rank, after one warm
+    call and a barrier: CUDA events on the card, the host clock on the CPU
+    (a rehearsal, never printed as a card's number)."""
+    import torch.distributed as dist
+
+    fn()
+    sync(device)
+    dist.barrier()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rank_inputs(cfg: dict, tag: int, shape, dtype, device, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s seeded input: any rank can draw any other's."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg["seed"] * 1_000_003 + tag * 101 + rank)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def collectives_worker(cfg: dict) -> dict:
+    """One rank of the collectives' world: every chunked collective of
+    ``repro_torch.distributed.chunked`` against NCCL's monolithic one on
+    ``COLL_BYTES`` a rank, in f32 and bf16, at each of ``COLL_CHUNKS``;
+    then ``ag_matmul`` and ``matmul_rs`` at mistral-nemo-12b's
+    up-projection. Gathers must be byte-equal; reductions within
+    (A-1)·u·Σ|x| of the float64 sum (u the dtype's unit roundoff); the
+    matmuls within (K·2^-24 + (2A-1)·2^-8)·(|x|@|w|) of the float64 product
+    (f32 accumulation, then bf16 rounding of the A block products and the
+    A-1 running sums). Times by CUDA events, chunked against monolithic."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import chunked as C
+    from repro_torch.distributed.mesh import DATA, make_mesh
+
+    device = cfg["device"]
+    mesh = make_mesh((COLL_CARDS,), (DATA,), device=device)
+    dev, g, A = mesh.device, mesh.group(DATA), COLL_CARDS
+    me = dist.get_rank(g)
+    out = {"rank": dist.get_rank(), "device": str(dev), "rows": [], "matmuls": []}
+    for tag, dtype in enumerate((torch.float32, torch.bfloat16)):
+        u, cols = unit_roundoff(dtype), cfg["bytes"] // (cfg["rows"] * dtype.itemsize)
+        name = str(dtype).replace("torch.", "")
+        for k, kind in enumerate(("all_gather", "reduce_scatter", "all_reduce")):
+            rows = cfg["rows"] // A if kind == "reduce_scatter" else cfg["rows"]
+            shape = (rows * (A if kind == "reduce_scatter" else 1), cols)
+            xs = [rank_inputs(cfg, 3 * tag + k, shape, dtype, dev, r) for r in range(A)]
+            x = xs[me]
+            if kind == "all_gather":
+                want = x.new_empty((A * shape[0], cols))
+                mono = lambda: dist.all_gather_into_tensor(want, x, group=g)     # noqa: E731
+                mono()
+                size, factor = want.numel() * dtype.itemsize, (A - 1) / A
+            else:
+                tot = sum(t.double() for t in xs)
+                mag = sum(t.double().abs() for t in xs)
+                if kind == "reduce_scatter":
+                    tot, mag = tot[me * rows:(me + 1) * rows], mag[me * rows:(me + 1) * rows]
+                    want = x.new_empty((rows, cols))
+                    mono = lambda: dist.reduce_scatter_tensor(want, x, group=g)  # noqa: E731
+                    mono()
+                    factor = (A - 1) / A
+                else:
+                    want = x.clone()
+                    dist.all_reduce(want, group=g)
+                    scratch = x.clone()
+                    mono = lambda: dist.all_reduce(scratch, group=g)             # noqa: E731
+                    factor = 2 * (A - 1) / A
+                size = x.numel() * dtype.itemsize
+                limit = (A - 1) * u * mag
+            nccl_ms = world_ms(mono, dev)
+            for nc in cfg["chunks"]:
+                fn = {"all_gather": C.chunked_all_gather, "reduce_scatter": C.chunked_reduce_scatter,
+                      "all_reduce": C.chunked_all_reduce}[kind]
+                got = fn(x, g, n_chunks=nc)
+                row = {"collective": kind, "dtype": name, "n_chunks": nc, "bytes": size,
+                       "rank_bytes": x.numel() * dtype.itemsize,
+                       "default_n_chunks": C.default_n_chunks(x.numel() * dtype.itemsize)}
+                if kind == "all_gather":
+                    row["byte_equal"] = bool(torch.equal(got.view(torch.uint8),
+                                                         want.view(torch.uint8)))
+                else:
+                    err = (got.double() - tot).abs()
+                    row.update(max_abs_err=float(err.max()),
+                               within_bound=bool((err <= limit).all()),
+                               nccl_max_abs_err=float((want.double() - tot).abs().max()),
+                               nccl_within_bound=bool(((want.double() - tot).abs()
+                                                       <= limit).all()))
+                del got
+                ms = world_ms(lambda: fn(x, g, n_chunks=nc), dev)
+                row.update(ms=ms, nccl_ms=nccl_ms, algbw_GBps=size / ms / 1e6,
+                           busbw_GBps=size / ms / 1e6 * factor,
+                           nccl_algbw_GBps=size / nccl_ms / 1e6,
+                           nccl_busbw_GBps=size / nccl_ms / 1e6 * factor)
+                out["rows"].append(row)
+            del xs, x, want
+            sync(dev)
+    # the collective matmuls, bf16, at the up-projection
+    T, K, N = cfg["agmm"]
+    bf = torch.bfloat16
+    x = rank_inputs(cfg, 10, (T, K), bf, dev, 0)                   # replicated
+    ws = [rank_inputs(cfg, 11, (K // A, N), bf, dev, r) for r in range(A)]
+    w_full = torch.cat(ws)
+    exact, mag = x.double() @ w_full.double(), x.double().abs() @ w_full.double().abs()
+    limit = (K * 2.0 ** -24 + (2 * A - 1) * 2.0 ** -8) * mag
+    got = C.ag_matmul(x, ws[me], g)
+    gathered = torch.empty_like(w_full)
+
+    def mono_ag():
+        dist.all_gather_into_tensor(gathered, ws[me], group=g)
+        return torch.mm(x, gathered)
+
+    ref = mono_ag()
+    out["matmuls"].append({
+        "name": "ag_matmul", "shape": [T, K, N],
+        "max_abs_err": float((got.double() - exact).abs().max()),
+        "within_bound": bool(((got.double() - exact).abs() <= limit).all()),
+        "monolithic_max_abs_err": float((ref.double() - exact).abs().max()),
+        "max_share_of_bound": float(((got.double() - exact).abs() / limit).max()),
+        "ms": world_ms(lambda: C.ag_matmul(x, ws[me], g), dev),
+        "monolithic_ms": world_ms(mono_ag, dev),
+        "mm_only_ms": world_ms(lambda: torch.mm(x, w_full), dev)})
+    del got, ref, exact, mag, limit, gathered, w_full
+    xs = [rank_inputs(cfg, 12, (T, K // A), bf, dev, r) for r in range(A)]
+    rows = T // A
+    exact = sum(xs[r][me * rows:(me + 1) * rows].double() @ ws[r].double() for r in range(A))
+    mag = sum(xs[r][me * rows:(me + 1) * rows].double().abs() @ ws[r].double().abs()
+              for r in range(A))
+    limit = (K * 2.0 ** -24 + (2 * A - 1) * 2.0 ** -8) * mag
+    got = C.matmul_rs(xs[me], ws[me], g, n_chunks=4)
+    scattered = torch.empty((rows, N), dtype=bf, device=dev)
+
+    def mono_rs():
+        dist.reduce_scatter_tensor(scattered, torch.mm(xs[me], ws[me]), group=g)
+        return scattered
+
+    ref = mono_rs()
+    out["matmuls"].append({
+        "name": "matmul_rs", "shape": [T, K, N], "n_chunks": 4,
+        "max_abs_err": float((got.double() - exact).abs().max()),
+        "within_bound": bool(((got.double() - exact).abs() <= limit).all()),
+        "monolithic_max_abs_err": float((ref.double() - exact).abs().max()),
+        "max_share_of_bound": float(((got.double() - exact).abs() / limit).max()),
+        "ms": world_ms(lambda: C.matmul_rs(xs[me], ws[me], g, n_chunks=4), dev),
+        "monolithic_ms": world_ms(mono_rs, dev),
+        "mm_only_ms": world_ms(lambda: torch.mm(xs[me], ws[me]), dev)})
+    return out
+
+
+def train_dist_worker(cfg: dict) -> dict:
+    """One rank of the training world: ``launch.train.main`` on gemma-2b at
+    full width (``TRAIN_DIST_ARGS``) over ``cfg["mesh"]``, every host digest
+    patched to raise. On four ranks: ``TRAIN_DIST_STEPS`` steps under
+    "auto", then under "chunked" with a checkpoint at ``TRAIN_DIST_CKPT``
+    (written by rank 0), then a fresh ``main`` on every rank that restores
+    it and runs the rest. On two ranks (``cfg["elastic"]``): that root's
+    elastic resume. Records losses, step and sync seconds (the sync calls
+    of ``launch.steps`` timed between synchronisations), the save's and
+    each restore's seconds and launches, and whether each rank's restored
+    tree equals rank 0's restored tree, and rank 0's its saved tree, bit
+    for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import init_world
     from repro_torch.kernels import checksum as ck
     from repro_torch.kernels import matmul_digest as mm
+    from repro_torch.launch import steps, train
+
+    device = cfg["device"]
+    init_world(device)
+    rank = dist.get_rank()
 
     def reset() -> None:
         ck.reset_launch_counts()
@@ -1829,26 +2051,324 @@ def main() -> int:
     def counts() -> dict:
         return {**ck.launch_counts(), **mm.launch_counts()}
 
-    t_all = time.perf_counter()
-    device = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi("name,power.limit")
-    props = torch.cuda.get_device_properties(0)
-    card = {"sms": props.multi_processor_count,
-            "clock_hz": float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6}
-    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{card['sms']} SMs, max SM clock {card['clock_hz'] / 1e6:.0f} MHz)")
-    print(f"card: {smi}")
+    sync_s: dict[str, list] = {}
 
+    def timed(fn, key):
+        def call(*a, **kw):
+            sync(device)
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            sync(device)
+            sync_s.setdefault(key, []).append(time.perf_counter() - t0)
+            return res
+        return call
+
+    records: dict = {}
+    base = cfg["args"] + ["--seed", str(cfg["seed"]), "--device", device,
+                          "--steps", str(cfg["steps"]), "--mesh", cfg["mesh"]]
+    real = (steps.world_mean, steps.cross_pod_mean, train.CheckpointManager)
+    steps.world_mean = timed(real[0], "world_mean")
+    steps.cross_pod_mean = timed(real[1], "cross_pod_mean")
+    train.CheckpointManager = recording_manager(records, device, reset, counts)
+    out: dict = {"rank": rank, "world": dist.get_world_size()}
+    try:
+        with host_digests_raise():
+            if cfg["elastic"]:
+                res = train.main(base + ["--sync-mode", "chunked", "--ckpt-dir", cfg["root"],
+                                         "--microbatches", str(cfg["microbatches"])])
+                out["elastic"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
+            else:
+                for mode in ("auto", "chunked"):
+                    sync_s.clear()
+                    extra = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
+                             if mode == "chunked" else [])
+                    res = train.main(base + ["--sync-mode", mode] + extra)
+                    out[mode] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
+                                 "step_s": res["step_seconds"],
+                                 "sync_s": {k: list(v) for k, v in sync_s.items()}}
+                res = train.main(base + ["--sync-mode", "chunked", "--ckpt-dir", cfg["root"],
+                                         "--ckpt-every", "0"])
+                out["resumed"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
+    finally:
+        steps.world_mean, steps.cross_pod_mean, train.CheckpointManager = real
+    if "save" in records:
+        saved, restored = records["saved"], records["restored"]
+        out["saved_equal_restored"] = sorted(saved) == sorted(restored) and all(
+            torch.equal(restored[k].reshape(-1).view(torch.uint8),
+                        t.to(restored[k].device).reshape(-1).view(torch.uint8))
+            for k, t in saved.items())
+        with open(os.path.join(records["save"]["path"], "MANIFEST.json")) as fh:
+            out["manifest"] = json.load(fh)
+        out["save"] = {k: records["save"][k] for k in ("seconds", "launches", "bytes")}
+    restored = records["restored"]
+    equal = True
+    for key in sorted(restored):          # every rank's restored tree against rank 0's
+        t = restored[key].reshape(-1).contiguous()
+        theirs = t.clone()
+        dist.broadcast(theirs, src=0)
+        equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
+    out["restored_equal_rank0"] = equal
+    out["restore"] = records["restore"]
+    out["restored_bytes"] = sum(t.numel() * t.element_size() for t in restored.values())
+    out["device"] = str(restored[sorted(restored)[0]].device)
+    return out
+
+
+def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) -> list[dict]:
+    """Run ``name``'s worker on ``n`` ranks under ``python -m
+    torch.distributed.run`` (this file in its rank-worker mode, the port on
+    ``PYTHONPATH``), and return each rank's result. A rank's failure or the
+    timeout fails the phase; the whole process group is killed on either."""
+    import signal
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=f"chip-smoke-{name}-")
+    cfg_path = os.path.join(work, "config.json")
+    with open(cfg_path, "w") as fh:
+        json.dump({**cfg, "out": work}, fh)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(here, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__),
+           "--rank-worker", name, "--config", cfg_path]
+    log_path = os.path.join(work, "log.txt")
     t0 = time.perf_counter()
-    _build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s, nvcc {_build.BUILD_INFO['seconds']:.2f} s "
-          f"-> {os.path.relpath(_build.BUILD_INFO['path'])}")
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+        rc = None
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            try:                         # whatever of the world is left
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    with open(log_path) as fh:
+        tail = fh.read()[-6000:]
+    if rc != 0:
+        print(tail)
+        raise RuntimeError(f"{name} on {n} ranks: " + (f"timed out after {timeout} s"
+                                                       if rc is None else f"exit code {rc}"))
+    results = []
+    for r in range(n):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    results[0]["wall_s"] = time.perf_counter() - t0
+    return results
 
-    rows = kernel_checks(card, args.seed, device)
+
+def rank_worker(name: str, cfg_path: str) -> int:
+    """This file's rank-worker mode: one rank of ``run_ranks``' world."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.distributed.mesh import init_world
+
+    with open(cfg_path) as fh:
+        cfg = json.load(fh)
+    init_world(cfg["device"])
+    try:
+        res = {"collectives": collectives_worker, "train_dist": train_dist_worker}[name](cfg)
+        with open(os.path.join(cfg["out"], f"rank{dist.get_rank()}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def collectives_path(seed: int, device, smi: str) -> dict | None:
+    """The four-card phase. With fewer than ``COLL_CARDS`` cards it runs
+    nothing (None). Else: (a) ``collectives_worker`` on four ranks; (b)
+    ``train_dist_worker`` on four ranks, then the elastic resume of its
+    root on two, and step 1 of the same 16 sequences on one card in this
+    process (``ONE_CARD_MICROBATCHES``). Every check fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < COLL_CARDS:
+        return None
+    dev = torch.device(device).type
+    cards = nvidia_smi_cards("name,power.limit")[:COLL_CARDS] if dev == "cuda" else [smi]
+    if len(set(cards)) == 1:
+        smi = f"{len(cards)} x {cards[0]}"
+    else:
+        smi = "; ".join(cards)
+    print(f"collectives cards: {smi}")
+    out = {"card": smi, "cards": cards}
+    t0 = time.perf_counter()
+    coll = run_ranks("collectives", COLL_CARDS, {
+        "device": dev, "seed": seed, "bytes": COLL_BYTES, "rows": COLL_ROWS,
+        "chunks": list(COLL_CHUNKS), "agmm": [AGMM_TOKENS, AGMM_K, AGMM_N]})
+    out["collectives_s"] = time.perf_counter() - t0
+    for r in coll:
+        for row in r["rows"]:
+            what = f"rank {r['rank']} {row['collective']} {row['dtype']} n_chunks {row['n_chunks']}"
+            if row["collective"] == "all_gather":
+                check(row["byte_equal"], f"{what}: byte-equal to all_gather_into_tensor")
+            else:
+                check(row["within_bound"], f"{what}: within (A-1)·u·Σ|x| of the float64 sum "
+                                           f"(max abs err {row['max_abs_err']})")
+        for m in r["matmuls"]:
+            check(m["within_bound"], f"rank {r['rank']} {m['name']}: within its bound "
+                                     f"(share {m['max_share_of_bound']})")
+    # each row: rank 0's checks, the slowest rank's times
+    out["rows"] = []
+    for i, row in enumerate(coll[0]["rows"]):
+        out["rows"].append({**row, "ms": max(r["rows"][i]["ms"] for r in coll),
+                            "nccl_ms": max(r["rows"][i]["nccl_ms"] for r in coll)})
+        for key, ms in (("algbw_GBps", "ms"), ("busbw_GBps", "ms"),
+                        ("nccl_algbw_GBps", "nccl_ms"), ("nccl_busbw_GBps", "nccl_ms")):
+            out["rows"][-1][key] = row[key] * row[ms] / out["rows"][-1][ms]
+    out["matmuls"] = []
+    for i, m in enumerate(coll[0]["matmuls"]):
+        out["matmuls"].append({**m, **{k: max(r["matmuls"][i][k] for r in coll)
+                                       for k in ("ms", "monolithic_ms", "mm_only_ms",
+                                                 "max_share_of_bound")}})
+    print_collective_rows(out, smi)
+    root = tempfile.mkdtemp(prefix="chip-smoke-train-dist-")
+    try:
+        cfg = {"device": dev, "seed": seed, "args": TRAIN_DIST_ARGS, "root": root,
+               "steps": TRAIN_DIST_STEPS, "ckpt_step": TRAIN_DIST_CKPT}
+        ranks = run_ranks("train_dist", COLL_CARDS, {**cfg, "mesh": TRAIN_DIST_MESH,
+                                                     "elastic": False})
+        elastic = run_ranks("train_dist", 2, {**cfg, "mesh": ELASTIC_MESH, "elastic": True,
+                                              "microbatches": ELASTIC_MICROBATCHES})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    one = train.main(TRAIN_DIST_ARGS + ["--seed", str(seed), "--device", str(device),
+                                        "--mesh", "1x1", "--steps", "1",
+                                        "--microbatches", str(ONE_CARD_MICROBATCHES)])
+    r0 = ranks[0]
+    auto, chunked, resumed = r0["auto"]["losses"], r0["chunked"]["losses"], r0["resumed"]["losses"]
+
+    def close(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    for mode, losses in (("auto", auto), ("chunked", chunked)):
+        check(len(losses) == TRAIN_DIST_STEPS and all(np.isfinite(losses))
+              and losses[-1] < losses[0], f"{mode}: finite losses that fall: {losses}")
+        check(all(r[mode]["losses"] == losses for r in ranks), f"{mode}: every rank's loss")
+    check(close(chunked, auto), f"chunked losses {chunked} within {LOSS_RTOL} of auto's {auto}")
+    check(close(auto[:1], one["losses"]) and close(chunked[:1], one["losses"]),
+          f"step 1 on four cards {auto[0]} / {chunked[0]} within {LOSS_RTOL} of one card's "
+          f"{one['losses'][0]}")
+    tail = chunked[TRAIN_DIST_CKPT:]
+    check(all(close(r["resumed"]["losses"], tail) for r in ranks),
+          f"the resumed steps repeat the uninterrupted run's losses: {resumed} vs {tail}")
+    check(all(close(e["elastic"]["losses"], tail) for e in elastic),
+          f"the elastic resume on two ranks repeats them: {elastic[0]['elastic']['losses']} "
+          f"vs {tail}")
+    check(r0["saved_equal_restored"], "rank 0 restored the saved tree bit for bit")
+    want = ckpt_launches(r0["manifest"])
+    got = r0["save"]["launches"]
+    check(got == {**got, **want["save"]} and got["checksum_copy_words"] == 0,
+          f"rank 0's save launched exactly {want['save']}: {got}")
+    for r in ranks + elastic:
+        check(r["restored_equal_rank0"], f"rank {r['rank']} of {r['world']} restored rank 0's "
+                                         "tree bit for bit")
+        got = r["restore"]["launches"]
+        check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+              f"rank {r['rank']} of {r['world']}'s restore launched exactly "
+              f"{want['restore']}: {got}")
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def step_sums(r, mode, key):
+        calls = r[mode]["sync_s"][key]
+        n = len(calls) // TRAIN_DIST_STEPS            # calls of ``key`` a step
+        return [sum(calls[i * n:(i + 1) * n]) for i in range(TRAIN_DIST_STEPS)]
+
+    per_step = {}
+    for mode in ("auto", "chunked"):
+        steady = [max(r[mode]["step_s"][i] for r in ranks) for i in range(1, TRAIN_DIST_STEPS)]
+        # each step's seconds in each sync call, the slowest rank's; step 1 sets up
+        # the subgroups' communicators, so the steady figure is the median of the rest
+        sync_s = {k: [max(step_sums(r, mode, k)[i] for r in ranks)
+                      for i in range(TRAIN_DIST_STEPS)] for k in r0[mode]["sync_s"]}
+        per_step[mode] = {"step_ms": [1e3 * max(r[mode]["step_s"][i] for r in ranks)
+                                      for i in range(TRAIN_DIST_STEPS)],
+                          "steady_step_ms": 1e3 * median(steady),
+                          "sync_ms_first_step": {k: 1e3 * v[0] for k, v in sync_s.items()},
+                          "sync_ms_steady": {k: 1e3 * median(v[1:]) for k, v in sync_s.items()},
+                          "sync_ms": {k: [1e3 * x for x in v] for k, v in sync_s.items()}}
+    grad_bytes = sum(e["nbytes"] for k, e in r0["manifest"]["leaves"].items()
+                     if k.startswith("params/"))
+    out.update(train={
+        "arch": "gemma-2b", "mesh": TRAIN_DIST_MESH, "losses": {"auto": auto, "chunked": chunked},
+        "one_card_step1_loss": one["losses"][0], "resumed_losses": resumed,
+        "elastic_losses": elastic[0]["elastic"]["losses"], "loss_rtol": LOSS_RTOL,
+        "grad_norms": {"auto": r0["auto"]["grad_norms"], "chunked": r0["chunked"]["grad_norms"]},
+        **per_step, "grad_bytes": grad_bytes,
+        "ckpt_bytes": r0["save"]["bytes"], "save_s": r0["save"]["seconds"],
+        "launches_save_rank0": r0["save"]["launches"],
+        "restore_s": [r["restore"]["seconds"] for r in ranks],
+        "launches_restore": [r["restore"]["launches"] for r in ranks],
+        "elastic_restore_s": [e["restore"]["seconds"] for e in elastic],
+        "elastic_launches_restore": [e["restore"]["launches"] for e in elastic],
+        "expected_launches": want, "devices": [r["device"] for r in ranks],
+        "wall_s": {"four": ranks[0]["wall_s"], "two": elastic[0]["wall_s"]}})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+PHASES = ("card", "collectives")    # every phase on one card; the four-card phase
+
+
+def print_collective_rows(coll: dict, smi: str) -> None:
+    """The collectives' world's lines: one a collective x dtype x n_chunks,
+    one a collective matmul."""
+    for r in coll["rows"]:
+        held = ("byte-equal" if r["collective"] == "all_gather"
+                else f"max abs err {r['max_abs_err']:.3g} (NCCL {r['nccl_max_abs_err']:.3g})")
+        print(f"collectives {r['collective']} {r['dtype']} {r['rank_bytes'] / MiB:.0f} MiB a rank "
+              f"n_chunks {r['n_chunks']}{' (default)' if r['n_chunks'] == r['default_n_chunks'] else ''}: "
+              f"chunked {r['ms']:.3f} ms, algbw {r['algbw_GBps']:.1f} GB/s, busbw "
+              f"{r['busbw_GBps']:.1f} GB/s; NCCL {r['nccl_ms']:.3f} ms, algbw "
+              f"{r['nccl_algbw_GBps']:.1f} GB/s, busbw {r['nccl_busbw_GBps']:.1f} GB/s; {held} "
+              f"[{smi}]")
+    for m in coll["matmuls"]:
+        print(f"collectives {m['name']} {m['shape']} bf16: {m['ms']:.3f} ms, monolithic "
+              f"{m['monolithic_ms']:.3f} ms, mm alone {m['mm_only_ms']:.3f} ms; max abs err "
+              f"{m['max_abs_err']:.3g} (monolithic {m['monolithic_max_abs_err']:.3g}), "
+              f"{100 * m['max_share_of_bound']:.2f}% of the bound [{smi}]")
+    sys.stdout.flush()
+
+
+def print_collectives(coll: dict, smi: str) -> None:
+    """The training world's lines, then the whole phase's JSON (the
+    collectives' lines are printed as their world ends)."""
+    t = coll["train"]
+    for mode in ("auto", "chunked"):
+        sync_ms = ", ".join(f"{k} {v:.2f} (step 1: {t[mode]['sync_ms_first_step'][k]:.1f})"
+                            for k, v in t[mode]["sync_ms_steady"].items())
+        print(f"collectives train_dist {mode}: {t['arch']} 2 layers on {t['mesh']}, "
+              f"{t[mode]['steady_step_ms']:.1f} ms/step; sync ms a step of "
+              f"{t['grad_bytes'] / 1e9:.2f} GB of gradients: {sync_ms}; "
+              f"losses {[round(x, 4) for x in t['losses'][mode]]} [{smi}]")
+    print(f"collectives train_dist: step 1 on one card {t['one_card_step1_loss']:.6f}; "
+          f"checkpoint {t['ckpt_bytes'] / 1e9:.2f} GB saved by rank 0 in {t['save_s']:.2f} s "
+          f"(launches {t['launches_save_rank0']}), restored on each rank in "
+          f"{', '.join(f'{x:.2f}' for x in t['restore_s'])} s (launches "
+          f"{t['launches_restore'][0]} each), on two ranks in "
+          f"{', '.join(f'{x:.2f}' for x in t['elastic_restore_s'])} s; resumed "
+          f"{t['resumed_losses']}, elastic {t['elastic_losses']} [{smi}]")
+    print("collectives " + json.dumps(coll))
+
+
+def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -> list[dict]:
+    """Every phase on one card (items 3-15 of the module docstring); returns
+    the ``kernels`` entries."""
+    rows = kernel_checks(card, seed, device)
     for r in rows:
         print(f"kernel {r['name']} {r['shape']}: exact (tolerance 0), {r['ms']:.4f} ms "
               f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
@@ -1857,8 +2377,8 @@ def main() -> int:
 
     torch.cuda.synchronize()
     reset()
-    api = digest_api(args.seed, device, API_BYTES)
-    xfer = transfer(args.seed, device, TRANSFER_BYTES)
+    api = digest_api(seed, device, API_BYTES)
+    xfer = transfer(seed, device, TRANSFER_BYTES)
     torch.cuda.synchronize()
     launches = counts()
     print("digest_api " + json.dumps(api))
@@ -1868,10 +2388,10 @@ def main() -> int:
         check(launches[r["name"]] > 0, f"{r['name']} launched on the main path")
 
     for chunk_bytes in (CHUNK_BYTES, SERVICE_OVERSIZE_CHUNK):
-        flip = flipped_landing(args.seed, device, chunk_bytes)
+        flip = flipped_landing(seed, device, chunk_bytes)
         print("flipped_landing " + json.dumps(flip))
 
-    a, b = matmul_inputs(args.seed, device)
+    a, b = matmul_inputs(seed, device)
     mmr, dig = matmul_check(card, a, b)
     print(f"kernel matmul_digest {mmr['shape']}: residues exact, C within K*2^-24*(|A|@|B|) "
           f"of float64 (max abs err {mmr['max_abs_err_f64']:.3e}, max rel err "
@@ -1895,11 +2415,11 @@ def main() -> int:
 
     lat = digest_latency(device)
     print("digest_latency " + json.dumps(lat))
-    ckpt = checkpoint_path(args.seed, device, reset, counts)
+    ckpt = checkpoint_path(seed, device, reset, counts)
     print("checkpoint " + json.dumps(ckpt))
     check(ckpt["launches"]["checksum_words"] > 0,
           "the checkpoint digested its leaves on the card")
-    svc = service_path(args.seed, device, reset, counts)
+    svc = service_path(seed, device, reset, counts)
     print("service " + json.dumps(svc))
     for kernel in ("checksum_many_words", "checksum_words"):
         check(svc["launches"][kernel] > 0, f"{kernel} launched on the service path")
@@ -1916,7 +2436,7 @@ def main() -> int:
           and single["launches"]["checksum_many_words"] == n,
           f"the single-pass movers digested each streamed chunk and its read-back on the "
           f"card: {single['launches']}")
-    relay = relay_path(args.seed, device, reset, counts)
+    relay = relay_path(seed, device, reset, counts)
     print("relay " + json.dumps(relay))
     plain = relay["plain"]
     check(plain["launches"]["checksum_many_words"] == plain["whole_chunk_launches"]
@@ -1936,7 +2456,7 @@ def main() -> int:
     def train_phase(name, train_args, steps, ckpt_step, learns=True):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        out = train_path(args.seed, device, reset, counts, train_args, steps, ckpt_step, learns)
+        out = train_path(seed, device, reset, counts, train_args, steps, ckpt_step, learns)
         out["peak_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
         print(f"{name} " + json.dumps(out))
         layers = (f"{out['enc_layers']}+{out['layers']}" if "enc_layers" in out
@@ -1965,7 +2485,7 @@ def main() -> int:
 
     def serve_phase(name, serve_args, f32_cpu=True, bf16_decode_bound=True):
         torch.cuda.empty_cache()
-        out = serve_path(args.seed, device, serve_args, f32_cpu=f32_cpu,
+        out = serve_path(seed, device, serve_args, f32_cpu=f32_cpu,
                          bf16_decode_bound=bf16_decode_bound)
         print(f"{name} " + json.dumps(out))
         line = (f"{name}: {out['arch']} {out['layers']} layers, {out['ms_per_decode_step']:.2f} ms "
@@ -2001,7 +2521,7 @@ def main() -> int:
                               ENCDEC_TRAIN_ARGS + ["--layers", str(ENCDEC_CHECK_LAYERS)],
                               TRAIN_STEPS, None)
     torch.cuda.empty_cache()
-    srv_enc = serve_encdec_path(args.seed, device)
+    srv_enc = serve_encdec_path(seed, device)
     print("serve_encdec " + json.dumps(srv_enc))
     print(f"serve_encdec: {srv_enc['arch']} {srv_enc['enc_layers']}+{srv_enc['layers']} layers, "
           f"{srv_enc['ms_per_decode_step']:.2f} ms per decoded token (batch {srv_enc['batch']}), "
@@ -2023,7 +2543,7 @@ def main() -> int:
     trn_vlm = train_phase("train_vlm", VLM_TRAIN_ARGS, TRAIN_STEPS, TRAIN_CKPT_STEP)
     srv_vlm = serve_phase("serve_vlm", VLM_SERVE_ARGS)
     torch.cuda.empty_cache()
-    pre_vlm = vlm_prefill_path(args.seed, device)
+    pre_vlm = vlm_prefill_path(seed, device)
     print("prefill_vlm " + json.dumps(pre_vlm))
     print(f"prefill_vlm: {pre_vlm['arch']} {pre_vlm['layers']} layers, {pre_vlm['vis_tokens']} + "
           f"{pre_vlm['text_tokens']} positions, batch {pre_vlm['batch']}: "
@@ -2081,8 +2601,77 @@ def main() -> int:
             entry["tolerance"] = ("C: |C - C64| <= K*2^-24*(|A|@|B|) elementwise, for the "
                                   "kernel and the plain version; residues: exact")
         kernels.append(entry)
+    return kernels
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="all",
+                        help=f"comma-separated of {', '.join(PHASES)} (default: all)")
+    parser.add_argument("--rank-worker", choices=("collectives", "train_dist"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--config", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.rank_worker:
+        return rank_worker(args.rank_worker, args.config)
+    phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
+    if not phases or phases - set(PHASES):
+        parser.error(f"--phases takes {', '.join(PHASES)} or all, not {args.phases!r}")
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on the card",
+              file=sys.stderr)
+        return 2
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside {__file__}: run from a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import matmul_digest as mm
+
+    def reset() -> None:
+        ck.reset_launch_counts()
+        mm.reset_launch_counts()
+
+    def counts() -> dict:
+        return {**ck.launch_counts(), **mm.launch_counts()}
+
+    t_all = time.perf_counter()
+    device = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    props = torch.cuda.get_device_properties(0)
+    card = {"sms": props.multi_processor_count,
+            "clock_hz": float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6}
+    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{card['sms']} SMs, max SM clock {card['clock_hz'] / 1e6:.0f} MHz)")
+    print(f"card: {smi}")
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s, nvcc {_build.BUILD_INFO['seconds']:.2f} s "
+          f"-> {os.path.relpath(_build.BUILD_INFO['path'])}")
+    for line in _build.BUILD_INFO["log"].splitlines():
+        if "ptxas info" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+    kernels = None
+    if "card" in phases:
+        kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
+    if "collectives" in phases:
+        coll = collectives_path(args.seed, device, smi)
+        if coll is None:
+            print(f"collectives: not run, needs {COLL_CARDS} cards, "
+                  f"{torch.cuda.device_count()} visible")
+        else:
+            print_collectives(coll, coll["card"])
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -5,10 +5,16 @@ forward, backward (``torch.autograd.grad`` over the params tree) and AdamW;
 microbatches accumulate the gradients in f32 (the reference's grad
 accumulation over a scan), which bounds activation memory.
 
-``sync_mode``: "auto" is one step on one device. "chunked" crosses pods
-through the chunked collectives; on one pod it is the same path, exactly as
-the reference decides (``n_pods > 1``). A mesh of more than one pod raises
-until ``repro_torch.distributed`` is ported (ROADMAP Queue 1).
+On a mesh of more than one rank every rank runs the step on its own rows
+of the batch (``data.pipeline.TokenPipeline``), and ``sync_mode`` picks how
+the gradients and the loss are meaned over the (pod x data) world:
+"auto" is one monolithic ``dist.all_reduce`` a leaf over the world, the
+baseline GSPMD emits in the reference; "chunked" means over ``data`` with
+that all-reduce (GSPMD's part in the reference), then over ``pod`` with
+``distributed.fsdp.cross_pod_mean``'s chunked rings; "chunked_bf16" casts
+the gradients to bf16 for the cross-pod rings and back. On one pod the
+chunked modes take the auto path, exactly as the reference decides
+(``n_pods > 1``).
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
@@ -21,10 +27,12 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
-from repro_torch.distributed.mesh import POD, axis_size
+from repro_torch.distributed.fsdp import cross_pod_mean
+from repro_torch.distributed.mesh import DATA, POD, axis_size
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -92,6 +100,7 @@ def build_train_step(
     cell: ShapeCell | None = None,
     microbatches: int = 1,
     sync_mode: str = "auto",
+    n_chunks: int = 4,
 ) -> StepBundle:
     ocfg = ocfg or adamw.AdamWConfig(
         state_dtype=torch.bfloat16 if model.cfg.param_count() > 1e11 else torch.float32
@@ -99,14 +108,13 @@ def build_train_step(
     cell = cell or SHAPES["train_4k"]
     if sync_mode not in ("auto", "chunked", "chunked_bf16"):
         raise ValueError(f"sync_mode {sync_mode!r}")
+    ranks = mesh.size if mesh is not None else 1
     n_pods = axis_size(mesh, POD) if mesh is not None else 1
-    if sync_mode != "auto" and n_pods > 1:
-        raise NotImplementedError(
-            f"sync_mode {sync_mode!r} over {n_pods} pods needs the chunked "
-            "collectives (ROADMAP Queue 1, distributed/)")
-    if cell.global_batch % microbatches:
-        raise ValueError(f"global batch {cell.global_batch} does not split into "
-                         f"{microbatches} microbatches")
+    chunked = sync_mode in ("chunked", "chunked_bf16") and n_pods > 1
+    compress = sync_mode == "chunked_bf16"
+    if cell.global_batch % (ranks * microbatches):
+        raise ValueError(f"global batch {cell.global_batch} does not split over {ranks} "
+                         f"ranks into {microbatches} microbatches")
 
     def grads_of(params, batch):
         if microbatches == 1:
@@ -122,14 +130,48 @@ def build_train_step(
         inv = 1.0 / microbatches
         return acc_l * inv, tree_map(lambda g: (g * inv).to(model.cfg.dtype), acc_g)
 
+    def synced(loss, grads):
+        if ranks == 1:
+            return loss, grads
+        if not chunked:
+            return world_mean(loss, None, ranks), world_mean(grads, None, ranks)
+        dp = axis_size(mesh, DATA)
+        if dp > 1:
+            loss = world_mean(loss, mesh.group(DATA), dp)
+            grads = world_mean(grads, mesh.group(DATA), dp)
+        if compress:
+            # beyond-paper: 'gradient compression' for the cross-pod hop —
+            # cast to bf16 for the wire, back to each leaf's dtype after
+            dt0 = tree_map(lambda g: g.dtype, grads)
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+            grads = cross_pod_mean(grads, mesh.group(POD), n_chunks=n_chunks)
+            grads = tree_map(lambda g, d: g.to(d), grads, dt0)
+        else:
+            grads = cross_pod_mean(grads, mesh.group(POD), n_chunks=n_chunks)
+        return world_mean(loss, mesh.group(POD), n_pods), grads
+
     def step(params, opt, batch):
-        loss, grads = grads_of(params, batch)
+        loss, grads = synced(*grads_of(params, batch))
         params, opt, stats = adamw.apply(params, grads, opt, ocfg)
         return params, opt, {"loss": loss, **stats}
 
     p_shapes = _param_shapes(model)
     shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell))
     return StepBundle(step, model, "train", shapes)
+
+
+def world_mean(tree, group, n: int):
+    """Mean of every leaf of ``tree`` over ``group`` (None: the world of
+    ``n`` ranks), by one monolithic ``dist.all_reduce`` a leaf in the leaf's
+    dtype, in place on the leaf (on a contiguous copy of a leaf that is not
+    contiguous, such as a gradient that autograd left transposed: NCCL
+    takes contiguous tensors only)."""
+    def leaf(t):
+        t = t.contiguous()
+        dist.all_reduce(t, group=group)
+        return t.div_(n)
+
+    return tree_map(leaf, tree)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Training launcher: data pipeline -> train_step -> chunked checkpoints.
 
-Twin of ``repro.launch.train`` on one device (the card unless ``--device
-cpu``). Fault tolerance is the reference's:
+Twin of ``repro.launch.train``, on the card unless ``--device cpu``: on one
+device, or as one rank of a world of ranks, one device each (the mesh's
+axes laid over the world, ``distributed.mesh.make_mesh``). Fault tolerance
+is the reference's:
 
   * checkpoints are chunked + integrity-checked + journaled
     (``repro_torch.ckpt``), every digest taken on the device: a crash
@@ -11,7 +13,17 @@ cpu``). Fault tolerance is the reference's:
     the exact sample order;
   * the checkpoint tree is ``{"params", "opt": {"step", "m", "v"}}`` with
     the reference's leaf names, shapes and dtypes, so either package
-    resumes the other's checkpoints.
+    resumes the other's checkpoints;
+  * **elastic restart**: checkpoints hold whole leaves, so a root saved by
+    four ranks resumes on two (``--mesh 2x2x1`` to ``1x2x1``). The
+    reference shrinks over data x model; the port, whose model axis is 1,
+    over data.
+
+On a world of ranks every rank holds the same params (each draws them from
+the same seed, and every step applies the same synchronised gradients):
+rank 0 writes the checkpoint while the others wait at a barrier, and every
+rank restores the root onto its own device, checking every chunk there.
+Rank 0 prints; ``main`` returns the same dict on every rank.
 
 Where the port differs: ``--device`` (default ``cuda``; a request for the
 card without one raises) and ``--layers N``, which overrides the config's
@@ -20,9 +32,12 @@ a full-width model fits a run. An encdec's batch carries zero frame
 embeddings and a vlm's zero patch embeddings beside the tokens, as the
 reference's. ``main`` also returns each step's seconds and grad norm.
 
-Usage (CPU, reduced config):
+Usage (CPU, reduced config; then four ranks, one card each):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
       --device cpu --steps 40 --ckpt-dir /tmp/ck --ckpt-every 10
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+      -m repro_torch.launch.train --arch gemma-2b --smoke --mesh 2x2x1 \\
+      --sync-mode chunked --steps 40 --ckpt-dir /tmp/ck4 --ckpt-every 10
 """
 from __future__ import annotations
 
@@ -30,11 +45,12 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import ShapeCell, build_model
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.distributed.mesh import make_mesh
+from repro_torch.distributed.mesh import is_primary, make_mesh
 from repro_torch.launch.steps import _rebuild, _with_layers, build_train_step
 from repro_torch.optim import adamw
 
@@ -111,13 +127,14 @@ def main(argv=None) -> dict:
                                microbatches=args.microbatches,
                                sync_mode=args.sync_mode).fn
 
+    log = print if is_primary() else (lambda *_a, **_k: None)
     mgr = CheckpointManager(args.ckpt_dir, device=dev) if args.ckpt_dir else None
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
         t0 = time.perf_counter()
         params, opt, start = restore_into(mgr)
-        print(f"[restore] resumed from step {start} ({mgr.root}) "
-              f"in {time.perf_counter() - t0:.2f}s", flush=True)
+        log(f"[restore] resumed from step {start} ({mgr.root}) "
+            f"in {time.perf_counter() - t0:.2f}s", flush=True)
     else:
         params = model.init_params(args.seed, dev)
         opt = adamw.init(params, ocfg)
@@ -133,7 +150,7 @@ def main(argv=None) -> dict:
         for step in range(start, args.steps):
             t_step = time.perf_counter()
             batch = next(data)
-            batch.update(modality_inputs(cfg, args.global_batch, dev))
+            batch.update(modality_inputs(cfg, batch["tokens"].shape[0], dev))
             params, opt, stats = step_fn(params, opt, batch)
             loss = float(stats["loss"])        # waits for the step
             step_seconds.append(time.perf_counter() - t_step)
@@ -141,15 +158,18 @@ def main(argv=None) -> dict:
             grad_norms.append(float(stats["grad_norm"]))
             if args.log_every and (step + 1) % args.log_every == 0:
                 dt = (time.perf_counter() - t0) / max(1, len(losses))
-                print(f"step {step+1:5d}  loss {loss:8.4f}  "
-                      f"gnorm {float(stats['grad_norm']):8.3f}  {dt*1e3:6.0f} ms/step",
-                      flush=True)
+                log(f"step {step+1:5d}  loss {loss:8.4f}  "
+                    f"gnorm {float(stats['grad_norm']):8.3f}  {dt*1e3:6.0f} ms/step",
+                    flush=True)
             if mgr is not None and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-                rep = mgr.save(step + 1, {"params": params,
-                                          "opt": {"step": opt.step, "m": opt.m, "v": opt.v}})
-                print(f"[ckpt] step {step+1}: {rep.total_bytes/1e6:.1f} MB "
-                      f"in {rep.seconds:.2f}s (resumed_chunks={rep.resumed_chunks})",
-                      flush=True)
+                if is_primary():
+                    rep = mgr.save(step + 1, {"params": params,
+                                              "opt": {"step": opt.step, "m": opt.m, "v": opt.v}})
+                    log(f"[ckpt] step {step+1}: {rep.total_bytes/1e6:.1f} MB "
+                        f"in {rep.seconds:.2f}s (resumed_chunks={rep.resumed_chunks})",
+                        flush=True)
+                if mesh.size > 1:
+                    dist.barrier()
     finally:
         data.close()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
@@ -157,5 +177,10 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    out = main()
-    print(f"final loss: {out['final_loss']:.4f}")
+    try:
+        out = main()
+        if is_primary():
+            print(f"final loss: {out['final_loss']:.4f}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
