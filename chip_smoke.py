@@ -155,11 +155,13 @@ path: without a card, or outside a checkout, it exits with code 2.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -1209,7 +1211,18 @@ def recording_manager(records: dict, device, reset, counts):
 
     class Recording(CheckpointManager):
         def save(self, step, tree, **kw):
-            records["saved"] = {k: t.to("cpu", copy=True) for k, t in flat_tree(tree).items()}
+            materialize = kw.get("materialize")
+            if materialize is None:
+                records["saved"] = {k: t.to("cpu", copy=True) for k, t in flat_tree(tree).items()}
+            else:        # a sharded run: each leaf as written, gathered (a copy on the card)
+                records["saved"] = {}
+
+                def recorded(key, t):
+                    whole = materialize(key, t)
+                    records["saved"][key] = whole.detach().clone()
+                    return whole
+
+                kw["materialize"] = recorded
             sync(device)
             reset()
             t0 = time.perf_counter()
@@ -1856,6 +1869,40 @@ TRAIN_DIST_STEPS, TRAIN_DIST_CKPT = 6, 4
 ONE_CARD_MICROBATCHES = 4        # the one-card step 1 over the same 16 sequences
 ELASTIC_MICROBATCHES = 2         # 8 sequences a card on two ranks, 4 at a time
 RANKS_TIMEOUT_S = 600            # a world of ranks that runs longer fails the phase
+MODEL_AXIS_TIMEOUT_S = 300       # each world of the model-axis part
+# every other family over pod x data (model 1): one cut each at full width, 4 sequences a
+# card on 2x2x1, each held at step 1 to one card on the same 16 (ONE_CARD_MICROBATCHES)
+FAMILY_DIST_RUNS = [["--arch", "qwen3-moe-30b-a3b", "--layers", "2", "--seq-len", "2048"],
+                    ["--arch", "mamba2-370m", "--layers", "8", "--seq-len", "2048"],
+                    ["--arch", "recurrentgemma-2b", "--layers", "3", "--seq-len", "2048"],
+                    ["--arch", "whisper-large-v3", "--layers", "1", "--seq-len", "448"],
+                    ["--arch", "internvl2-2b", "--layers", "2", "--seq-len", "2048"]]
+FAMILY_DIST_COMMON = ["--global-batch", "16", "--lr", "3e-3", "--log-every", "0"]
+FAMILY_DIST_STEPS = 3
+# the model axis: gemma-2b (TRAIN_DIST_ARGS) over pod x data x model, the same 16
+# sequences a step as on 2x2x1; the checkpoint's root resumed on two ranks
+TP_MESHES, TP_CKPT_MESH, TP_VLM_MESH, TP_ELASTIC_MESH = ("1x2x2", "1x1x4"), "1x2x2", "1x1x4", "1x1x2"
+TP_F32_LAYERS, TP_F32_TOKENS = 1, 128   # the f32 forward against one card's
+TP_F32_TOL = 2e-5                       # of the largest logit
+VLM_TP_ARGS = ["--arch", "internvl2-2b", "--layers", "2", "--seq-len", "2048",
+               "--global-batch", "4", "--lr", "3e-3", "--log-every", "0"]
+VLM_TP_STEPS = 3
+
+
+def launch_counters():
+    """(reset, counts) of the kernels' launch counters: ``counts()`` maps each
+    kernel wrapper to its launches since the last ``reset()``."""
+    from repro_torch.kernels import checksum as ck
+    from repro_torch.kernels import matmul_digest as mm
+
+    def reset() -> None:
+        ck.reset_launch_counts()
+        mm.reset_launch_counts()
+
+    def counts() -> dict:
+        return {**ck.launch_counts(), **mm.launch_counts()}
+
+    return reset, counts
 
 
 def unit_roundoff(dtype) -> float:
@@ -2036,20 +2083,12 @@ def train_dist_worker(cfg: dict) -> dict:
     import torch.distributed as dist
 
     from repro_torch.distributed.mesh import init_world
-    from repro_torch.kernels import checksum as ck
-    from repro_torch.kernels import matmul_digest as mm
     from repro_torch.launch import steps, train
 
     device = cfg["device"]
     init_world(device)
     rank = dist.get_rank()
-
-    def reset() -> None:
-        ck.reset_launch_counts()
-        mm.reset_launch_counts()
-
-    def counts() -> dict:
-        return {**ck.launch_counts(), **mm.launch_counts()}
+    reset, counts = launch_counters()
 
     sync_s: dict[str, list] = {}
 
@@ -2082,10 +2121,13 @@ def train_dist_worker(cfg: dict) -> dict:
                     sync_s.clear()
                     extra = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
                              if mode == "chunked" else [])
+                    reset_peak(rank_device(device))
                     res = train.main(base + ["--sync-mode", mode] + extra)
                     out[mode] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
                                  "step_s": res["step_seconds"],
-                                 "sync_s": {k: list(v) for k, v in sync_s.items()}}
+                                 "sync_s": {k: list(v) for k, v in sync_s.items()},
+                                 "peak_bytes": peak_bytes(rank_device(device))}
+                    del res
                 res = train.main(base + ["--sync-mode", "chunked", "--ckpt-dir", cfg["root"],
                                          "--ckpt-every", "0"])
                 out["resumed"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
@@ -2114,6 +2156,251 @@ def train_dist_worker(cfg: dict) -> dict:
     return out
 
 
+class collective_timer:
+    """Times every collective of the model axis (``dist.all_reduce`` and
+    ``dist.all_gather`` in ``models.common``'s operators and in AdamW's clip
+    norm) and every mean over the batch axes (``launch.steps.world_mean``)
+    while entered: CUDA events around each call on the card (the compute
+    stream's wait for the collective; no host synchronisation), the host
+    clock on the CPU. ``per_step(n)`` sums each kind's calls a step."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.calls: dict[str, list] = {"model": [], "batch": []}
+
+    def _timed(self, fn, key):
+        def call(*a, **kw):
+            if self.device.type != "cuda":
+                t0 = time.perf_counter()
+                res = fn(*a, **kw)
+                self.calls[key].append(time.perf_counter() - t0)
+                return res
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*a, **kw)
+            e1.record()
+            self.calls[key].append((e0, e1))
+            return res
+        return call
+
+    def __enter__(self):
+        import types
+
+        import torch.distributed as dist
+
+        from repro_torch.launch import steps
+        from repro_torch.models import common
+        from repro_torch.optim import adamw
+
+        proxy = types.SimpleNamespace(**{k: getattr(dist, k) for k in dir(dist)
+                                         if not k.startswith("__")})
+        proxy.all_reduce = self._timed(dist.all_reduce, "model")
+        proxy.all_gather = self._timed(dist.all_gather, "model")
+        self.saved = [(common, "dist", common.dist), (adamw, "dist", adamw.dist),
+                      (steps, "world_mean", steps.world_mean)]
+        common.dist = adamw.dist = proxy
+        steps.world_mean = self._timed(steps.world_mean, "batch")
+        return self
+
+    def __exit__(self, *_exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+    def per_step(self, n_steps: int) -> dict:
+        """{kind: [ms in step 1, ..., step n]}: every step makes the same
+        calls, so they split evenly over the steps."""
+        sync(self.device)
+        out = {}
+        for key, calls in self.calls.items():
+            ms = [c[0].elapsed_time(c[1]) if isinstance(c, tuple) else 1e3 * c for c in calls]
+            k = len(ms) // n_steps
+            out[key] = [sum(ms[i * k:(i + 1) * k]) for i in range(n_steps)]
+        return out
+
+
+def release(device) -> None:
+    """Give this process's cached card memory back before a world of ranks
+    runs: rank 0 shares this process's card."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_bytes(device) -> int:
+    """Bytes allocated at the peak on this rank's card since ``reset_peak``
+    (0 on the CPU)."""
+    return torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+
+
+def rank_device(device):
+    return torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else "cpu"
+
+
+def family_dist_worker(cfg: dict) -> dict:
+    """One rank of the families' world: ``launch.train.main`` on each cut of
+    ``FAMILY_DIST_RUNS`` at full width over a 2x2x1 mesh (model 1),
+    ``FAMILY_DIST_STEPS`` steps each; records losses, grad norms, step
+    seconds and the card's peak bytes."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import init_world
+    from repro_torch.launch import train
+
+    init_world(cfg["device"])
+    dev = rank_device(cfg["device"])
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "runs": []}
+    for args in cfg["runs"]:
+        reset_peak(dev)
+        res = train.main(args + ["--seed", str(cfg["seed"]), "--device", cfg["device"],
+                                 "--steps", str(cfg["steps"]), "--mesh", cfg["mesh"]])
+        out["runs"].append({"arch": _arg(args, "--arch"), "losses": res["losses"],
+                            "grad_norms": res["grad_norms"], "step_s": res["step_seconds"],
+                            "peak_bytes": peak_bytes(dev)})
+        del res
+    return out
+
+
+def whole_leaves_equal(params, specs, mesh) -> bool:
+    """Every leaf of this rank's ``params`` that ``specs`` leaves whole
+    equals model rank 0's copy, bit for bit (a broadcast over the model
+    group)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import MODEL, model_dims
+    from repro_torch.optim.adamw import tree_map
+
+    g = mesh.group(MODEL)
+    src = dist.get_global_rank(g, 0)
+    equal = []
+
+    def leaf(t, spec):
+        if not model_dims(spec):
+            mine = t.contiguous()
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=src, group=g)
+            equal.append(bool(torch.equal(theirs.view(torch.uint8), mine.view(torch.uint8))))
+
+    tree_map(leaf, params, specs)
+    return bool(equal) and all(equal)
+
+
+def f32_forward_error(args: list, seed: int, mesh, dev) -> dict:
+    """``args``' model at ``TP_F32_LAYERS`` layer(s), in f32: the logits of
+    ``TP_F32_TOKENS`` seeded tokens from the whole weights on this card (a
+    one-card forward) against the same weights cut over ``model``
+    (``launch.train.shard_state``) and gathered; max |difference| over max
+    |logit|."""
+    from repro_torch.launch import train
+
+    one = train.with_layers(smoke_model(args, dtype=torch.float32), TP_F32_LAYERS)
+    tp = type(one)(one.cfg, mesh)
+    params = one.init_params(seed, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    tok = torch.randint(0, one.cfg.vocab, (1, TP_F32_TOKENS), generator=gen, device=dev)
+    with torch.no_grad():
+        want = one.logits(params, tok)
+        got = tp.logits(train.shard_state(mesh, params, tp.param_specs(mesh)), tok)
+    err = float((got.double() - want.double()).abs().max())
+    top = float(want.abs().max())
+    return {"max_abs_err": err, "max_logit": top, "rel": err / top, "layers": TP_F32_LAYERS,
+            "tokens": TP_F32_TOKENS}
+
+
+def tp_dist_worker(cfg: dict) -> dict:
+    """One rank of a model-axis world (``cfg["mesh"]``, e.g. 1x2x2 or
+    1x1x4): the f32 forward check (``f32_forward_error``), then
+    ``launch.train.main`` on ``cfg["args"]`` for ``cfg["steps"]`` steps with
+    every model-axis and batch-axes collective timed (``collective_timer``)
+    and every host digest patched to raise, with a checkpoint at
+    ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree), then a
+    fresh ``main`` that restores it and runs the rest; after each run,
+    whether every whole leaf is bit-equal across the model group. Then each
+    of ``cfg["also"]`` (another arch on the same mesh). On ``cfg["elastic"]``,
+    only the resume of ``cfg["root"]``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import MODEL, init_world
+    from repro_torch.launch import train
+    from repro_torch.launch.train import parse_mesh
+
+    device = cfg["device"]
+    init_world(device)
+    dev = rank_device(device)
+    mesh = parse_mesh(cfg["mesh"], device)
+    rank = dist.get_rank()
+    reset, counts = launch_counters()
+    records: dict = {}
+    real = train.CheckpointManager
+    train.CheckpointManager = recording_manager(records, dev, reset, counts)
+    base = ["--seed", str(cfg["seed"]), "--device", device, "--mesh", cfg["mesh"],
+            "--steps", str(cfg["steps"])]
+    out: dict = {"rank": rank, "world": dist.get_world_size(), "mesh": cfg["mesh"],
+                 "model_rank": mesh.rank(MODEL), "device": str(dev)}
+    try:
+        with host_digests_raise():
+            if cfg["elastic"]:
+                res = train.main(cfg["args"] + base + ["--ckpt-dir", cfg["root"],
+                                                       "--microbatches", str(cfg["microbatches"])])
+                out["elastic"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
+            else:
+                out["f32"] = f32_forward_error(cfg["args"], cfg["seed"], mesh, dev)
+                specs = smoke_model(cfg["args"]).param_specs(mesh)
+                extra = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
+                         if cfg.get("ckpt_step") else [])
+                reset_peak(dev)
+                with collective_timer(dev) as timer:
+                    res = train.main(cfg["args"] + base + extra)
+                out["train"] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
+                                "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                                "collective_ms": timer.per_step(cfg["steps"]),
+                                "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
+                del res
+                if extra:
+                    res = train.main(cfg["args"] + base + ["--ckpt-dir", cfg["root"]])
+                    out["resumed"] = {"losses": res["losses"],
+                                      "whole_equal": whole_leaves_equal(res["params"], specs,
+                                                                        mesh)}
+                    del res
+                out["also"] = []
+                for args in cfg.get("also", []):
+                    reset_peak(dev)
+                    res = train.main(args + base[:-2] + ["--steps", str(cfg["also_steps"])])
+                    out["also"].append({
+                        "arch": _arg(args, "--arch"), "losses": res["losses"],
+                        "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                        "whole_equal": whole_leaves_equal(
+                            res["params"], smoke_model(args).param_specs(mesh), mesh)})
+                    del res
+    finally:
+        train.CheckpointManager = real
+    if "save" in records:
+        saved, restored = records["saved"], records["restored"]
+        out["saved_equal_restored"] = sorted(saved) == sorted(restored) and all(
+            torch.equal(restored[k].reshape(-1).view(torch.uint8),
+                        t.to(restored[k].device).reshape(-1).view(torch.uint8))
+            for k, t in saved.items())
+        with open(os.path.join(records["save"]["path"], "MANIFEST.json")) as fh:
+            out["manifest"] = json.load(fh)
+        out["save"] = {k: records["save"][k] for k in ("seconds", "launches", "bytes")}
+    if "restored" in records:
+        restored = records["restored"]
+        equal = True
+        for key in sorted(restored):      # every rank's restored tree against rank 0's
+            t = restored[key].reshape(-1).contiguous()
+            theirs = t.clone()
+            dist.broadcast(theirs, src=0)
+            equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
+        out["restored_equal_rank0"] = equal
+        out["restore"] = records["restore"]
+    return out
+
+
 def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) -> list[dict]:
     """Run ``name``'s worker on ``n`` ranks under ``python -m
     torch.distributed.run`` (this file in its rank-worker mode, the port on
@@ -2126,7 +2413,7 @@ def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) ->
     work = tempfile.mkdtemp(prefix=f"chip-smoke-{name}-")
     cfg_path = os.path.join(work, "config.json")
     with open(cfg_path, "w") as fh:
-        json.dump({**cfg, "out": work}, fh)
+        json.dump({**cfg, "out": work, "timeout": timeout}, fh)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(here, "src") + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2149,7 +2436,7 @@ def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) ->
                 pass
             proc.wait()
     with open(log_path) as fh:
-        tail = fh.read()[-6000:]
+        tail = fh.read()[-20000:]
     if rc != 0:
         print(tail)
         raise RuntimeError(f"{name} on {n} ranks: " + (f"timed out after {timeout} s"
@@ -2171,13 +2458,22 @@ def rank_worker(name: str, cfg_path: str) -> int:
 
     with open(cfg_path) as fh:
         cfg = json.load(fh)
+    # a rank still running shortly before its world's timeout prints every
+    # thread's stack into the world's log
+    faulthandler.dump_traceback_later(max(10.0, cfg["timeout"] - 30.0), exit=False)
     init_world(cfg["device"])
     try:
-        res = {"collectives": collectives_worker, "train_dist": train_dist_worker}[name](cfg)
-        with open(os.path.join(cfg["out"], f"rank{dist.get_rank()}.json"), "w") as fh:
-            json.dump(res, fh)
-    finally:
-        dist.destroy_process_group()
+        res = {"collectives": collectives_worker, "train_dist": train_dist_worker,
+               "family_dist": family_dist_worker, "tp_dist": tp_dist_worker}[name](cfg)
+    except BaseException:
+        # leave at once, before any teardown: NCCL's would wait for the
+        # peers' collectives, and this rank's error would never be printed
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    with open(os.path.join(cfg["out"], f"rank{dist.get_rank()}.json"), "w") as fh:
+        json.dump(res, fh)
+    dist.destroy_process_group()
     return 0
 
 
@@ -2186,7 +2482,8 @@ def collectives_path(seed: int, device, smi: str) -> dict | None:
     nothing (None). Else: (a) ``collectives_worker`` on four ranks; (b)
     ``train_dist_worker`` on four ranks, then the elastic resume of its
     root on two, and step 1 of the same 16 sequences on one card in this
-    process (``ONE_CARD_MICROBATCHES``). Every check fails the phase."""
+    process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
+    families (``model_axis_path``). Every check fails the phase."""
     import shutil
     import tempfile
 
@@ -2247,6 +2544,8 @@ def collectives_path(seed: int, device, smi: str) -> dict | None:
     one = train.main(TRAIN_DIST_ARGS + ["--seed", str(seed), "--device", str(device),
                                         "--mesh", "1x1", "--steps", "1",
                                         "--microbatches", str(ONE_CARD_MICROBATCHES)])
+    del one["params"]
+    release(device)
     r0 = ranks[0]
     auto, chunked, resumed = r0["auto"]["losses"], r0["chunked"]["losses"], r0["resumed"]["losses"]
 
@@ -2317,8 +2616,154 @@ def collectives_path(seed: int, device, smi: str) -> dict | None:
         "elastic_launches_restore": [e["restore"]["launches"] for e in elastic],
         "expected_launches": want, "devices": [r["device"] for r in ranks],
         "wall_s": {"four": ranks[0]["wall_s"], "two": elastic[0]["wall_s"]}})
+    out.update(model_axis_path(seed, device, dev, ranks, one, per_step))
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def manifest_layout(manifest: dict) -> dict:
+    """A MANIFEST's leaves without their digests: names, shapes, dtypes,
+    sizes, files and chunk plans."""
+    return {k: ({f: e[f] for f in ("shape", "dtype", "nbytes", "file", "chunk_bytes")},
+                [(c["offset"], c["length"]) for c in e["chunks"]])
+            for k, e in manifest["leaves"].items()}
+
+
+def model_axis_path(seed: int, device, dev: str, ranks: list, one: dict,
+                    per_step: dict) -> dict:
+    """The collectives phase's model-axis part, after the 2x2x1 training
+    (its ranks' results ``ranks``, one card's step 1 ``one``, its step
+    times ``per_step``): (a) every other family over pod x data
+    (``family_dist_worker``), each held at step 1 to one card on the same
+    sequences; (b) gemma-2b over 1x2x2 and 1x1x4 (``tp_dist_worker``), with a
+    checkpoint on 1x2x2 resumed there and elastically on 1x1x2; (c)
+    internvl2-2b on 1x1x4. Every check fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    def close(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    t0 = time.perf_counter()
+    r0 = ranks[0]
+    release(device)
+    fam = run_ranks("family_dist", COLL_CARDS, {
+        "device": dev, "seed": seed, "steps": FAMILY_DIST_STEPS, "mesh": TRAIN_DIST_MESH,
+        "runs": [a + FAMILY_DIST_COMMON for a in FAMILY_DIST_RUNS]}, MODEL_AXIS_TIMEOUT_S)
+    families = []
+    for i, args in enumerate(FAMILY_DIST_RUNS):
+        runs = [r["runs"][i] for r in fam]
+        arch, losses = runs[0]["arch"], runs[0]["losses"]
+        first = train.main(args + FAMILY_DIST_COMMON + [
+            "--seed", str(seed), "--device", str(device), "--mesh", "1x1", "--steps", "1",
+            "--microbatches", str(ONE_CARD_MICROBATCHES)])["losses"]
+        release(device)
+        check(len(losses) == FAMILY_DIST_STEPS and all(np.isfinite(losses)),
+              f"{arch} on {TRAIN_DIST_MESH}: finite losses {losses}")
+        check(all(r["losses"] == losses for r in runs), f"{arch}: every rank's loss")
+        check(close(losses[:1], first), f"{arch}: step 1 on four cards {losses[0]} within "
+                                         f"{LOSS_RTOL} of one card's {first[0]}")
+        families.append({"arch": arch, "args": args, "losses": losses, "one_card_step1": first[0],
+                         "steady_step_ms": 1e3 * median([max(r["step_s"][s] for r in runs)
+                                                         for s in range(1, FAMILY_DIST_STEPS)]),
+                         "peak_bytes": [r["peak_bytes"] for r in runs]})
+    root = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    cfg = {"device": dev, "seed": seed, "args": TRAIN_DIST_ARGS, "steps": TRAIN_DIST_STEPS,
+           "elastic": False}
+    try:
+        tp = {}
+        for mesh in TP_MESHES:
+            extra = ({"root": root, "ckpt_step": TRAIN_DIST_CKPT} if mesh == TP_CKPT_MESH
+                     else {"also": [VLM_TP_ARGS], "also_steps": VLM_TP_STEPS})
+            tp[mesh] = run_ranks("tp_dist", COLL_CARDS, {**cfg, "mesh": mesh, **extra},
+                                 MODEL_AXIS_TIMEOUT_S)
+        elastic = run_ranks("tp_dist", 2, {**cfg, "mesh": TP_ELASTIC_MESH, "elastic": True,
+                                           "root": root, "microbatches": ONE_CARD_MICROBATCHES},
+                            MODEL_AXIS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    vlm_one = train.main(VLM_TP_ARGS + ["--seed", str(seed), "--device", str(device),
+                                        "--mesh", "1x1", "--steps", "1"])["losses"]
+    auto = r0["auto"]["losses"]
+    meshes = {TRAIN_DIST_MESH: {
+        "step_ms": per_step["auto"]["steady_step_ms"],
+        "collective_ms": {"model": 0.0, "batch": per_step["auto"]["sync_ms_steady"]["world_mean"]},
+        "peak_bytes": [r["auto"]["peak_bytes"] for r in ranks]}}
+    for mesh, ranks in tp.items():
+        t = ranks[0]["train"]
+        losses = t["losses"]
+        check(len(losses) == TRAIN_DIST_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"gemma-2b on {mesh}: finite losses that fall: {losses}")
+        check(all(r["train"]["losses"] == losses for r in ranks), f"{mesh}: every rank's loss")
+        check(close(losses[:1], one["losses"]) and close(losses[:1], auto[:1]),
+              f"{mesh}: step 1 {losses[0]} within {LOSS_RTOL} of one card's {one['losses'][0]} "
+              f"and {TRAIN_DIST_MESH}'s {auto[0]}")
+        for r in ranks:
+            check(r["f32"]["rel"] <= TP_F32_TOL,
+                  f"{mesh} rank {r['rank']}: f32 logits within {TP_F32_TOL} of the largest of one "
+                  f"card's ({r['f32']['max_abs_err']} of {r['f32']['max_logit']})")
+            check(r["train"]["whole_equal"], f"{mesh} rank {r['rank']}: every whole leaf "
+                                              "bit-equal across the model group after the steps")
+        coll = {k: [max(r["train"]["collective_ms"][k][s] for r in ranks)
+                    for s in range(TRAIN_DIST_STEPS)] for k in ("model", "batch")}
+        meshes[mesh] = {
+            "losses": losses, "f32_rel": max(r["f32"]["rel"] for r in ranks),
+            "step_ms": 1e3 * median([max(r["train"]["step_s"][s] for r in ranks)
+                                     for s in range(1, TRAIN_DIST_STEPS)]),
+            "collective_ms": {k: median(v[1:]) for k, v in coll.items()},
+            "collective_ms_first_step": {k: v[0] for k, v in coll.items()},
+            "peak_bytes": [r["train"]["peak_bytes"] for r in ranks]}
+    ck_ranks = tp[TP_CKPT_MESH]
+    c0 = ck_ranks[0]
+    tail = c0["train"]["losses"][TRAIN_DIST_CKPT:]
+    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["whole_equal"]
+              for r in ck_ranks),
+          f"{TP_CKPT_MESH}: the resumed steps repeat the uninterrupted run's losses "
+          f"{c0['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+    check(all(close(e["elastic"]["losses"], tail) for e in elastic),
+          f"{TP_CKPT_MESH}'s root resumed on {TP_ELASTIC_MESH} repeats them: "
+          f"{elastic[0]['elastic']['losses']} vs {tail}")
+    check(manifest_layout(c0["manifest"]) == manifest_layout(r0["manifest"]),
+          f"the {TP_CKPT_MESH} MANIFEST names the {TRAIN_DIST_MESH} run's leaves, shapes, dtypes "
+          "and chunks")
+    check(c0["saved_equal_restored"], f"{TP_CKPT_MESH}: rank 0 restored the whole saved tree "
+                                      "bit for bit")
+    want = ckpt_launches(c0["manifest"])
+    got = c0["save"]["launches"]
+    check(got == r0["save"]["launches"] and got == {**got, **want["save"]},
+          f"{TP_CKPT_MESH}: rank 0's save launched exactly {want['save']} (as "
+          f"{TRAIN_DIST_MESH}'s): {got}")
+    for r in ck_ranks + elastic:
+        check(r["restored_equal_rank0"], f"{r['mesh']} rank {r['rank']} restored rank 0's tree "
+                                         "bit for bit")
+        got = r["restore"]["launches"]
+        check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+              f"{r['mesh']} rank {r['rank']}'s restore launched exactly {want['restore']}: {got}")
+    vlm = [r["also"][0] for r in tp[TP_VLM_MESH]]
+    check(all(np.isfinite(vlm[0]["losses"])) and all(v["whole_equal"] for v in vlm)
+          and all(v["losses"] == vlm[0]["losses"] for v in vlm),
+          f"internvl2-2b on {TP_VLM_MESH}: finite losses on every rank, whole leaves bit-equal")
+    check(close(vlm[0]["losses"][:1], vlm_one),
+          f"internvl2-2b on {TP_VLM_MESH}: step 1 {vlm[0]['losses'][0]} within {LOSS_RTOL} of "
+          f"one card's {vlm_one[0]}")
+    return {"families": families, "model_axis": {
+        "arch": "gemma-2b", "meshes": meshes,
+        "ckpt": {"mesh": TP_CKPT_MESH, "save_s": c0["save"]["seconds"],
+                 "bytes": c0["save"]["bytes"], "launches_save_rank0": c0["save"]["launches"],
+                 "launches_restore": [r["restore"]["launches"] for r in ck_ranks],
+                 "restore_s": [r["restore"]["seconds"] for r in ck_ranks],
+                 "elastic_restore_s": [e["restore"]["seconds"] for e in elastic],
+                 "resumed": c0["resumed"]["losses"], "elastic": elastic[0]["elastic"]["losses"]},
+        "vlm": {"mesh": TP_VLM_MESH, "losses": vlm[0]["losses"], "one_card_step1": vlm_one[0],
+                "steady_step_ms": 1e3 * median([max(v["step_s"][s] for v in vlm)
+                                                for s in range(1, VLM_TP_STEPS)]),
+                "peak_bytes": [v["peak_bytes"] for v in vlm]},
+        "seconds": time.perf_counter() - t0}}
 
 
 PHASES = ("card", "collectives")    # every phase on one card; the four-card phase
@@ -2362,6 +2807,32 @@ def print_collectives(coll: dict, smi: str) -> None:
           f"{t['launches_restore'][0]} each), on two ranks in "
           f"{', '.join(f'{x:.2f}' for x in t['elastic_restore_s'])} s; resumed "
           f"{t['resumed_losses']}, elastic {t['elastic_losses']} [{smi}]")
+    for f in coll["families"]:
+        print(f"collectives family {f['arch']} ({' '.join(f['args'][2:])}) on {t['mesh']}: "
+              f"{f['steady_step_ms']:.1f} ms/step; losses {[round(x, 4) for x in f['losses']]}, "
+              f"step 1 on one card {f['one_card_step1']:.6f}; peak GB a card "
+              f"{[round(b / 1e9, 2) for b in f['peak_bytes']]} [{smi}]")
+    m = coll["model_axis"]
+    base = m["meshes"][t["mesh"]]
+    for mesh, row in m["meshes"].items():
+        f32 = f"; f32 logits within {row['f32_rel']:.3g} of one card's" if "f32_rel" in row else ""
+        print(f"collectives model_axis {m['arch']} 2 layers on {mesh}: {row['step_ms']:.1f} ms/step; "
+              f"all-reduce ms a step: model {row['collective_ms']['model']:.2f}, batch axes "
+              f"{row['collective_ms']['batch']:.2f}; peak GB a card "
+              f"{[round(b / 1e9, 2) for b in row['peak_bytes']]} ({t['mesh']}: "
+              f"{[round(b / 1e9, 2) for b in base['peak_bytes']]}){f32} [{smi}]")
+    c = m["ckpt"]
+    print(f"collectives model_axis checkpoint on {c['mesh']}: {c['bytes'] / 1e9:.2f} GB, the whole "
+          f"tree gathered and saved by rank 0 in {c['save_s']:.2f} s (launches "
+          f"{c['launches_save_rank0']}), restored on each rank in "
+          f"{', '.join(f'{x:.2f}' for x in c['restore_s'])} s, on {TP_ELASTIC_MESH} in "
+          f"{', '.join(f'{x:.2f}' for x in c['elastic_restore_s'])} s; resumed {c['resumed']}, "
+          f"elastic {c['elastic']} [{smi}]")
+    v = m["vlm"]
+    print(f"collectives model_axis internvl2-2b 2 layers on {v['mesh']}: {v['steady_step_ms']:.1f} "
+          f"ms/step; losses {[round(x, 4) for x in v['losses']]}, step 1 on one card "
+          f"{v['one_card_step1']:.6f}; peak GB a card {[round(b / 1e9, 2) for b in v['peak_bytes']]} "
+          f"[{smi}]")
     print("collectives " + json.dumps(coll))
 
 
@@ -2609,7 +3080,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default="all",
                         help=f"comma-separated of {', '.join(PHASES)} (default: all)")
-    parser.add_argument("--rank-worker", choices=("collectives", "train_dist"),
+    parser.add_argument("--rank-worker",
+                        choices=("collectives", "train_dist", "family_dist", "tp_dist"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--config", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -2630,15 +3102,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     from repro_torch.kernels import _build
-    from repro_torch.kernels import checksum as ck
-    from repro_torch.kernels import matmul_digest as mm
 
-    def reset() -> None:
-        ck.reset_launch_counts()
-        mm.reset_launch_counts()
-
-    def counts() -> dict:
-        return {**ck.launch_counts(), **mm.launch_counts()}
+    reset, counts = launch_counters()
 
     t_all = time.perf_counter()
     device = torch.device("cuda", 0)

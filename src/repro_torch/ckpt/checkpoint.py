@@ -24,10 +24,14 @@ on ``device``, and a leaf that lies on the card is also digested there
 of the bytes written, so a fault between the card and the file is caught at
 save. Restore copies each leaf file to ``device`` once, checks its chunks
 there (``fingerprint_ranges_on_device``) and returns that copy as the
-tensor. A request for the card without one raises.
+tensor. A request for the card without one raises. ``materialize`` lets a
+sharded run hand over its blocks and gather each leaf whole just before it
+is written: leaves are materialized on the calling thread, in tree order,
+with at most ``io_workers`` of them in flight.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
@@ -166,8 +170,11 @@ def save_checkpoint(
     chunk_bytes: int | None = None,
     process_index: int | None = None,
     device="cuda",
+    materialize: Callable[[str, torch.Tensor], torch.Tensor] | None = None,
 ) -> SaveReport:
-    """Write one checkpoint; safe to re-invoke after a crash (partial restart)."""
+    """Write one checkpoint; safe to re-invoke after a crash (partial restart).
+    ``materialize(key, leaf)``, when given, makes the tensor written for
+    each leaf (called on this thread, in tree order)."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
     proc = _process_index() if process_index is None else process_index
@@ -232,7 +239,13 @@ def save_checkpoint(
             resumed += skipped
 
     with ThreadPoolExecutor(max_workers=io_workers) as ex:
-        list(ex.map(save_leaf, leaves.items()))
+        pending: collections.deque = collections.deque()
+        for key, t in leaves.items():
+            if len(pending) >= io_workers:
+                pending.popleft().result()
+            pending.append(ex.submit(save_leaf, (key, materialize(key, t) if materialize else t)))
+        for fut in pending:
+            fut.result()
 
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as fh:
         json.dump(manifest, fh, indent=1, sort_keys=True)

@@ -4,7 +4,8 @@ Plans and digests made by ``repro`` become the port's own objects here, so
 one plan can drive both engines and their digests compare as equals; a
 reference pytree of numpy arrays becomes the port's state dict and back,
 and a reference model's params tree the port's (``params_from_reference``)
-and back.
+and back. ``gather_params`` makes the whole tree of a run's blocks over a
+``model`` axis, so it compares with the reference's.
 All of it is duck-typed — ``.h``/``.length`` for a digest, the
 ``ChunkPlan``/``Chunk`` fields for a plan, nested dicts and lists for a
 tree — and imports nothing of ``repro``. The other half of the shared state
@@ -22,6 +23,7 @@ from repro_torch.ckpt.checkpoint import _flatten, _unflatten, dtype_name, tensor
 from repro_torch.core.dataplane import resolve_device
 from repro_torch.core.chunker import Chunk, ChunkPlan
 from repro_torch.core.integrity import Digest
+from repro_torch.distributed.mesh import gather
 
 
 def digest_from_reference(d) -> Digest:
@@ -94,3 +96,13 @@ def params_to_reference(state: Any) -> dict:
         dt = np.uint16 if t.dtype == torch.bfloat16 else np.dtype(dtype_name(t.dtype))
         leaves[key] = raw.view(dt).reshape(tuple(t.shape))
     return _unflatten(leaves)
+
+
+def gather_params(tree: Any, mesh, specs: Any) -> dict:
+    """The whole params tree of this rank's blocks ``tree`` under the
+    PartitionSpecs ``specs`` (``param_specs(mesh)``): each leaf cut over
+    ``model`` gathered over the model group, leaf by leaf. Every rank of
+    the group calls it."""
+    if isinstance(tree, dict):
+        return {k: gather_params(v, mesh, specs[k]) for k, v in tree.items()}
+    return gather(mesh, tree, specs)

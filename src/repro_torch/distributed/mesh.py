@@ -14,15 +14,24 @@ follows from the device asked for, never from what is installed).
 more it lays the axes row-major over the world's ranks (as
 ``jax.make_mesh`` does) with ``init_device_mesh``, and this rank runs on
 ``cuda:{LOCAL_RANK}`` (or the host). A mesh larger than the world raises
-``RuntimeError``, as the reference's ``launch.train.parse_mesh`` does; a
-``model`` axis over 1 raises ``NotImplementedError`` until tensor
-parallelism is ported (ROADMAP Queue 1). The ``shard_map`` shims of the
-reference have no counterpart.
+``RuntimeError``, as the reference's ``launch.train.parse_mesh`` does. The
+mesh also holds a process group over its batch axes (pod x data): the ranks
+that share this rank's ``model`` index, over which gradients are meaned.
+
+The sharding rules are the reference's (``_RULES``, ``spec``,
+``batch_spec``), with ``PartitionSpec`` a tuple of mesh axes a dim.
+``shard`` is the port's ``device_put(x, NamedSharding(mesh, spec))``: it
+cuts this rank's block out of a whole tensor along each dim whose entry
+names ``model``, and ``gather`` puts the whole tensor back together. An
+entry over ``data`` or ``pod`` leaves the dim whole: every rank of a batch
+axis holds whole weights until ZeRO over ``data`` is ported (ROADMAP Queue
+1 item 5). The ``shard_map`` shims of the reference have no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 from typing import Any
@@ -45,6 +54,7 @@ class Mesh:
     shape: dict[str, int]
     devices: tuple[torch.device, ...]
     device_mesh: Any = None
+    batch_group: Any = None      # the pod x data group through this rank (None: the world's)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -64,8 +74,10 @@ class Mesh:
         return None if self.device_mesh is None else self.device_mesh.get_group(axis)
 
     def rank(self, axis: str) -> int:
-        """This rank's index along ``axis``."""
-        return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(axis)
+        """This rank's index along ``axis`` (0 off the mesh's axes)."""
+        if self.device_mesh is None or axis not in self.shape:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
 
 
 def available_devices(device="cuda") -> list[torch.device]:
@@ -149,17 +161,118 @@ def make_mesh(axis_shapes, axis_names, *, devices=None, device="cuda") -> Mesh:
     if world != n:
         raise RuntimeError(f"mesh {shapes} of {n} ranks in a world of {world}: "
                            "a mesh spans the whole world")
-    if dict(zip(names, shapes)).get(MODEL, 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of {dict(zip(names, shapes))[MODEL]} needs tensor parallelism, "
-            "not ported yet (ROADMAP Queue 1)")
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     dm = init_device_mesh(dev.type, shapes, mesh_dim_names=names)
-    return Mesh(dict(zip(names, shapes)), (dev,), dm)
+    return Mesh(dict(zip(names, shapes)), (dev,), dm, _batch_group(shapes, names))
+
+
+def _batch_group(shapes: tuple[int, ...], names: tuple[str, ...]):
+    """The group of the ranks that share this rank's index on every axis
+    but pod and data (the world's, None, when those are the only axes over
+    1). Every rank creates every such group, in the same order, as
+    ``dist.new_group`` requires."""
+    rest = [i for i, n in enumerate(names) if n not in (POD, DATA)]
+    if all(shapes[i] == 1 for i in rest):
+        return None
+    coords = list(itertools.product(*(range(s) for s in shapes)))   # row-major ranks
+    me, mine = dist.get_rank(), None
+    for key in itertools.product(*(range(shapes[i]) for i in rest)):
+        ranks = [r for r, c in enumerate(coords) if tuple(c[i] for i in rest) == key]
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+# ---------------------------------------------------------------------------
+# sharding rules (the reference's) and this rank's blocks of whole tensors
+# ---------------------------------------------------------------------------
+class PartitionSpec(tuple):
+    """One entry a dim: a mesh axis, a tuple of axes, or None (whole)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+# logical dim -> mesh axis (None = replicate)
+_RULES: dict[str, str | None] = {
+    "batch": DATA,         # + pod, applied by batch_spec()
+    "seq": None,           # sequence sharding is opt-in (context parallelism)
+    "embed": None,         # activations' feature dim stays unsharded
+    "vocab": MODEL,
+    "heads": MODEL,
+    "kv_heads": MODEL,
+    "head_dim": None,
+    "ffn": MODEL,
+    "experts": MODEL,
+    "expert_ffn": None,
+    "fsdp": DATA,          # parameter dim chosen for ZeRO-3 sharding
+    "state": None,         # SSM / RG-LRU recurrent state dim
+    "conv": None,
+}
+
+
+def spec(*logical: str | None) -> PartitionSpec:
+    """PartitionSpec from logical dim names, e.g. spec('fsdp','ffn')."""
+    axes = []
+    for name in logical:
+        if name is None:
+            axes.append(None)
+        else:
+            axes.append(_RULES.get(name, None) if isinstance(name, str) else name)
+    return P(*axes)
+
+
+def batch_spec(mesh: Mesh, *, seq_sharded: bool = False) -> PartitionSpec:
+    """(batch, seq, ...) activation spec: batch over pod+data when present."""
+    batch_axes = tuple(a for a in (POD, DATA) if a in mesh.axis_names)
+    b = batch_axes if len(batch_axes) > 1 else (batch_axes[0] if batch_axes else None)
+    return P(b, MODEL if seq_sharded else None)
+
+
+def model_dims(pspec) -> list[int]:
+    """The dims of ``pspec`` whose entry names the ``model`` axis."""
+    return [i for i, e in enumerate(pspec)
+            if e == MODEL or (isinstance(e, tuple) and MODEL in e)]
+
+
+def shard(mesh: Mesh, x: torch.Tensor, pspec) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``pspec``: cut
+    along each dim that names ``model`` (a view; ``x`` itself where nothing
+    is cut). A dim that does not split evenly raises ``ValueError``."""
+    tp, r = axis_size(mesh, MODEL), mesh.rank(MODEL)
+    if tp == 1:
+        return x
+    for d in model_dims(pspec):
+        if x.shape[d] % tp:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split over {tp} ranks")
+        n = x.shape[d] // tp
+        x = x.narrow(d, r * n, n)
+    return x
+
+
+def gather(mesh: Mesh, x: torch.Tensor, pspec) -> torch.Tensor:
+    """The whole tensor of this rank's block ``x`` under ``pspec``: the
+    inverse of ``shard``, an all-gather over the ``model`` group a sharded
+    dim (every rank of the group calls it, in the same order)."""
+    tp = axis_size(mesh, MODEL)
+    if tp == 1:
+        return x
+    for d in model_dims(pspec):
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(tp)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group(MODEL))
+        x = torch.cat(parts, dim=d)
+    return x
 
 
 def axis_size(mesh: Mesh, name: str) -> int:

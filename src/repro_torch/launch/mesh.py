@@ -4,7 +4,8 @@ Twin of ``repro.launch.mesh``. A single pod is the reference's 16x16 slice
 (256 devices); multi-pod adds a leading "pod" axis (2x16x16, 512 devices).
 A mesh of more than one device spans the world of ranks
 (``distributed.mesh.make_mesh``): ``make_host_mesh((2, 2, 1), ("pod",
-"data", "model"))`` on four ranks, ``(1, 1)`` on one. The production meshes
+"data", "model"))`` or its default (2, 2) over (data, model) on four
+ranks, ``(1, 1)`` on one. The production meshes
 raise on fewer ranks, which is every world the port runs today. Defined as
 functions so that importing this module touches no device state.
 """
@@ -34,8 +35,8 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
 
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"), device="cuda"):
-    """Small mesh over the ranks that exist: (1, 1) on one, (2, 2, 1) over
-    ("pod", "data", "model") on four."""
+    """Small mesh over the ranks that exist: (1, 1) on one; on four, (2, 2)
+    over ("data", "model") or (2, 2, 1) over ("pod", "data", "model")."""
     n = math.prod(shape)
     have = _have(n, device)
     if have < n:

@@ -1,25 +1,31 @@
 """Step builders: train / prefill / decode.
 
-Twin of ``repro.launch.steps`` on a world of one device. The train step is
-forward, backward (``torch.autograd.grad`` over the params tree) and AdamW;
-microbatches accumulate the gradients in f32 (the reference's grad
-accumulation over a scan), which bounds activation memory.
+Twin of ``repro.launch.steps``. The train step is forward, backward
+(``torch.autograd.grad`` over the params tree) and AdamW; microbatches
+accumulate the gradients in f32 (the reference's grad accumulation over a
+scan), which bounds activation memory.
 
 On a mesh of more than one rank every rank runs the step on its own rows
-of the batch (``data.pipeline.TokenPipeline``), and ``sync_mode`` picks how
-the gradients and the loss are meaned over the (pod x data) world:
-"auto" is one monolithic ``dist.all_reduce`` a leaf over the world, the
-baseline GSPMD emits in the reference; "chunked" means over ``data`` with
-that all-reduce (GSPMD's part in the reference), then over ``pod`` with
-``distributed.fsdp.cross_pod_mean``'s chunked rings; "chunked_bf16" casts
-the gradients to bf16 for the cross-pod rings and back. On one pod the
-chunked modes take the auto path, exactly as the reference decides
-(``n_pods > 1``).
+of the batch (``data.pipeline.TokenPipeline``: the batch splits over pod x
+data, and the ranks of one ``model`` group share their rows), and
+``sync_mode`` picks how the gradients and the loss are meaned over the
+batch axes: "auto" is one monolithic ``dist.all_reduce`` a leaf over the
+pod x data group (``Mesh.batch_group``), the baseline GSPMD emits in the
+reference; "chunked" means over ``data`` with that all-reduce (GSPMD's part
+in the reference), then over ``pod`` with ``distributed.fsdp.cross_pod_mean``'s
+chunked rings, each on this model rank's blocks; "chunked_bf16" casts the
+gradients to bf16 for the cross-pod rings and back. On one pod the chunked
+modes take the auto path, exactly as the reference decides
+(``n_pods > 1``). Over a ``model`` axis the params are this rank's blocks
+(``param_specs``), the model's forward brackets its products with the
+model group's collectives, and AdamW's clip norm sums the sharded leaves'
+squares over that group. Prefill and decode over a ``model`` axis wait for
+ROADMAP Queue 1 items 4 and 6.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
 (``launch.dryrun``) walks a step on fake tensors made from them. The port
-has no shardings to carry.
+carries no shardings: each rank's tensors are its own blocks.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
 from repro_torch.distributed.fsdp import cross_pod_mean
-from repro_torch.distributed.mesh import DATA, POD, axis_size
+from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size, model_dims, shard
+from repro_torch.models.common import refuse_model_axis
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -108,13 +115,17 @@ def build_train_step(
     cell = cell or SHAPES["train_4k"]
     if sync_mode not in ("auto", "chunked", "chunked_bf16"):
         raise ValueError(f"sync_mode {sync_mode!r}")
-    ranks = mesh.size if mesh is not None else 1
     n_pods = axis_size(mesh, POD) if mesh is not None else 1
+    ranks = n_pods * (axis_size(mesh, DATA) if mesh is not None else 1)   # batch shards
     chunked = sync_mode in ("chunked", "chunked_bf16") and n_pods > 1
     compress = sync_mode == "chunked_bf16"
     if cell.global_batch % (ranks * microbatches):
         raise ValueError(f"global batch {cell.global_batch} does not split over {ranks} "
                          f"ranks into {microbatches} microbatches")
+    sharded, model_group = None, None
+    if mesh is not None and axis_size(mesh, MODEL) > 1:
+        sharded = tree_map(lambda s: bool(model_dims(s)), model.param_specs(mesh))
+        model_group = mesh.group(MODEL)
 
     def grads_of(params, batch):
         if microbatches == 1:
@@ -134,7 +145,8 @@ def build_train_step(
         if ranks == 1:
             return loss, grads
         if not chunked:
-            return world_mean(loss, None, ranks), world_mean(grads, None, ranks)
+            group = mesh.batch_group
+            return world_mean(loss, group, ranks), world_mean(grads, group, ranks)
         dp = axis_size(mesh, DATA)
         if dp > 1:
             loss = world_mean(loss, mesh.group(DATA), dp)
@@ -152,17 +164,20 @@ def build_train_step(
 
     def step(params, opt, batch):
         loss, grads = synced(*grads_of(params, batch))
-        params, opt, stats = adamw.apply(params, grads, opt, ocfg)
+        params, opt, stats = adamw.apply(params, grads, opt, ocfg, sharded=sharded,
+                                         group=model_group)
         return params, opt, {"loss": loss, **stats}
 
     p_shapes = _param_shapes(model)
+    if sharded is not None:          # this rank's blocks
+        p_shapes = tree_map(lambda t, s: shard(mesh, t, s), p_shapes, model.param_specs(mesh))
     shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell))
     return StepBundle(step, model, "train", shapes)
 
 
 def world_mean(tree, group, n: int):
-    """Mean of every leaf of ``tree`` over ``group`` (None: the world of
-    ``n`` ranks), by one monolithic ``dist.all_reduce`` a leaf in the leaf's
+    """Mean of every leaf of ``tree`` over the ``n`` ranks of ``group``
+    (None: the world), by one monolithic ``dist.all_reduce`` a leaf in the leaf's
     dtype, in place on the leaf (on a contiguous copy of a leaf that is not
     contiguous, such as a gradient that autograd left transposed: NCCL
     takes contiguous tensors only)."""
@@ -181,6 +196,7 @@ def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> St
     """Last-position logits of a batch: an encdec's decoder over its encoded
     ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix.
     ``in_shapes`` is ``cell``'s (None without a cell)."""
+    refuse_model_axis(mesh, "prefill", "items 4 and 6")
     family = model.cfg.family
     if family == "encdec":
         def hidden(params, batch):
@@ -210,7 +226,10 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
     """One decode step over a cache of ``cell.seq_len`` positions for
     ``cell.global_batch`` sequences (``in_shapes``; None without a cell).
     ``weight_stationary`` picks the reference's serve-time param shardings;
-    on a world of one device it changes nothing."""
+    on one device it changes nothing, and over a ``model`` axis the step
+    raises (ROADMAP Queue 1 item 6)."""
+    refuse_model_axis(mesh, "decode", "items 4 and 6")
+
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, cache = model.decode_step(params, cache, tokens, pos)

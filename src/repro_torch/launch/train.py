@@ -15,29 +15,38 @@ is the reference's:
     the reference's leaf names, shapes and dtypes, so either package
     resumes the other's checkpoints;
   * **elastic restart**: checkpoints hold whole leaves, so a root saved by
-    four ranks resumes on two (``--mesh 2x2x1`` to ``1x2x1``). The
-    reference shrinks over data x model; the port, whose model axis is 1,
-    over data.
+    four ranks resumes on two, over data and over data x model (``--mesh
+    2x2`` to ``1x2``, as the reference's test does; ``2x2x1`` to ``1x2x1``).
 
-On a world of ranks every rank holds the same params (each draws them from
-the same seed, and every step applies the same synchronised gradients):
-rank 0 writes the checkpoint while the others wait at a barrier, and every
-rank restores the root onto its own device, checking every chunk there.
-Rank 0 prints; ``main`` returns the same dict on every rank.
+On a world of ranks every rank draws the whole params from the same seed
+(the one-device weights) and keeps its blocks of them
+(``distributed.mesh.shard`` under the model's ``param_specs``): the ranks
+of a ``model`` group hold the blocks of one model, and the groups stay
+equal, since every step applies the same synchronised gradients. Rank 0
+writes the whole tree, the MANIFEST of a one-device run: each leaf cut over
+``model`` is gathered from rank 0's model group just before it is written
+(``save_checkpoint(materialize=)``, one leaf at a time) and digested on the
+device, while the other ranks wait at a barrier. Every rank restores the
+whole root onto its own device, checking every chunk there, and keeps its
+blocks. Rank 0 prints; ``main`` returns the same dict on every rank.
 
 Where the port differs: ``--device`` (default ``cuda``; a request for the
 card without one raises) and ``--layers N``, which overrides the config's
 ``n_layers`` (an encdec's ``n_enc_layers`` too; depth only, never width) so
 a full-width model fits a run. An encdec's batch carries zero frame
 embeddings and a vlm's zero patch embeddings beside the tokens, as the
-reference's. ``main`` also returns each step's seconds and grad norm.
+reference's. ``main`` also returns each step's seconds and grad norm, and
+this rank's params (its blocks over a ``model`` axis).
 
-Usage (CPU, reduced config; then four ranks, one card each):
+Usage (CPU, reduced config; then four ranks, one card each, over pod x
+data and over data x model):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
       --device cpu --steps 40 --ckpt-dir /tmp/ck --ckpt-every 10
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
       -m repro_torch.launch.train --arch gemma-2b --smoke --mesh 2x2x1 \\
       --sync-mode chunked --steps 40 --ckpt-dir /tmp/ck4 --ckpt-every 10
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+      -m repro_torch.launch.train --arch gemma-2b --smoke --mesh 1x1x4 --steps 40
 """
 from __future__ import annotations
 
@@ -48,11 +57,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
+from repro_torch.ckpt.checkpoint import _flatten
 from repro_torch.configs.registry import ShapeCell, build_model
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.distributed.mesh import is_primary, make_mesh
+from repro_torch.distributed.mesh import (
+    DATA, MODEL, POD, axis_size, gather, is_primary, make_mesh, model_dims, shard)
 from repro_torch.launch.steps import _rebuild, _with_layers, build_train_step
 from repro_torch.optim import adamw
+from repro_torch.optim.adamw import tree_map
 
 
 def parse_mesh(spec: str, device="cuda"):
@@ -90,9 +102,60 @@ def modality_inputs(cfg, batch: int, device) -> dict:
     return {key: torch.zeros((batch, n, cfg.d_model), dtype=cfg.dtype, device=device)}
 
 
-def restore_into(mgr: CheckpointManager):
-    """Restore the latest checkpoint onto the manager's device (the mesh's)."""
+def checkpoint_specs(model, mesh):
+    """PartitionSpecs of the checkpoint tree ``{"params", "opt": {"step",
+    "m", "v"}}``; None where no leaf is cut (no ``model`` axis over 1)."""
+    if axis_size(mesh, MODEL) == 1:
+        return None
+    specs = model.param_specs(mesh)
+    o = adamw.state_specs(specs)
+    return {"params": specs, "opt": {"step": o.step, "m": o.m, "v": o.v}}
+
+
+def shard_state(mesh, tree, specs):
+    """This rank's blocks of a whole tree: a copy of each leaf that is cut,
+    so the whole leaf can be freed."""
+    if specs is None:
+        return tree
+    return tree_map(lambda t, s: shard(mesh, t, s).clone() if model_dims(s) else t, tree, specs)
+
+
+def _flat_specs(specs, prefix: str = "") -> dict:
+    """The specs keyed as ``ckpt.checkpoint._flatten`` keys the leaves."""
+    out = {}
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def save_whole(mgr: CheckpointManager, step: int, tree, mesh, specs):
+    """Rank 0 saves the whole tree (the report; None elsewhere). Over a
+    ``model`` axis each cut leaf is gathered over rank 0's model group, in
+    the checkpoint's leaf order, as rank 0 writes it; every other rank
+    waits at the caller's barrier."""
+    if specs is None:
+        return mgr.save(step, tree) if is_primary() else None
+    flat = _flat_specs(specs)
+
+    def whole(key, t):
+        return gather(mesh, t, flat[key])
+
+    if is_primary():
+        return mgr.save(step, tree, materialize=whole)
+    if mesh.rank(POD) == 0 and mesh.rank(DATA) == 0:       # rank 0's model group
+        for key, t in _flatten(tree).items():
+            whole(key, t)
+    return None
+
+
+def restore_into(mgr: CheckpointManager, mesh=None, specs=None):
+    """Restore the latest checkpoint onto the manager's device (the
+    mesh's), and keep this rank's blocks."""
     tree, step = mgr.restore()
+    tree = shard_state(mesh, tree, specs)
     o = tree["opt"]
     return tree["params"], adamw.OptState(step=o["step"], m=o["m"], v=o["v"]), step
 
@@ -129,14 +192,17 @@ def main(argv=None) -> dict:
 
     log = print if is_primary() else (lambda *_a, **_k: None)
     mgr = CheckpointManager(args.ckpt_dir, device=dev) if args.ckpt_dir else None
+    specs = checkpoint_specs(model, mesh)
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
         t0 = time.perf_counter()
-        params, opt, start = restore_into(mgr)
+        params, opt, start = restore_into(mgr, mesh, specs)
         log(f"[restore] resumed from step {start} ({mgr.root}) "
             f"in {time.perf_counter() - t0:.2f}s", flush=True)
     else:
         params = model.init_params(args.seed, dev)
+        if specs is not None:
+            params = shard_state(mesh, params, specs["params"])
         opt = adamw.init(params, ocfg)
 
     data = TokenPipeline(
@@ -162,9 +228,9 @@ def main(argv=None) -> dict:
                     f"gnorm {float(stats['grad_norm']):8.3f}  {dt*1e3:6.0f} ms/step",
                     flush=True)
             if mgr is not None and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-                if is_primary():
-                    rep = mgr.save(step + 1, {"params": params,
-                                              "opt": {"step": opt.step, "m": opt.m, "v": opt.v}})
+                rep = save_whole(mgr, step + 1, {"params": params, "opt": {
+                    "step": opt.step, "m": opt.m, "v": opt.v}}, mesh, specs)
+                if rep is not None:
                     log(f"[ckpt] step {step+1}: {rep.total_bytes/1e6:.1f} MB "
                         f"in {rep.seconds:.2f}s (resumed_chunks={rep.resumed_chunks})",
                         flush=True)
@@ -173,7 +239,7 @@ def main(argv=None) -> dict:
     finally:
         data.close()
     return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "step_seconds": step_seconds, "grad_norms": grad_norms}
+            "step_seconds": step_seconds, "grad_norms": grad_norms, "params": params}
 
 
 if __name__ == "__main__":

@@ -12,9 +12,17 @@ Pallas kernel computes it, so no hand-written kernel is due. Long queries
 take the blocked online-softmax path over KV chunks, short ones (decode,
 smoke shapes) the dense path; both mask invalid cache slots (position -1).
 
-The port runs a world of one device: the reference's sharding helpers
-(``ShardingMixin``, ``constrain``, ``shardable``, the param and cache
-specs) have no counterpart.
+Sharding: ``shardable`` and ``batch_axes`` are the reference's, and a
+family's ``param_specs`` returns the reference's PartitionSpecs. Where the
+reference leaves the collectives to GSPMD, the port writes them out on the
+``model`` group (``ShardingMixin``): each rank runs the forward on its own
+blocks of the weights (``distributed.mesh.shard``), with Megatron's pair of
+operators around each column- and row-parallel pair, a vocab-parallel
+embedding lookup and a vocab-parallel cross-entropy that never gathers the
+(B, S, V) logits. The residual stays whole on every model rank, where the
+reference may shard it by sequence (``constrain``, ``_seq``, ``_res`` are
+layout hints of GSPMD and have no counterpart); the decode caches'
+``kv_cache_spec`` waits for ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -24,8 +32,11 @@ import zlib
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size
 
 Params = Any
 
@@ -128,6 +139,118 @@ class ModelConfig:
         d, f = self.d_model, self.d_ff
         dense = self.param_count() - self.n_layers * self.n_experts * 3 * d * f
         return dense + self.n_layers * self.top_k * 3 * d * f
+
+
+# ---------------------------------------------------------------------------
+# the model axis: Megatron's operators on the model group
+# ---------------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group (the
+    input of a column-parallel product, or a whole weight that each rank
+    uses for its own heads only)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the group forward (the partial output of a row-parallel
+    product); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The group's blocks concatenated along the last dim; the backward
+    keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1] // dist.get_world_size(ctx.group)
+        return g.narrow(-1, dist.get_rank(ctx.group) * n, n).contiguous(), None
+
+
+class ShardingMixin:
+    """Tensor parallelism over the mesh's ``model`` axis. A dim that the
+    axis divides is split (``shardable``); a model rank then holds block
+    ``rank`` of it, and these helpers bracket each product with the
+    operator that keeps every replicated value and every replicated
+    leaf's gradient equal on every model rank, bit for bit. On a mesh
+    without a ``model`` axis over 1 each helper is the identity."""
+
+    mesh: Any = None
+
+    def _tp(self) -> int:
+        return 1 if self.mesh is None else axis_size(self.mesh, MODEL)
+
+    def _mrank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank(MODEL)
+
+    def _split(self, size: int) -> bool:
+        """Whether a dim of ``size`` is split over the model ranks."""
+        return self._tp() > 1 and shardable(size, MODEL, self.mesh) is not None
+
+    def _copy_in(self, x, split: bool = True):
+        """Into a column-parallel product (or onto a whole weight that feeds
+        this rank's heads only): the backward sums over ``model``."""
+        if not split or self._tp() == 1:
+            return x
+        return _CopyToModel.apply(x, self.mesh.group(MODEL))
+
+    def _reduce_out(self, x, split: bool = True):
+        """Out of a row-parallel product: the partial sums summed over
+        ``model``."""
+        if not split or self._tp() == 1:
+            return x
+        return _ReduceFromModel.apply(x, self.mesh.group(MODEL))
+
+    def _gather_out(self, x, split: bool = True):
+        """The last dim's blocks of every model rank, concatenated."""
+        if not split or self._tp() == 1:
+            return x
+        return _GatherFromModel.apply(x, self.mesh.group(MODEL))
+
+    def _vocab(self):
+        """(group, first row) of this rank's vocab block, None where the
+        vocab is whole."""
+        if not self._split(self.cfg.vocab):
+            return None
+        return self.mesh.group(MODEL), self._mrank() * (self.cfg.vocab // self._tp())
+
+    def _lookup(self, table, tokens):
+        """Embedding lookup; over a vocab block, the ids outside it are
+        masked, looked up locally, and the rows summed over ``model``."""
+        vocab = self._vocab()
+        if vocab is None:
+            return F.embedding(tokens.long(), table)
+        ids = tokens.long() - vocab[1]
+        inside = (ids >= 0) & (ids < table.shape[0])
+        x = F.embedding(torch.where(inside, ids, 0), table)
+        return self._reduce_out(torch.where(inside[..., None], x, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +405,19 @@ def attention(
     return out.to(q.dtype)
 
 
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, n: int, group: int):
+    """The K/V heads (dim 2) that query heads ``h0 .. h0+n-1`` meet, where
+    query head h meets kv head ``h // group`` (``attention``'s grouping):
+    a contiguous slice when each of them serves the same number of those
+    heads, else one kv head a query head."""
+    idx = [(h0 + j) // group for j in range(n)]
+    lo, hi = idx[0], idx[-1] + 1
+    if n % (hi - lo) == 0 and idx == [lo + j // (n // (hi - lo)) for j in range(n)]:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "silu":
         return F.silu
@@ -296,15 +432,34 @@ def gated_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Ten
     return h @ wo
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor, vocab=None) -> torch.Tensor:
+    """-log softmax(logits)[label] at each position, from f32 ``logits``.
+    ``vocab`` = (group, first id) when ``logits`` is one vocab block: the
+    max and the sum of exponentials are reduced over the group, and the
+    label's logit comes from the rank that holds it."""
+    if vocab is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    group, first = vocab
+    m = logits.detach().amax(-1, keepdim=True).contiguous()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    sumexp = _ReduceFromModel.apply(torch.exp(logits - m).sum(-1), group)
+    ids = labels.long() - first
+    inside = (ids >= 0) & (ids < logits.shape[-1])
+    tgt = torch.gather(logits, -1, torch.where(inside, ids, 0)[..., None])[..., 0]
+    tgt = _ReduceFromModel.apply(torch.where(inside, tgt, 0.0), group)
+    return torch.log(sumexp) + m[..., 0] - tgt
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                   mask: torch.Tensor | None = None,
-                  final_cap: float | None = None) -> torch.Tensor:
-    logits = softcap(logits.float(), final_cap)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+                  final_cap: float | None = None, vocab=None) -> torch.Tensor:
+    """Mean next-token cross-entropy; ``vocab`` as in ``_nll`` for a block
+    of the vocab."""
+    nll = _nll(softcap(logits.float(), final_cap), labels, vocab)
     if mask is None:
-        return -torch.mean(ll)
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def chunked_xent(
@@ -315,18 +470,20 @@ def chunked_xent(
     final_cap: float | None = None,
     mask: torch.Tensor | None = None,
     seq_chunk: int = 512,
+    vocab=None,
 ) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V) f32 logits.
 
     The unembed matmul + log-softmax run per seq-chunk and are recomputed in
     the backward pass: peak logits memory falls from O(S*V) to
     O(seq_chunk*V) — at gemma's 256k vocab and 8192 tokens a step, 8.4 GB of
-    f32 logits against one chunk's.
+    f32 logits against one chunk's. ``w`` may be one vocab block (``vocab``
+    as in ``_nll``); no rank then holds more than its block's logits.
     """
     B, S, D = h.shape
     if S <= seq_chunk:
         logits = torch.einsum("bsd,dv->bsv", h, w)
-        return cross_entropy(logits, labels, mask=mask, final_cap=final_cap)
+        return cross_entropy(logits, labels, mask=mask, final_cap=final_cap, vocab=vocab)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
     pad = (-S) % seq_chunk
@@ -338,9 +495,7 @@ def chunked_xent(
 
     def body(hh, ll, mm):
         logits = softcap(torch.einsum("bsd,dv->bsv", hh, w).float(), final_cap)
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, ll.long()[..., None])[..., 0]
-        return torch.sum(nll * mm)
+        return torch.sum(_nll(logits, ll, vocab) * mm)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, h.shape[1], seq_chunk):
@@ -349,6 +504,34 @@ def chunked_xent(
                 if torch.is_grad_enabled() else body(h[:, sl], labels[:, sl], mask[:, sl]))
         total = total + part
     return total / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers (the reference's)
+# ---------------------------------------------------------------------------
+def shardable(size: int, axis: str, mesh) -> str | None:
+    """Use `axis` only when the dim divides evenly on this mesh."""
+    if axis in mesh.axis_names and size % mesh.shape[axis] == 0:
+        return axis
+    return None
+
+
+def refuse_model_axis(mesh, what: str, items: str) -> None:
+    """``what`` runs over pod x data only: a ``model`` axis over 1 raises,
+    naming the ROADMAP Queue 1 ``items`` that port it."""
+    if mesh is not None and axis_size(mesh, MODEL) > 1:
+        raise NotImplementedError(
+            f"{what} over a model axis of {axis_size(mesh, MODEL)} is not ported yet "
+            f"(ROADMAP Queue 1 {items})")
+
+
+def batch_axes(mesh, exclude_pod: bool = False):
+    """Mesh axes carrying the batch dim; pod excluded inside manual-pod regions."""
+    cand = (DATA,) if exclude_pod else (POD, DATA)
+    axes = tuple(a for a in cand if a in mesh.axis_names)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
 
 
 def layer_slices(stacked: Sequence[torch.Tensor]) -> list[tuple[torch.Tensor, ...]]:

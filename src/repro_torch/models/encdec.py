@@ -60,6 +60,7 @@ class WhisperLM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None, *, max_target: int = 448):
         super().__init__()
         self.cfg = cfg
+        cm.refuse_model_axis(mesh, "the encdec family", "item 4")
         self.mesh = mesh
         self.max_target = max_target
 

@@ -73,6 +73,7 @@ class RecurrentGemmaLM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        cm.refuse_model_axis(mesh, "the hybrid family", "item 4")
         self.mesh = mesh
         self.w = cfg.lru_width or cfg.d_model
         kinds = []

@@ -1,6 +1,6 @@
 """Mixture-of-Experts LM: token-choice top-k routing with static capacity.
 
-Twin of ``repro.models.moe`` on a world of one device (tp = 1). The
+Twin of ``repro.models.moe`` on a model axis of one (tp = 1). The
 reference dispatches and combines with GShard/Switch-style all-to-alls over
 its model axis; with one column there is no all-to-all, and what is left is
 the local half of the same algorithm:
@@ -27,8 +27,10 @@ k)``: the same sum, in another order, with no atomics.
 
 Weights keep the reference's pre-sliced layout ``(n_blocks, tp, E_loc, D,
 F/SPLIT)``, so the param tree, ``convert`` and a checkpoint MANIFEST equal
-the reference's. A mesh of more than one device raises until
-``repro_torch.distributed`` is ported.
+the reference's. Over the pod and data axes each rank routes its own rows,
+with the capacity C taken over its own tokens, as the reference's
+per-shard ``block`` does inside its ``shard_map``. A ``model`` axis over 1
+raises until expert parallelism is ported (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.mesh import MODEL
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import DenseLM
@@ -125,12 +126,9 @@ class MoELM(DenseLM):
 
     def __init__(self, cfg: ModelConfig, mesh=None, *, cf: float = 2.0):
         super().__init__(cfg, mesh)
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"a MoE over a mesh of {mesh.size} devices needs the all-to-alls of "
-                "repro_torch.distributed (ROADMAP Queue 1, distributed/)")
+        cm.refuse_model_axis(mesh, "a MoE (expert parallelism)", "item 3")
+        self.tp = 1
         self.cf = cf
-        self.tp = mesh.shape[MODEL] if (mesh is not None and MODEL in mesh.axis_names) else 1
         self.route_log: list | None = None   # a list to record each MoE layer's routing
 
     # -- params --------------------------------------------------------------

@@ -106,6 +106,7 @@ class Mamba2LM(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        cm.refuse_model_axis(mesh, "the ssm family", "item 4")
         self.mesh = mesh
         self.d_inner = cfg.d_model * cfg.ssm_expand
         self.nheads = self.d_inner // cfg.ssm_head_dim

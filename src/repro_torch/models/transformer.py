@@ -15,6 +15,15 @@ Decode keeps per-kind KV caches: local layers get a ring buffer of
 its absolute position, so masking (validity, causality, window) is uniform
 for both. ``decode_step`` writes the new slot into the cache in place and
 returns it.
+
+Over a ``model`` axis (tensor parallelism) the train forward runs on this
+rank's blocks of the weights (``param_specs``, then
+``distributed.mesh.shard``): ``wq`` by heads and ``wk``/``wv`` by kv heads
+(whole where the axis does not divide them, as gemma-2b's one kv head),
+``wo`` row-parallel, ``wi``/``wg`` column- and ``wmo`` row-parallel, and
+``embed``/``unembed`` by vocab, each bracketed by ``ShardingMixin``'s
+operators. The residual stays whole on every model rank. Decode over a
+``model`` axis waits for ROADMAP Queue 1 items 4 and 6.
 """
 from __future__ import annotations
 
@@ -23,11 +32,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 
 
-class DenseLM(torch.nn.Module):
+class DenseLM(cm.ShardingMixin, torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
@@ -69,19 +79,74 @@ class DenseLM(torch.nn.Module):
             params["unembed"] = ini("unembed", (D, cfg.vocab))
         return params
 
+    def param_specs(self, mesh, *, serve: bool = False) -> Any:
+        """The reference's train-time PartitionSpecs, entry for entry. Only
+        the ``model`` entries cut a leaf (``distributed.mesh.shard``); the
+        ``data`` ones (ZeRO-3) wait for ROADMAP Queue 1 item 5."""
+        if serve:
+            raise NotImplementedError(
+                "weight-stationary serve specs are not ported (ROADMAP Queue 1 item 6)")
+        cfg = self.cfg
+        sh = lambda n, ax: cm.shardable(n, ax, mesh)  # noqa: E731
+        m_head = sh(cfg.n_heads, MODEL)
+        m_kv = sh(cfg.n_kv_heads, MODEL)
+        m_ff = sh(cfg.d_ff, MODEL)
+        m_voc = sh(cfg.vocab, MODEL)
+        d_dat = sh(cfg.d_model, DATA)
+        lp = {
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+            "wq": P(None, d_dat, m_head, None),
+            "wk": P(None, d_dat, m_kv, None),
+            "wv": P(None, d_dat, m_kv, None),
+            "wo": P(None, m_head, None, d_dat),
+            "wi": P(None, d_dat, m_ff),
+            "wg": P(None, d_dat, m_ff),
+            "wmo": P(None, m_ff, d_dat),
+        }
+        if cfg.post_norms:
+            lp["post_ln1"] = P(None, None)
+            lp["post_ln2"] = P(None, None)
+        specs = {
+            "embed": P(m_voc, d_dat),
+            "final_norm": P(None),
+            "blocks": {str(i): dict(lp) for i in range(len(self.pattern))},
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(d_dat, m_voc)
+        return specs
+
     # -- shared layer application -------------------------------------------
     def _qkv(self, x, lp, q_pos):
+        """Rotated q, k, v of this rank's heads: ``wq`` by heads, and
+        ``wk``/``wv`` by kv heads where the model axis divides them; a
+        whole ``wk``/``wv`` feeds only this rank's heads, so its gradient
+        is summed over ``model``."""
         cfg = self.cfg
-        h = cm.rms_norm(x, lp["ln1"])
+        heads = self._split(cfg.n_heads)
+        whole_kv = heads and not self._split(cfg.n_kv_heads)
+        h = self._copy_in(cm.rms_norm(x, lp["ln1"]), heads)
         q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
-        k_new = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
-        v_new = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+        k_new = torch.einsum("bsd,dkh->bskh", h, self._copy_in(lp["wk"], whole_kv))
+        v_new = torch.einsum("bsd,dkh->bskh", h, self._copy_in(lp["wv"], whole_kv))
         q = cm.rope(q, q_pos, cfg.rope_theta)
         k_new = cm.rope(k_new, q_pos, cfg.rope_theta)
         return q, k_new, v_new
 
+    def _local_kv(self, k, v):
+        """The kv heads that this rank's query heads meet: all of ``k``
+        where the kv heads are split with the heads (or nothing is split),
+        else those of the whole set that its heads group with."""
+        cfg = self.cfg
+        if not self._split(cfg.n_heads) or self._split(cfg.n_kv_heads):
+            return k, v
+        h_loc = cfg.n_heads // self._tp()
+        return cm.kv_for_heads(k, v, self._mrank() * h_loc, h_loc,
+                               cfg.n_heads // cfg.n_kv_heads)
+
     def _attn_out(self, o, lp):
         o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
+        o = self._reduce_out(o, self._split(self.cfg.n_heads))
         if self.cfg.post_norms:
             o = cm.rms_norm(o, lp["post_ln1"])
         return o
@@ -90,6 +155,7 @@ class DenseLM(torch.nn.Module):
         """One attention sub-layer of the train forward."""
         cfg = self.cfg
         q, k, v = self._qkv(x, lp, q_pos)
+        k, v = self._local_kv(k, v)
         o = cm.attention(
             q, k, v, causal=True, q_positions=q_pos, kv_positions=q_pos,
             window=cfg.window if kind == "l" else None,
@@ -99,10 +165,11 @@ class DenseLM(torch.nn.Module):
 
     def _mlp(self, x, lp):
         cfg = self.cfg
-        h = cm.rms_norm(x, lp["ln2"])
+        ffn = self._split(cfg.d_ff)
+        h = self._copy_in(cm.rms_norm(x, lp["ln2"]), ffn)
         g = cm.act_fn(cfg.act)(torch.einsum("bsd,df->bsf", h, lp["wg"]))
         u = torch.einsum("bsd,df->bsf", h, lp["wi"])
-        m = torch.einsum("bsf,fd->bsd", g * u, lp["wmo"])
+        m = self._reduce_out(torch.einsum("bsf,fd->bsd", g * u, lp["wmo"]), ffn)
         if cfg.post_norms:
             m = cm.rms_norm(m, lp["post_ln2"])
         return x + m
@@ -114,7 +181,7 @@ class DenseLM(torch.nn.Module):
 
     def _embed(self, params, tokens):
         cfg = self.cfg
-        x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+        x = self._lookup(params["embed"], tokens)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
         return x.to(cfg.dtype)
@@ -145,21 +212,34 @@ class DenseLM(torch.nn.Module):
         return cm.rms_norm(x, params["final_norm"])
 
     def _out_w(self, params):
+        """The unembedding (D, V), or this rank's vocab block of it."""
         cfg = self.cfg
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return w.to(cfg.dtype)
 
+    def _unembed(self, params, h):
+        """Whole logits (B, S, V) of hidden states ``h``: over a vocab
+        split, each rank's block, gathered."""
+        vocab = self._vocab() is not None
+        h = self._copy_in(h, vocab)
+        return self._gather_out(torch.einsum("bsd,dv->bsv", h, self._out_w(params)), vocab)
+
+    def _xent(self, params, h, labels, final_cap=None):
+        """``chunked_xent`` of ``h`` against ``labels``, vocab-parallel over
+        a vocab split."""
+        vocab = self._vocab()
+        return cm.chunked_xent(self._copy_in(h, vocab is not None), self._out_w(params),
+                               labels, final_cap=final_cap, vocab=vocab)
+
     def logits(self, params, tokens):
-        x = self.hidden(params, tokens)
-        return torch.einsum("bsd,dv->bsv", x, self._out_w(params))
+        return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
         h = self.hidden(params, tokens[:, :-1])
-        return cm.chunked_xent(h, self._out_w(params), tokens[:, 1:],
-                               final_cap=self.cfg.final_softcap)
+        return self._xent(params, h, tokens[:, 1:], final_cap=self.cfg.final_softcap)
 
     # -- decode ----------------------------------------------------------------
     def cache_len(self, kind: str, max_len: int) -> int:
@@ -192,6 +272,7 @@ class DenseLM(torch.nn.Module):
 
         Returns (logits (B,1,V), cache) — the cache updated in place."""
         cfg = self.cfg
+        cm.refuse_model_axis(self.mesh, "decode", "items 4 and 6")
         x = self._embed(params, tokens)
         q_pos = pos[:, None]
         for b in range(self.n_blocks):

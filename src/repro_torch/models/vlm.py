@@ -5,14 +5,14 @@ provides already-projected patch embeddings (B, n_vis_tokens, d_model) —
 InternViT + the MLP projector's output. They are prepended to the text
 embeddings as a causal prefix; the loss is masked to text positions.
 Decode is ``DenseLM``'s, unchanged: like the reference, the model has no
-call that puts a visual prefix into the cache.
+call that puts a visual prefix into the cache. Over a ``model`` axis the
+lookup and the loss are ``DenseLM``'s vocab-parallel ones (internvl2-2b's
+odd vocab of 92553 keeps ``embed`` and ``unembed`` whole).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.models import common as cm
 from repro_torch.models.transformer import DenseLM
 
 
@@ -22,13 +22,12 @@ class InternVLM(DenseLM):
         followed by the tokens (looked up without ``embed_scale``, as the
         reference's ``_lookup``), at positions 0..Nv+S-1."""
         cfg = self.cfg
-        xt = F.embedding(tokens.long(), params["embed"])
+        xt = self._lookup(params["embed"], tokens)
         x = torch.cat([vis_embed.to(cfg.dtype), xt.to(cfg.dtype)], dim=1)
         return self._backbone(params, x)
 
     def logits_mm(self, params, tokens, vis_embed):
-        x = self.hidden_mm(params, tokens, vis_embed)
-        return torch.einsum("bsd,dv->bsv", x, self._out_w(params))
+        return self._unembed(params, self.hidden_mm(params, tokens, vis_embed))
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
@@ -37,5 +36,4 @@ class InternVLM(DenseLM):
         h = self.hidden_mm(params, tokens[:, :-1], vis)
         # text-only loss: positions [Nv-1, Nv+S-2) predict tokens[:, 1:]
         h_text = h[:, Nv - 1 : -1] if Nv > 0 else h
-        return cm.chunked_xent(h_text[:, : tokens.shape[1] - 1], self._out_w(params),
-                               tokens[:, 1:])
+        return self._xent(params, h_text[:, : tokens.shape[1] - 1], tokens[:, 1:])

@@ -7,6 +7,11 @@ reference's. Leaves of the params, grads and state trees are matched by
 their key path, not by their order. Updates are computed in f32 whatever
 the storage dtype; the state is cast back to ``state_dtype`` and the params
 to their own dtype.
+
+Over a ``model`` axis each rank holds blocks of the sharded leaves: the
+global norm of the clip sums their squares over ``model`` (``sharded``, a
+tree of flags, and ``group``) and counts each whole leaf once, so every
+model rank clips by the same scale.
 """
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ import dataclasses
 from typing import Any, Callable, Iterator, NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.mesh import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,15 +68,45 @@ def init(params: Any, cfg: AdamWConfig) -> OptState:
     )
 
 
+def state_specs(param_specs: Any) -> OptState:
+    """Optimizer-state PartitionSpecs mirror the param specs (ZeRO-sharded)."""
+    return OptState(step=P(), m=param_specs, v=param_specs)
+
+
+def global_norm(grads: Any, sharded: Any = None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in f32. Where
+    ``sharded`` flags a leaf as this rank's block of a leaf split over
+    ``group``, the blocks' sums are summed over the group; every other leaf
+    counts once."""
+    def sq(g):
+        return torch.sum(torch.square(g.float()))
+
+    if sharded is None:
+        return torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
+    pairs = []
+    tree_map(lambda g, split: pairs.append((g, split)), grads, sharded)
+    part = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
+    for g, split in pairs:
+        if split:
+            part = part + sq(g)
+    dist.all_reduce(part, group=group)
+    for g, split in pairs:
+        if not split:
+            part = part + sq(g)
+    return torch.sqrt(part)
+
+
 def _schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
     return cfg.lr * warm
 
 
 @torch.no_grad()
-def apply(params: Any, grads: Any, state: OptState, cfg: AdamWConfig):
-    """Returns (new_params, new_state, stats)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+def apply(params: Any, grads: Any, state: OptState, cfg: AdamWConfig, *,
+          sharded: Any = None, group=None):
+    """Returns (new_params, new_state, stats); ``sharded`` and ``group`` as
+    in ``global_norm``."""
+    gnorm = global_norm(grads, sharded, group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = _schedule(step, cfg)

@@ -81,10 +81,15 @@ def test_layout_capacity_and_param_tree_equal_the_reference(arch):
 
 
 def test_a_mesh_of_more_than_one_device_raises():
+    """A model axis over 1 raises (expert parallelism, ROADMAP Queue 1 item
+    3); a mesh of four over pod x data with model 1 builds, with tp 1 (its
+    train steps are held to the reference's in ``test_torch_dist_train``)."""
     cfg = treg.get_config("qwen3-moe-30b-a3b", smoke=True)
     two = Mesh({"data": 1, "model": 2}, (torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
         tmoe.MoELM(cfg, two)
+    four = Mesh({"pod": 2, "data": 2, "model": 1}, (torch.device("cpu"),))
+    assert tmoe.MoELM(cfg, four).tp == 1
     x = torch.zeros((4, cfg.d_model))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tmoe._moe_local(x, None, None, None, None, cfg=cfg, tp=2, cf=2.0)
