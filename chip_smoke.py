@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
-    python3 chip_smoke.py [--seed 0] [--phases card,collectives]
+    python3 chip_smoke.py [--seed 0] [--phases card,collectives|expert_axis]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
@@ -145,7 +145,26 @@ the one-card phases alone). In order:
      same 16 sequences), a checkpoint at step 4 saved by rank 0 and
      restored bit-equal on every rank with exact launch counts, the
      resumed steps equal to the uninterrupted run's, then the same root
-     resumed on two ranks (elastic);
+     resumed on two ranks (elastic); (c) every other family over 2x2x1, and
+     the model axis (``model_axis_path``): gemma-2b on 1x2x2 and 1x1x4 and
+     internvl2-2b on 1x1x4; (d) the expert axis (``expert_axis_path``;
+     ``--phases expert_axis`` runs it alone): qwen3-moe-30b-a3b at full
+     width, 2 of 48 layers, the same 16 sequences a step, on 1x2x2 (64
+     experts a card) and 1x1x4 (32 a card), 6 steps each: finite falling
+     losses, step 1 within ``LOSS_RTOL`` of one card's on the same weights
+     (the draws for tp columns are one card's, reshaped), the assignments
+     each drops at step 1 printed against one card's, the f32 forward of
+     one layer within ``TP_F32_TOL`` of the largest sum of magnitudes
+     behind one card's logits (max |h| @ |W|) at the tokens whose top-k
+     experts agree (the flipped share under ``FLIP_SHARE_F32``),
+     whole leaves bit-equal across the model group; an 18.7 GB checkpoint
+     at step 4 from 1x2x2 in the tp = 2 layout, restored bit-equal on every
+     rank with exact launch counts and resumed there and on 1x1x2; then
+     grok-1-314b at 1 of 64 layers on 1x1x4 (2 of its 8 experts a card),
+     3 steps with finite falling losses at 16 sequences (halved while the
+     peak passes ``GROK_PEAK_MAX``), its f32 forward held to one card's.
+     Each run prints ms a step, the all-to-all and model all-reduce ms a
+     step (CUDA events around each call) and peak GB a card;
  17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
      last line, ``{"ok": true, "device": {...}}``.
 
@@ -1144,6 +1163,12 @@ def _arg(args: list, flag: str, default=None):
     return args[args.index(flag) + 1] if flag in args else default
 
 
+def with_arg(args: list, flag: str, value) -> list:
+    """``args`` with ``flag``'s value replaced by ``value``."""
+    i = args.index(flag)
+    return args[:i + 1] + [str(value)] + args[i + 2:]
+
+
 def smoke_model(args: list, *, cf: float | None = None, dtype=None):
     """The model a launcher builds from ``args`` (arch, ``--layers``, both
     stacks of an encdec), with a MoE's capacity factor ``cf`` and the dtype
@@ -1883,10 +1908,25 @@ FAMILY_DIST_STEPS = 3
 # sequences a step as on 2x2x1; the checkpoint's root resumed on two ranks
 TP_MESHES, TP_CKPT_MESH, TP_VLM_MESH, TP_ELASTIC_MESH = ("1x2x2", "1x1x4"), "1x2x2", "1x1x4", "1x1x2"
 TP_F32_LAYERS, TP_F32_TOKENS = 1, 128   # the f32 forward against one card's
-TP_F32_TOL = 2e-5                       # of the largest logit
+TP_F32_TOL = 2e-5      # of the largest logit (model axis); of the largest |h| @ |W| (expert axis)
 VLM_TP_ARGS = ["--arch", "internvl2-2b", "--layers", "2", "--seq-len", "2048",
                "--global-batch", "4", "--lr", "3e-3", "--log-every", "0"]
 VLM_TP_STEPS = 3
+# the expert axis: qwen3-moe-30b-a3b at full width, 2 of 48 layers, the same 16
+# sequences a step, on 1x2x2 (64 experts a card) and 1x1x4 (32 a card); its checkpoint
+# saved on 1x2x2, resumed there and on two ranks (1x1x2, 8 sequences at a time, so each
+# column routes the rows it routed on 1x2x2); grok-1-314b at 1 of 64 layers on 1x1x4 (2
+# of its 8 experts a card), which one card cannot train
+EP_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--layers", "2", "--seq-len", "2048",
+           "--global-batch", "16", "--lr", "3e-3", "--log-every", "0"]
+EP_MESHES, EP_CKPT_MESH, EP_ELASTIC_MESH = ("1x2x2", "1x1x4"), "1x2x2", "1x1x2"
+EP_STEPS, EP_CKPT = 6, 4
+EP_ELASTIC_MICROBATCHES = 2
+GROK_EP_ARGS = ["--arch", "grok-1-314b", "--layers", "1", "--seq-len", "2048",
+                "--global-batch", "16", "--lr", "3e-3", "--log-every", "0"]
+GROK_EP_MESH, GROK_EP_STEPS = "1x1x4", 3
+GROK_PEAK_MAX = 70e9             # bytes a card: over it the grok run halves its batch
+EXPERT_AXIS_TIMEOUT_S = 480      # each world of the expert-axis part
 
 
 def launch_counters():
@@ -2159,14 +2199,15 @@ def train_dist_worker(cfg: dict) -> dict:
 class collective_timer:
     """Times every collective of the model axis (``dist.all_reduce`` and
     ``dist.all_gather`` in ``models.common``'s operators and in AdamW's clip
-    norm) and every mean over the batch axes (``launch.steps.world_mean``)
-    while entered: CUDA events around each call on the card (the compute
-    stream's wait for the collective; no host synchronisation), the host
-    clock on the CPU. ``per_step(n)`` sums each kind's calls a step."""
+    norm, kind "model"; the MoE's ``dist.all_to_all_single``, kind "a2a")
+    and every mean over the batch axes (``launch.steps.world_mean``, kind
+    "batch") while entered: CUDA events around each call on the card (the
+    compute stream's wait for the collective; no host synchronisation), the
+    host clock on the CPU. ``per_step(n)`` sums each kind's calls a step."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.calls: dict[str, list] = {"model": [], "batch": []}
+        self.calls: dict[str, list] = {"model": [], "a2a": [], "batch": []}
 
     def _timed(self, fn, key):
         def call(*a, **kw):
@@ -2196,6 +2237,7 @@ class collective_timer:
                                          if not k.startswith("__")})
         proxy.all_reduce = self._timed(dist.all_reduce, "model")
         proxy.all_gather = self._timed(dist.all_gather, "model")
+        proxy.all_to_all_single = self._timed(dist.all_to_all_single, "a2a")
         self.saved = [(common, "dist", common.dist), (adamw, "dist", adamw.dist),
                       (steps, "world_mean", steps.world_mean)]
         common.dist = adamw.dist = proxy
@@ -2289,27 +2331,126 @@ def whole_leaves_equal(params, specs, mesh) -> bool:
     return bool(equal) and all(equal)
 
 
+def gathered_routes(route_log: list, mesh, n_tokens: int) -> list:
+    """Each logged MoE layer's router probabilities over all ``n_tokens``
+    rows: column r logs rows j ≡ r (mod tp) of the padded flat tokens, so
+    the columns' logs are gathered over ``model`` and interleaved."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import MODEL, axis_size
+
+    tp = axis_size(mesh, MODEL)
+    if tp == 1:
+        return route_log
+    out = []
+    for p in route_log:
+        parts = [torch.empty_like(p) for _ in range(tp)]
+        dist.all_gather(parts, p.contiguous(), group=mesh.group(MODEL))
+        out.append(torch.stack(parts, 1).reshape(-1, p.shape[-1])[:n_tokens])
+    return out
+
+
+def one_column(params: dict, cfg, tp: int) -> dict:
+    """A MoE's whole params laid out for ``tp`` columns, laid out for one:
+    expert e's F-slice h lives in column e·SPLIT + h, so ``we_g`` / ``we_i``
+    ``(nb, E, SPLIT, D, fs)`` become ``(nb, 1, E, D, F)`` and ``we_o``
+    ``(nb, E, SPLIT, fs, D)`` becomes ``(nb, 1, E, F, D)`` (with SPLIT 1,
+    reshapes)."""
+    from repro_torch.models.moe import expert_layout
+
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+    split = expert_layout(cfg, tp)[1]
+
+    def leaf(key, t):
+        nb = t.shape[0]
+        if key in ("we_g", "we_i"):
+            return t.reshape(nb, E, split, D, Fd // split).transpose(2, 3).reshape(nb, 1, E, D, Fd)
+        if key == "we_o":
+            return t.reshape(nb, 1, E, Fd, D)
+        return t
+
+    return {k: one_column(v, cfg, tp) if isinstance(v, dict) else leaf(k, v)
+            for k, v in params.items()}
+
+
 def f32_forward_error(args: list, seed: int, mesh, dev) -> dict:
     """``args``' model at ``TP_F32_LAYERS`` layer(s), in f32: the logits of
     ``TP_F32_TOKENS`` seeded tokens from the whole weights on this card (a
     one-card forward) against the same weights cut over ``model``
     (``launch.train.shard_state``) and gathered; max |difference| over max
-    |logit|."""
+    |logit| (``rel``), and over the largest sum of magnitudes behind a
+    logit, max (|h| @ |W|) of the final hidden states and the unembedding
+    (``rel_sum``). A MoE's weights are drawn for the mesh's columns and laid out
+    for one card (``one_column``); it runs at ``NO_DROP_CF`` with its
+    routing logged, and a
+    token whose top-k experts differ between the two runs (a near tie that
+    the last bits flip) is left out of the error and counted in
+    ``flipped_share``."""
     from repro_torch.launch import train
 
     one = train.with_layers(smoke_model(args, dtype=torch.float32), TP_F32_LAYERS)
-    tp = type(one)(one.cfg, mesh)
-    params = one.init_params(seed, dev)
+    moe = one.cfg.family == "moe"
+    kw = {"cf": NO_DROP_CF} if moe else {}
+    one = type(one)(one.cfg, **kw)
+    tp = type(one)(one.cfg, mesh, **kw)
+    params = tp.init_params(seed, dev)                     # whole, laid out for tp columns
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 5)
     tok = torch.randint(0, one.cfg.vocab, (1, TP_F32_TOKENS), generator=gen, device=dev)
+    one.route_log, tp.route_log = ([], []) if moe else (None, None)
+    whole = one_column(params, one.cfg, tp.tp) if moe else params
     with torch.no_grad():
-        want = one.logits(params, tok)
+        want = one.logits(whole, tok)
         got = tp.logits(train.shard_state(mesh, params, tp.param_specs(mesh)), tok)
-    err = float((got.double() - want.double()).abs().max())
+        # the largest sum of magnitudes behind a logit, max (|h| @ |W|): the scale of
+        # the f32 rounding in the logits (a random untied unembedding's logits are
+        # about sqrt(D) times smaller than the sums behind them)
+        sums = float((one.hidden(whole, tok).abs() @ one._out_w(whole).abs()).max())
+    flipped = torch.zeros(TP_F32_TOKENS, dtype=torch.bool)
+    if moe:
+        k = one.cfg.top_k
+        for a, b in zip(topk_sets(one.route_log, k),
+                        topk_sets(gathered_routes(tp.route_log, mesh, TP_F32_TOKENS), k)):
+            flipped |= (a != b).any(-1)
+    kept = (~flipped).to(dev)
+    err = float((got.double() - want.double()).abs()[0][kept].max())
     top = float(want.abs().max())
-    return {"max_abs_err": err, "max_logit": top, "rel": err / top, "layers": TP_F32_LAYERS,
-            "tokens": TP_F32_TOKENS}
+    out = {"max_abs_err": err, "max_logit": top, "rel": err / top, "layers": TP_F32_LAYERS,
+           "tokens": TP_F32_TOKENS, "max_magnitude_sum": sums, "rel_sum": err / sums}
+    if moe:
+        out.update(flipped_share=float(flipped.float().mean()), capacity_factor=NO_DROP_CF)
+    return out
+
+
+def step1_dropped(args: list, seed: int, mesh, dev, microbatches: int = 1) -> int:
+    """The assignments that step 1's forward of ``args``' MoE drops on this
+    rank (its rows of the global batch, its column's slice of them, in
+    ``microbatches`` as the train step takes them): each logged layer's
+    assignments to an expert past the capacity of the rows that routed
+    them (``models.moe.capacity``)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline, _batch_at
+    from repro_torch.launch import train
+    from repro_torch.models.moe import capacity
+
+    base = smoke_model(args)
+    model = type(base)(base.cfg, mesh, cf=base.cf)
+    cfg = model.cfg
+    params = train.shard_state(mesh, model.init_params(seed, dev), model.param_specs(mesh))
+    gb = int(_arg(args, "--global-batch"))
+    tok = torch.from_numpy(np.asarray(_batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=int(_arg(args, "--seq-len")), global_batch=gb, seed=seed),
+        0)))[TokenPipeline._rows(gb, mesh)].to(dev)
+    model.route_log = []
+    with torch.no_grad():
+        for part in tok.chunk(microbatches, dim=0):
+            model.loss(params, {"tokens": part})
+    dropped = 0
+    for p in model.route_log:
+        C = capacity(p.shape[0], cfg, model.tp, model.cf)
+        counts = torch.bincount(torch.topk(p, cfg.top_k, dim=-1).indices.reshape(-1),
+                                minlength=cfg.n_experts)
+        dropped += int(torch.clamp(counts - C, min=0).sum())
+    return dropped
 
 
 def tp_dist_worker(cfg: dict) -> dict:
@@ -2320,9 +2461,12 @@ def tp_dist_worker(cfg: dict) -> dict:
     and every host digest patched to raise, with a checkpoint at
     ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree), then a
     fresh ``main`` that restores it and runs the rest; after each run,
-    whether every whole leaf is bit-equal across the model group. Then each
-    of ``cfg["also"]`` (another arch on the same mesh). On ``cfg["elastic"]``,
-    only the resume of ``cfg["root"]``."""
+    whether every whole leaf is bit-equal across the model group. With
+    ``cfg["peak_max"]`` (no checkpoint), a run whose peak passes it on any
+    card runs again at half the global batch. A MoE also counts the
+    assignments its step-1 forward drops on this rank
+    (``step1_dropped``). Then each of ``cfg["also"]`` (another arch on the
+    same mesh). On ``cfg["elastic"]``, only the resume of ``cfg["root"]``."""
     import torch.distributed as dist
 
     from repro_torch.distributed.mesh import MODEL, init_world
@@ -2349,20 +2493,34 @@ def tp_dist_worker(cfg: dict) -> dict:
                                                        "--microbatches", str(cfg["microbatches"])])
                 out["elastic"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
             else:
-                out["f32"] = f32_forward_error(cfg["args"], cfg["seed"], mesh, dev)
-                specs = smoke_model(cfg["args"]).param_specs(mesh)
+                args = cfg["args"]
+                out["f32"] = f32_forward_error(args, cfg["seed"], mesh, dev)
+                specs = smoke_model(args).param_specs(mesh)
                 extra = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
                          if cfg.get("ckpt_step") else [])
-                reset_peak(dev)
-                with collective_timer(dev) as timer:
-                    res = train.main(cfg["args"] + base + extra)
+                while True:
+                    reset_peak(dev)
+                    with collective_timer(dev) as timer:
+                        res = train.main(args + base + extra)
+                    worst = torch.tensor([float(peak_bytes(dev))], device=dev)
+                    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+                    batch = int(_arg(args, "--global-batch"))
+                    if not cfg.get("peak_max") or float(worst) <= cfg["peak_max"] or extra:
+                        break
+                    # over the bound on some card: the same run at half the batch
+                    del res
+                    release(device)
+                    args = with_arg(args, "--global-batch", batch // 2)
                 out["train"] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
                                 "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
                                 "collective_ms": timer.per_step(cfg["steps"]),
+                                "global_batch": batch,
                                 "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
                 del res
+                if smoke_model(args).cfg.family == "moe":
+                    out["dropped"] = step1_dropped(args, cfg["seed"], mesh, dev)
                 if extra:
-                    res = train.main(cfg["args"] + base + ["--ckpt-dir", cfg["root"]])
+                    res = train.main(args + base + ["--ckpt-dir", cfg["root"]])
                     out["resumed"] = {"losses": res["losses"],
                                       "whole_equal": whole_leaves_equal(res["params"], specs,
                                                                         mesh)}
@@ -2477,18 +2635,9 @@ def rank_worker(name: str, cfg_path: str) -> int:
     return 0
 
 
-def collectives_path(seed: int, device, smi: str) -> dict | None:
-    """The four-card phase. With fewer than ``COLL_CARDS`` cards it runs
-    nothing (None). Else: (a) ``collectives_worker`` on four ranks; (b)
-    ``train_dist_worker`` on four ranks, then the elastic resume of its
-    root on two, and step 1 of the same 16 sequences on one card in this
-    process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
-    families (``model_axis_path``). Every check fails the phase."""
-    import shutil
-    import tempfile
-
-    from repro_torch.launch import train
-
+def four_cards(device, smi: str) -> dict | None:
+    """The four cards' names and power limits (None with fewer than
+    ``COLL_CARDS`` cards), printed."""
     if torch.device(device).type == "cuda" and torch.cuda.device_count() < COLL_CARDS:
         return None
     dev = torch.device(device).type
@@ -2498,8 +2647,33 @@ def collectives_path(seed: int, device, smi: str) -> dict | None:
     else:
         smi = "; ".join(cards)
     print(f"collectives cards: {smi}")
-    out = {"card": smi, "cards": cards}
+    return {"card": smi, "cards": cards}
+
+
+def collectives_path(seed: int, device, smi: str,
+                     parts=("collectives", "expert_axis")) -> dict | None:
+    """The four-card phase. With fewer than ``COLL_CARDS`` cards it runs
+    nothing (None). Else: (a) ``collectives_worker`` on four ranks; (b)
+    ``train_dist_worker`` on four ranks, then the elastic resume of its
+    root on two, and step 1 of the same 16 sequences on one card in this
+    process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
+    families (``model_axis_path``); (d) the expert axis
+    (``expert_axis_path``). ``parts`` without "collectives" runs (d) alone.
+    Every check fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    out = four_cards(device, smi)
+    if out is None:
+        return None
+    smi, dev = out["card"], torch.device(device).type
     t0 = time.perf_counter()
+    if "collectives" not in parts:
+        out.update(expert_axis_path(seed, device, dev))
+        out["seconds"] = time.perf_counter() - t0
+        return out
     coll = run_ranks("collectives", COLL_CARDS, {
         "device": dev, "seed": seed, "bytes": COLL_BYTES, "rows": COLL_ROWS,
         "chunks": list(COLL_CHUNKS), "agmm": [AGMM_TOKENS, AGMM_K, AGMM_N]})
@@ -2617,6 +2791,8 @@ def collectives_path(seed: int, device, smi: str) -> dict | None:
         "expected_launches": want, "devices": [r["device"] for r in ranks],
         "wall_s": {"four": ranks[0]["wall_s"], "two": elastic[0]["wall_s"]}})
     out.update(model_axis_path(seed, device, dev, ranks, one, per_step))
+    if "expert_axis" in parts:
+        out.update(expert_axis_path(seed, device, dev))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2766,6 +2942,158 @@ def model_axis_path(seed: int, device, dev: str, ranks: list, one: dict,
         "seconds": time.perf_counter() - t0}}
 
 
+def expert_axis_path(seed: int, device, dev: str) -> dict:
+    """The collectives phase's expert-axis part: qwen3-moe-30b-a3b
+    (``EP_ARGS``) over ``EP_MESHES`` with ``tp_dist_worker``, a checkpoint
+    on ``EP_CKPT_MESH`` resumed there and on ``EP_ELASTIC_MESH``, step 1
+    held to one card on the same 16 sequences (``ONE_CARD_MICROBATCHES``),
+    with the assignments each run drops at step 1; then grok-1-314b
+    (``GROK_EP_ARGS``) on ``GROK_EP_MESH``. Every check fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    def close(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    t0 = time.perf_counter()
+    release(device)
+    root = tempfile.mkdtemp(prefix="chip-smoke-ep-")
+    cfg = {"device": dev, "seed": seed, "args": EP_ARGS, "steps": EP_STEPS, "elastic": False}
+    try:
+        ep = {}
+        for mesh in EP_MESHES:
+            extra = {"root": root, "ckpt_step": EP_CKPT} if mesh == EP_CKPT_MESH else {}
+            ep[mesh] = run_ranks("tp_dist", COLL_CARDS, {**cfg, "mesh": mesh, **extra},
+                                 EXPERT_AXIS_TIMEOUT_S)
+        elastic = run_ranks("tp_dist", 2, {**cfg, "mesh": EP_ELASTIC_MESH, "elastic": True,
+                                           "root": root, "microbatches": EP_ELASTIC_MICROBATCHES},
+                            EXPERT_AXIS_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    grok = run_ranks("tp_dist", COLL_CARDS, {
+        "device": dev, "seed": seed, "args": GROK_EP_ARGS, "steps": GROK_EP_STEPS,
+        "elastic": False, "mesh": GROK_EP_MESH, "peak_max": GROK_PEAK_MAX}, EXPERT_AXIS_TIMEOUT_S)
+    one = train.main(EP_ARGS + ["--seed", str(seed), "--device", str(device), "--mesh", "1x1",
+                                "--steps", "1", "--microbatches", str(ONE_CARD_MICROBATCHES)])
+    del one["params"]
+    one_dropped = step1_dropped(EP_ARGS, seed, train.parse_mesh("1x1", device), device,
+                                ONE_CARD_MICROBATCHES)
+    release(device)
+
+    def runs(arch, mesh, ranks, steps, one_losses=None):
+        t = ranks[0]["train"]
+        losses = t["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{arch} on {mesh}: finite losses that fall: {losses}")
+        check(all(r["train"]["losses"] == losses for r in ranks),
+              f"{arch} {mesh}: every rank's loss")
+        if one_losses is not None:
+            check(close(losses[:1], one_losses), f"{arch} {mesh}: step 1 {losses[0]} within "
+                                                 f"{LOSS_RTOL} of one card's {one_losses[0]}")
+        for r in ranks:
+            f = r["f32"]
+            check(f["flipped_share"] <= FLIP_SHARE_F32,
+                  f"{arch} {mesh} rank {r['rank']}: the f32 forward routes as one card's: "
+                  f"{f['flipped_share']:.3%} of tokens flipped > {FLIP_SHARE_F32:.0%}")
+            check(f["rel_sum"] <= TP_F32_TOL,
+                  f"{arch} {mesh} rank {r['rank']}: f32 logits within {TP_F32_TOL} of the largest "
+                  f"sum of magnitudes behind a logit of one card's ({f['max_abs_err']} of "
+                  f"{f['max_magnitude_sum']}; the largest logit {f['max_logit']})")
+            check(r["train"]["whole_equal"], f"{arch} {mesh} rank {r['rank']}: every whole leaf "
+                                              "bit-equal across the model group after the steps")
+        coll = {k: [max(r["train"]["collective_ms"][k][s] for r in ranks) for s in range(steps)]
+                for k in ("model", "a2a", "batch")}
+        return {"losses": losses, "global_batch": t["global_batch"],
+                "f32_rel": max(r["f32"]["rel"] for r in ranks),
+                "f32_rel_sum": max(r["f32"]["rel_sum"] for r in ranks),
+                "f32_flipped_share": max(r["f32"]["flipped_share"] for r in ranks),
+                "step_ms": 1e3 * median([max(r["train"]["step_s"][s] for r in ranks)
+                                         for s in range(1, steps)]),
+                "collective_ms": {k: median(v[1:]) for k, v in coll.items()},
+                "collective_ms_first_step": {k: v[0] for k, v in coll.items()},
+                "peak_bytes": [r["train"]["peak_bytes"] for r in ranks],
+                "dropped_step1": sum(r["dropped"] for r in ranks)}
+
+    meshes = {mesh: runs("qwen3-moe-30b-a3b", mesh, ranks, EP_STEPS, one["losses"])
+              for mesh, ranks in ep.items()}
+    ck_ranks = ep[EP_CKPT_MESH]
+    c0 = ck_ranks[0]
+    tail = c0["train"]["losses"][EP_CKPT:]
+    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["whole_equal"]
+              for r in ck_ranks),
+          f"{EP_CKPT_MESH}: the resumed steps repeat the uninterrupted run's losses "
+          f"{c0['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+    check(all(close(e["elastic"]["losses"], tail) for e in elastic),
+          f"{EP_CKPT_MESH}'s root resumed on {EP_ELASTIC_MESH} repeats them: "
+          f"{elastic[0]['elastic']['losses']} vs {tail}")
+    mcfg = smoke_model(EP_ARGS).cfg
+    tp = int(EP_CKPT_MESH.split("x")[-1])
+    for key in ("params", "opt/m", "opt/v"):
+        for leaf in ("we_g", "we_i", "we_o"):
+            shape = c0["manifest"]["leaves"][f"{key}/blocks/0/{leaf}"]["shape"]
+            check(shape[:3] == [mcfg.n_layers, tp, mcfg.n_experts // tp],
+                  f"{EP_CKPT_MESH}: the MANIFEST's {key}/{leaf} is laid out for {tp} "
+                  f"columns: {shape}")
+    check(c0["saved_equal_restored"], f"{EP_CKPT_MESH}: rank 0 restored the whole saved tree "
+                                      "bit for bit")
+    want = ckpt_launches(c0["manifest"])
+    got = c0["save"]["launches"]
+    check(got == {**got, **want["save"]} and got["checksum_copy_words"] == 0,
+          f"{EP_CKPT_MESH}: rank 0's save launched exactly {want['save']}: {got}")
+    for r in ck_ranks + elastic:
+        check(r["restored_equal_rank0"], f"{r['mesh']} rank {r['rank']} restored rank 0's tree "
+                                         "bit for bit")
+        got = r["restore"]["launches"]
+        check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+              f"{r['mesh']} rank {r['rank']}'s restore launched exactly {want['restore']}: {got}")
+    return {"expert_axis": {
+        "arch": "qwen3-moe-30b-a3b", "meshes": meshes, "one_card_step1": one["losses"][0],
+        "one_card_dropped_step1": one_dropped,
+        "ckpt": {"mesh": EP_CKPT_MESH, "save_s": c0["save"]["seconds"],
+                 "bytes": c0["save"]["bytes"], "launches_save_rank0": c0["save"]["launches"],
+                 "launches_restore": [r["restore"]["launches"] for r in ck_ranks],
+                 "launches_restore_elastic": [e["restore"]["launches"] for e in elastic],
+                 "expected_launches": want,
+                 "restore_s": [r["restore"]["seconds"] for r in ck_ranks],
+                 "elastic_restore_s": [e["restore"]["seconds"] for e in elastic],
+                 "resumed": c0["resumed"]["losses"], "elastic": elastic[0]["elastic"]["losses"]},
+        "grok": {"mesh": GROK_EP_MESH, **runs("grok-1-314b", GROK_EP_MESH, grok, GROK_EP_STEPS)},
+        "seconds": time.perf_counter() - t0}}
+
+
+def print_expert_axis(m: dict, smi: str) -> None:
+    """The expert-axis part's lines."""
+    def row(arch, layers, mesh, r, one=None):
+        c = r["collective_ms"]
+        ref = f" (one card {one[0]:.6f}, dropped {one[1]})" if one else ""
+        print(f"collectives expert_axis {arch} {layers} on {mesh}, {r['global_batch']} sequences "
+              f"a step: {r['step_ms']:.1f} ms/step; ms a step: all-to-all {c['a2a']:.2f}, model "
+              f"all-reduce {c['model']:.2f}, batch axes {c['batch']:.2f}; peak GB a card "
+              f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; losses "
+              f"{[round(x, 4) for x in r['losses']]}, dropped at step 1 {r['dropped_step1']}{ref}; "
+              f"f32 logits within {r['f32_rel_sum']:.3g} of the largest magnitude sum of one "
+              f"card's ({r['f32_rel']:.3g} of the largest logit), "
+              f"{100 * r['f32_flipped_share']:.2f}% flipped [{smi}]")
+
+    for mesh, r in m["meshes"].items():
+        row(m["arch"], "2 layers", mesh, r, (m["one_card_step1"], m["one_card_dropped_step1"]))
+    c = m["ckpt"]
+    print(f"collectives expert_axis checkpoint on {c['mesh']}: {c['bytes'] / 1e9:.2f} GB, the "
+          f"whole tree gathered and saved by rank 0 in {c['save_s']:.2f} s (launches "
+          f"{c['launches_save_rank0']}), restored on each rank in "
+          f"{', '.join(f'{x:.2f}' for x in c['restore_s'])} s (launches "
+          f"{c['launches_restore'][0]} each), on {EP_ELASTIC_MESH} in "
+          f"{', '.join(f'{x:.2f}' for x in c['elastic_restore_s'])} s; resumed {c['resumed']}, "
+          f"elastic {c['elastic']} [{smi}]")
+    row("grok-1-314b", "1 layer", m["grok"]["mesh"], m["grok"])
+    sys.stdout.flush()
+
+
 PHASES = ("card", "collectives")    # every phase on one card; the four-card phase
 
 
@@ -2833,6 +3161,7 @@ def print_collectives(coll: dict, smi: str) -> None:
           f"ms/step; losses {[round(x, 4) for x in v['losses']]}, step 1 on one card "
           f"{v['one_card_step1']:.6f}; peak GB a card {[round(b / 1e9, 2) for b in v['peak_bytes']]} "
           f"[{smi}]")
+    print_expert_axis(coll["expert_axis"], smi)
     print("collectives " + json.dumps(coll))
 
 
@@ -3088,8 +3417,9 @@ def main() -> int:
     if args.rank_worker:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
-    if not phases or phases - set(PHASES):
-        parser.error(f"--phases takes {', '.join(PHASES)} or all, not {args.phases!r}")
+    if not phases or phases - set(PHASES) - {"expert_axis"}:
+        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis (that part of "
+                     f"collectives alone) or all, not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -3127,13 +3457,17 @@ def main() -> int:
     kernels = None
     if "card" in phases:
         kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
-    if "collectives" in phases:
-        coll = collectives_path(args.seed, device, smi)
+    if phases & {"collectives", "expert_axis"}:
+        parts = ("collectives", "expert_axis") if "collectives" in phases else ("expert_axis",)
+        coll = collectives_path(args.seed, device, smi, parts)
         if coll is None:
             print(f"collectives: not run, needs {COLL_CARDS} cards, "
                   f"{torch.cuda.device_count()} visible")
-        else:
+        elif "collectives" in parts:
             print_collectives(coll, coll["card"])
+        else:
+            print_expert_axis(coll["expert_axis"], coll["card"])
+            print("collectives " + json.dumps(coll))
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     if kernels is not None:
         print(json.dumps({"kernels": kernels}))

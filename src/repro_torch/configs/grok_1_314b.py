@@ -3,8 +3,8 @@ vocab 131072, 8 experts top-2, attention logit softcap 30.
 [hf:xai-org/grok-1; unverified]
 
 The reference places the 8 experts with SPLIT=2 on a 16-wide model axis;
-the port runs one device (tp = 1: all 8 experts whole, SPLIT=1), see
-models/moe.py. ``launch.steps`` keeps the optimizer state in bf16 for any
+the port places them the same way on any model axis (one device: all 8
+whole; four ranks: 2 a rank, SPLIT=1), see models/moe.py. ``launch.steps`` keeps the optimizer state in bf16 for any
 config over 1e11 parameters, as the reference does.
 """
 import torch

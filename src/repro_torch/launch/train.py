@@ -17,6 +17,10 @@ is the reference's:
   * **elastic restart**: checkpoints hold whole leaves, so a root saved by
     four ranks resumes on two, over data and over data x model (``--mesh
     2x2`` to ``1x2``, as the reference's test does; ``2x2x1`` to ``1x2x1``).
+    A MoE's whole expert leaves are laid out for the model axis's size
+    (``(layers, tp, E/tp, ...)``), so its root resumes on that size only:
+    on another, the restore raises (a dim that does not split) or the
+    first step does, as the reference's.
 
 On a world of ranks every rank draws the whole params from the same seed
 (the one-device weights) and keeps its blocks of them

@@ -19,7 +19,9 @@ reference leaves the collectives to GSPMD, the port writes them out on the
 blocks of the weights (``distributed.mesh.shard``), with Megatron's pair of
 operators around each column- and row-parallel pair, a vocab-parallel
 embedding lookup and a vocab-parallel cross-entropy that never gathers the
-(B, S, V) logits. The residual stays whole on every model rank, where the
+(B, S, V) logits; the MoE's expert parallelism adds an all-to-all over the
+group (``all_to_all``) and a stack of the ranks' token slices
+(``_stack_out``). The residual stays whole on every model rank, where the
 reference may shard it by sequence (``constrain``, ``_seq``, ``_res`` are
 layout hints of GSPMD and have no counterpart); the decode caches'
 ``kv_cache_spec`` waits for ROADMAP Queue 1 item 4.
@@ -194,6 +196,52 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(-1, dist.get_rank(ctx.group) * n, n).contiguous(), None
 
 
+class _AllToAllModel(torch.autograd.Function):
+    """Block j of dim 0 goes to rank j, and block j of the result came from
+    rank j (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``, equal
+    splits); the backward is the same all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        y = torch.empty_like(g)
+        dist.all_to_all_single(y, g, group=ctx.group)
+        return y, None
+
+
+class _StackFromModel(torch.autograd.Function):
+    """The group's tensors stacked along a new leading dim, in rank order
+    (``jax.lax.all_gather(x, axis, axis=0)``); the backward keeps this
+    rank's block, since the gradient downstream is the same on every rank
+    of the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.new_empty((dist.get_world_size(group), *x.shape))
+        dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[dist.get_rank(ctx.group)].contiguous(), None
+
+
+def all_to_all(x, group):
+    """``_AllToAllModel`` over ``group``: dim 0's block j sent to rank j,
+    the blocks received in rank order (the MoE's dispatch and return
+    trip)."""
+    return _AllToAllModel.apply(x, group)
+
+
 class ShardingMixin:
     """Tensor parallelism over the mesh's ``model`` axis. A dim that the
     axis divides is split (``shardable``); a model rank then holds block
@@ -233,6 +281,11 @@ class ShardingMixin:
         if not split or self._tp() == 1:
             return x
         return _GatherFromModel.apply(x, self.mesh.group(MODEL))
+
+    def _stack_out(self, x):
+        """Every model rank's ``x`` stacked on a new leading dim (over a
+        ``model`` axis over 1)."""
+        return _StackFromModel.apply(x, self.mesh.group(MODEL))
 
     def _vocab(self):
         """(group, first row) of this rank's vocab block, None where the

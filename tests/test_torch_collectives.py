@@ -251,7 +251,7 @@ def _port_collectives(rank, root):
     from repro_torch.distributed.fsdp import cross_pod_mean
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed.mesh import DATA, POD, make_mesh
-    from repro_torch.models.moe import MoELM
+    from repro_torch.models.ssm import Mamba2LM
 
     cases = json.loads((root / "cases.json").read_text())
     inp = np.load(root / "in.npz")
@@ -306,9 +306,9 @@ def _port_collectives(rank, root):
     # refusals inside a world of four
     refusals = {}
     for what, call in (
-            ("model_axis", lambda: MoELM(get_config("qwen3-moe-30b-a3b", smoke=True),
-                                         make_mesh((1, 2, 2), (POD, DATA, "model"),
-                                                   device="cpu"))),
+            ("model_axis", lambda: Mamba2LM(get_config("mamba2-370m", smoke=True),
+                                            make_mesh((1, 2, 2), (POD, DATA, "model"),
+                                                      device="cpu"))),
             ("mesh_over_world", lambda: make_mesh((2, 2, 2), (POD, DATA, "model"),
                                                   device="cpu")),
             ("mesh_under_world", lambda: make_mesh((2,), (DATA,), device="cpu")),
@@ -455,9 +455,9 @@ def test_each_ring_step_carries_n_chunks_messages(kind, nc, port):
     ("mmrs_rows", "ValueError", "6 rows do not split over an axis of 4"),
 ])
 def test_refusals_inside_a_world_of_four(what, error, text, port):
-    """A MoE over a model axis of 2 (``make_mesh`` builds the mesh; expert
-    parallelism is ROADMAP Queue 1 item 3), a mesh that is not the world,
-    and shapes the reference asserts on all raise, on every rank."""
+    """An ssm over a model axis of 2 (``make_mesh`` builds the mesh; the
+    ssm's model axis is ROADMAP Queue 1 item 4), a mesh that is not the
+    world, and shapes the reference asserts on all raise, on every rank."""
     for meta in port[1]:
         msg = meta["refusals"][what]
         assert msg is not None and msg.startswith(error + ":") and text in msg, msg

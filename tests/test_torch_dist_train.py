@@ -146,7 +146,8 @@ def _require_contiguous(dist) -> list:
             return fn(*args, **kw)
         return call
 
-    for name in ("all_reduce", "all_gather", "broadcast", "batch_isend_irecv", "barrier"):
+    for name in ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
+                 "batch_isend_irecv", "barrier"):
         setattr(dist, name, wrap(name, getattr(dist, name)))
     return loose
 

@@ -81,18 +81,56 @@ def test_layout_capacity_and_param_tree_equal_the_reference(arch):
 
 
 def test_a_mesh_of_more_than_one_device_raises():
-    """A model axis over 1 raises (expert parallelism, ROADMAP Queue 1 item
-    3); a mesh of four over pod x data with model 1 builds, with tp 1 (its
-    train steps are held to the reference's in ``test_torch_dist_train``)."""
+    """Where expert parallelism cannot run, both packages raise: a model
+    axis that E neither divides nor is divided by (qwen3-moe's 8 experts
+    on 3 columns) fails ``expert_layout``'s assert at ``init_params``, and
+    the port's ``_moe_local`` over 2 columns without their group raises
+    (the reference's, given no axis name, would skip its all-to-alls). A
+    mesh of four over pod x data with model 1 builds with tp 1 (its train
+    steps are held to the reference's in ``test_torch_dist_train``)."""
     cfg = treg.get_config("qwen3-moe-30b-a3b", smoke=True)
-    two = Mesh({"data": 1, "model": 2}, (torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        tmoe.MoELM(cfg, two)
+    three = Mesh({"data": 1, "model": 3}, (torch.device("cpu"),))
+    jm = jreg.build_model("qwen3-moe-30b-a3b", smoke=True)
+    jm.tp = 3
+    with pytest.raises(AssertionError):
+        jm.init_params(0)
+    with pytest.raises(AssertionError):
+        tmoe.MoELM(cfg, three).init_params(0, "cpu")
+    with pytest.raises(AssertionError):
+        tmoe.expert_layout(cfg, 3)
     four = Mesh({"pod": 2, "data": 2, "model": 1}, (torch.device("cpu"),))
     assert tmoe.MoELM(cfg, four).tp == 1
     x = torch.zeros((4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(ValueError, match="needs their group"):
         tmoe._moe_local(x, None, None, None, None, cfg=cfg, tp=2, cf=2.0)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", MOE)
+def test_a_model_axis_builds_with_the_reference_leaf_shapes(arch, tp):
+    """A model axis of 2 or 4 builds a ``MoELM`` with that tp, whose
+    ``init_params`` has the reference's leaves, shapes and dtypes at the
+    same tp: ``(nb, tp, E_loc, D, F/SPLIT)`` (grok-1's smoke, 2 experts, on
+    4 columns: E_loc 1, SPLIT 2). With SPLIT 1 the draws are the one-column
+    weights reshaped (flat order, the same scale), so a model axis starts
+    from the one-device weights."""
+    cfg = treg.get_config(arch, smoke=True)
+    tm = tmoe.MoELM(cfg, Mesh({"pod": 1, "data": 1, "model": tp}, (torch.device("cpu"),)))
+    assert tm.tp == tp
+    jm = jreg.build_model(arch, smoke=True)
+    jm.tp = tp
+    port, want = _flatten(tm.init_params(0, "cpu")), _flatten(jm.init_params(0))
+    assert sorted(port) == sorted(want)
+    for key, leaf in want.items():
+        assert port[key].shape == leaf.shape and port[key].dtype == leaf.dtype, key
+    e_loc, split, _ = tmoe.expert_layout(cfg, tp)
+    assert port["blocks/0/we_g"].shape == (cfg.n_layers, tp, e_loc, cfg.d_model, cfg.d_ff // split)
+    one = _flatten(tmoe.MoELM(cfg).init_params(0, "cpu"))
+    for key in one:
+        if split == 1:
+            assert torch.equal(port[key].reshape(one[key].shape), one[key]), key
+        elif not key.endswith(("we_g", "we_i", "we_o")):
+            assert torch.equal(port[key], one[key]), key
 
 
 # ---------------------------------------------------------------------------
