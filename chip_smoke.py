@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
-    python3 chip_smoke.py [--seed 0] [--phases card,collectives|expert_axis]
+    python3 chip_smoke.py [--seed 0] [--phases card,collectives|expert_axis|family_model_axis]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
@@ -164,7 +164,21 @@ the one-card phases alone). In order:
      3 steps with finite falling losses at 16 sequences (halved while the
      peak passes ``GROK_PEAK_MAX``), its f32 forward held to one card's.
      Each run prints ms a step, the all-to-all and model all-reduce ms a
-     step (CUDA events around each call) and peak GB a card;
+     step (CUDA events around each call) and peak GB a card; (e) the model
+     axis of the ssm, hybrid and encdec families
+     (``family_model_axis_path``; ``--phases family_model_axis`` runs it
+     alone): mamba2-370m at 8 of 48 layers, recurrentgemma-2b at 3 of 26
+     (seq 2048) and whisper-large-v3 at 1+1 of 32+32 (448 target
+     positions), at full width, the same 16 sequences a step, on 1x2x2 and
+     1x1x4, 3 steps each in one world a mesh: finite losses, step 1 within
+     ``LOSS_RTOL`` of one card's, the f32 forward of one layer within
+     ``TP_F32_TOL`` of the largest of one card's logits (whisper's within
+     ``ENCDEC_TP_F32_TOL``), whole leaves bit-equal across the model group;
+     recurrentgemma-2b's checkpoint at step 2 from 1x2x2, its MANIFEST a
+     one-device run's, restored bit-equal on every rank with exact launch
+     counts and resumed there and on 1x1x2. Each run prints ms a step, the
+     model all-reduce, all-gather and reduce-scatter ms a step and peak GB
+     a card;
  17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
      last line, ``{"ok": true, "device": {...}}``.
 
@@ -1927,6 +1941,17 @@ GROK_EP_ARGS = ["--arch", "grok-1-314b", "--layers", "1", "--seq-len", "2048",
 GROK_EP_MESH, GROK_EP_STEPS = "1x1x4", 3
 GROK_PEAK_MAX = 70e9             # bytes a card: over it the grok run halves its batch
 EXPERT_AXIS_TIMEOUT_S = 480      # each world of the expert-axis part
+# the model axis of the ssm, hybrid and encdec families: FAMILY_DIST_RUNS' cuts at full
+# width, the same 16 sequences a step, each mesh one world that trains the three in turn;
+# recurrentgemma-2b's checkpoint (the most leaves cut, wa and wxg among them) saved by rank
+# 0 at step 2 from 1x2x2, resumed there and on 1x1x2
+FAMILY_TP_ARCHS = ("mamba2-370m", "recurrentgemma-2b", "whisper-large-v3")
+FAMILY_TP_MESHES, FAMILY_TP_CKPT_MESH, FAMILY_TP_ELASTIC_MESH = ("1x2x2", "1x1x4"), "1x2x2", "1x1x2"
+FAMILY_TP_CKPT_ARCH, FAMILY_TP_STEPS, FAMILY_TP_CKPT = "recurrentgemma-2b", 3, 2
+FAMILY_TP_TIMEOUT_S = 480        # each world of the family part
+# whisper's init amplifies rounding ~3x a layer (ROADMAP Queue 3 item 3): its f32 forward at
+# 1+1 layers is held to serve_encdec's f32 bound at that depth (ENCDEC_CHECK_LAYERS)
+ENCDEC_TP_F32_TOL = F32_TOL
 
 
 def launch_counters():
@@ -2197,17 +2222,19 @@ def train_dist_worker(cfg: dict) -> dict:
 
 
 class collective_timer:
-    """Times every collective of the model axis (``dist.all_reduce`` and
-    ``dist.all_gather`` in ``models.common``'s operators and in AdamW's clip
-    norm, kind "model"; the MoE's ``dist.all_to_all_single``, kind "a2a")
-    and every mean over the batch axes (``launch.steps.world_mean``, kind
-    "batch") while entered: CUDA events around each call on the card (the
+    """Times every collective of the model axis in ``models.common``'s
+    operators and in AdamW's clip norm (``dist.all_reduce``, kind "model";
+    ``dist.all_gather``, kind "gather"; the reduce-scatter of
+    ``_GatherSumModel``'s backward, kind "rs"; the MoE's
+    ``dist.all_to_all_single``, kind "a2a") and every mean over the batch
+    axes (``launch.steps.world_mean``, kind "batch") while entered: CUDA events around each call on the card (the
     compute stream's wait for the collective; no host synchronisation), the
     host clock on the CPU. ``per_step(n)`` sums each kind's calls a step."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.calls: dict[str, list] = {"model": [], "a2a": [], "batch": []}
+        self.calls: dict[str, list] = {"model": [], "gather": [], "rs": [], "a2a": [],
+                                       "batch": []}
 
     def _timed(self, fn, key):
         def call(*a, **kw):
@@ -2236,7 +2263,10 @@ class collective_timer:
         proxy = types.SimpleNamespace(**{k: getattr(dist, k) for k in dir(dist)
                                          if not k.startswith("__")})
         proxy.all_reduce = self._timed(dist.all_reduce, "model")
-        proxy.all_gather = self._timed(dist.all_gather, "model")
+        proxy.all_gather = self._timed(dist.all_gather, "gather")
+        for name in ("reduce_scatter_tensor", "reduce_scatter_single"):
+            if hasattr(dist, name):
+                setattr(proxy, name, self._timed(getattr(dist, name), "rs"))
         proxy.all_to_all_single = self._timed(dist.all_to_all_single, "a2a")
         self.saved = [(common, "dist", common.dist), (adamw, "dist", adamw.dist),
                       (steps, "world_mean", steps.world_mean)]
@@ -2373,6 +2403,15 @@ def one_column(params: dict, cfg, tp: int) -> dict:
             for k, v in params.items()}
 
 
+def lm_forward(model, params, tok, audio=None):
+    """(logits, final hidden states) of ``tok``; an encdec's decoder over
+    the encoder's output of the frames ``audio``."""
+    if audio is None:
+        return model.logits(params, tok), model.hidden(params, tok)
+    enc = model.encode(params, audio)
+    return model.dec_logits(params, tok, enc), model.dec_hidden(params, tok, enc)
+
+
 def f32_forward_error(args: list, seed: int, mesh, dev) -> dict:
     """``args``' model at ``TP_F32_LAYERS`` layer(s), in f32: the logits of
     ``TP_F32_TOKENS`` seeded tokens from the whole weights on this card (a
@@ -2399,13 +2438,16 @@ def f32_forward_error(args: list, seed: int, mesh, dev) -> dict:
     tok = torch.randint(0, one.cfg.vocab, (1, TP_F32_TOKENS), generator=gen, device=dev)
     one.route_log, tp.route_log = ([], []) if moe else (None, None)
     whole = one_column(params, one.cfg, tp.tp) if moe else params
+    # an encdec's decoder reads seeded frames through the encoder
+    audio = (seeded_embeddings(seed + 6, 1, one.cfg.enc_positions, one, dev)
+             if one.cfg.family == "encdec" else None)
     with torch.no_grad():
-        want = one.logits(whole, tok)
-        got = tp.logits(train.shard_state(mesh, params, tp.param_specs(mesh)), tok)
+        want, hidden = lm_forward(one, whole, tok, audio)
+        got = lm_forward(tp, train.shard_state(mesh, params, tp.param_specs(mesh)), tok, audio)[0]
         # the largest sum of magnitudes behind a logit, max (|h| @ |W|): the scale of
         # the f32 rounding in the logits (a random untied unembedding's logits are
         # about sqrt(D) times smaller than the sums behind them)
-        sums = float((one.hidden(whole, tok).abs() @ one._out_w(whole).abs()).max())
+        sums = float((hidden.abs() @ one._out_w(whole).abs()).max())
     flipped = torch.zeros(TP_F32_TOKENS, dtype=torch.bool)
     if moe:
         k = one.cfg.top_k
@@ -2453,90 +2495,58 @@ def step1_dropped(args: list, seed: int, mesh, dev, microbatches: int = 1) -> in
     return dropped
 
 
-def tp_dist_worker(cfg: dict) -> dict:
-    """One rank of a model-axis world (``cfg["mesh"]``, e.g. 1x2x2 or
-    1x1x4): the f32 forward check (``f32_forward_error``), then
-    ``launch.train.main`` on ``cfg["args"]`` for ``cfg["steps"]`` steps with
-    every model-axis and batch-axes collective timed (``collective_timer``)
-    and every host digest patched to raise, with a checkpoint at
-    ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree), then a
-    fresh ``main`` that restores it and runs the rest; after each run,
-    whether every whole leaf is bit-equal across the model group. With
-    ``cfg["peak_max"]`` (no checkpoint), a run whose peak passes it on any
-    card runs again at half the global batch. A MoE also counts the
-    assignments its step-1 forward drops on this rank
-    (``step1_dropped``). Then each of ``cfg["also"]`` (another arch on the
-    same mesh). On ``cfg["elastic"]``, only the resume of ``cfg["root"]``."""
+def tp_train(cfg: dict, args: list, base: list, extra: list, mesh, dev) -> dict:
+    """One model-axis run of ``args`` on this rank: the f32 forward check
+    (``f32_forward_error``), then ``launch.train.main`` with every
+    model-axis and batch-axes collective timed (``collective_timer``),
+    with ``extra`` (a checkpoint) where given, then a fresh ``main`` that
+    restores it and runs the rest; after each run, whether every whole leaf
+    is bit-equal across the model group. With ``cfg["peak_max"]`` (no
+    checkpoint), a run whose peak passes it on any card runs again at half
+    the global batch. A MoE also counts the assignments its step-1 forward
+    drops on this rank (``step1_dropped``)."""
     import torch.distributed as dist
 
-    from repro_torch.distributed.mesh import MODEL, init_world
     from repro_torch.launch import train
-    from repro_torch.launch.train import parse_mesh
 
-    device = cfg["device"]
-    init_world(device)
-    dev = rank_device(device)
-    mesh = parse_mesh(cfg["mesh"], device)
-    rank = dist.get_rank()
-    reset, counts = launch_counters()
-    records: dict = {}
-    real = train.CheckpointManager
-    train.CheckpointManager = recording_manager(records, dev, reset, counts)
-    base = ["--seed", str(cfg["seed"]), "--device", device, "--mesh", cfg["mesh"],
-            "--steps", str(cfg["steps"])]
-    out: dict = {"rank": rank, "world": dist.get_world_size(), "mesh": cfg["mesh"],
-                 "model_rank": mesh.rank(MODEL), "device": str(dev)}
-    try:
-        with host_digests_raise():
-            if cfg["elastic"]:
-                res = train.main(cfg["args"] + base + ["--ckpt-dir", cfg["root"],
-                                                       "--microbatches", str(cfg["microbatches"])])
-                out["elastic"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
-            else:
-                args = cfg["args"]
-                out["f32"] = f32_forward_error(args, cfg["seed"], mesh, dev)
-                specs = smoke_model(args).param_specs(mesh)
-                extra = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
-                         if cfg.get("ckpt_step") else [])
-                while True:
-                    reset_peak(dev)
-                    with collective_timer(dev) as timer:
-                        res = train.main(args + base + extra)
-                    worst = torch.tensor([float(peak_bytes(dev))], device=dev)
-                    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
-                    batch = int(_arg(args, "--global-batch"))
-                    if not cfg.get("peak_max") or float(worst) <= cfg["peak_max"] or extra:
-                        break
-                    # over the bound on some card: the same run at half the batch
-                    del res
-                    release(device)
-                    args = with_arg(args, "--global-batch", batch // 2)
-                out["train"] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
-                                "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
-                                "collective_ms": timer.per_step(cfg["steps"]),
-                                "global_batch": batch,
-                                "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
-                del res
-                if smoke_model(args).cfg.family == "moe":
-                    out["dropped"] = step1_dropped(args, cfg["seed"], mesh, dev)
-                if extra:
-                    res = train.main(args + base + ["--ckpt-dir", cfg["root"]])
-                    out["resumed"] = {"losses": res["losses"],
-                                      "whole_equal": whole_leaves_equal(res["params"], specs,
-                                                                        mesh)}
-                    del res
-                out["also"] = []
-                for args in cfg.get("also", []):
-                    reset_peak(dev)
-                    res = train.main(args + base[:-2] + ["--steps", str(cfg["also_steps"])])
-                    out["also"].append({
-                        "arch": _arg(args, "--arch"), "losses": res["losses"],
-                        "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
-                        "whole_equal": whole_leaves_equal(
-                            res["params"], smoke_model(args).param_specs(mesh), mesh)})
-                    del res
-    finally:
-        train.CheckpointManager = real
+    out = {"f32": f32_forward_error(args, cfg["seed"], mesh, dev)}
+    specs = smoke_model(args).param_specs(mesh)
+    while True:
+        reset_peak(dev)
+        with collective_timer(dev) as timer:
+            res = train.main(args + base + extra)
+        worst = torch.tensor([float(peak_bytes(dev))], device=dev)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        batch = int(_arg(args, "--global-batch"))
+        if not cfg.get("peak_max") or float(worst) <= cfg["peak_max"] or extra:
+            break
+        # over the bound on some card: the same run at half the batch
+        del res
+        release(dev)
+        args = with_arg(args, "--global-batch", batch // 2)
+    out["train"] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
+                    "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                    "collective_ms": timer.per_step(cfg["steps"]), "global_batch": batch,
+                    "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
+    del res
+    if smoke_model(args).cfg.family == "moe":
+        out["dropped"] = step1_dropped(args, cfg["seed"], mesh, dev)
+    if extra:
+        res = train.main(args + base + extra[:2])
+        out["resumed"] = {"losses": res["losses"],
+                          "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
+        del res
+    release(dev)
+    return out
+
+
+def checkpoint_records(records: dict, out: dict) -> None:
+    """Into ``out``: whether rank 0 restored what it saved bit for bit, the
+    MANIFEST and the save's seconds, launches and bytes (rank 0), and
+    whether this rank's restored tree equals rank 0's, with the restore's
+    seconds and launches."""
+    import torch.distributed as dist
+
     if "save" in records:
         saved, restored = records["saved"], records["restored"]
         out["saved_equal_restored"] = sorted(saved) == sorted(restored) and all(
@@ -2556,6 +2566,66 @@ def tp_dist_worker(cfg: dict) -> dict:
             equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
         out["restored_equal_rank0"] = equal
         out["restore"] = records["restore"]
+
+
+def tp_dist_worker(cfg: dict) -> dict:
+    """One rank of a model-axis world (``cfg["mesh"]``, e.g. 1x2x2 or
+    1x1x4): ``tp_train`` on ``cfg["args"]`` for ``cfg["steps"]`` steps with
+    every host digest patched to raise, with a checkpoint at
+    ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree). Then
+    each of ``cfg["also"]`` (another arch on the same mesh, trained and its
+    whole leaves checked). With ``cfg["runs"]`` in place of ``cfg["args"]``,
+    ``tp_train`` on each of them in turn (``out["runs"]``), the checkpoint
+    on the run whose arch is ``cfg["ckpt_arch"]``. On ``cfg["elastic"]``,
+    only the resume of ``cfg["root"]``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import MODEL, init_world
+    from repro_torch.launch import train
+    from repro_torch.launch.train import parse_mesh
+
+    device = cfg["device"]
+    init_world(device)
+    dev = rank_device(device)
+    mesh = parse_mesh(cfg["mesh"], device)
+    rank = dist.get_rank()
+    reset, counts = launch_counters()
+    records: dict = {}
+    real = train.CheckpointManager
+    train.CheckpointManager = recording_manager(records, dev, reset, counts)
+    base = ["--seed", str(cfg["seed"]), "--device", device, "--mesh", cfg["mesh"],
+            "--steps", str(cfg["steps"])]
+    out: dict = {"rank": rank, "world": dist.get_world_size(), "mesh": cfg["mesh"],
+                 "model_rank": mesh.rank(MODEL), "device": str(dev)}
+    ckpt = (["--ckpt-dir", cfg["root"], "--ckpt-every", str(cfg["ckpt_step"])]
+            if cfg.get("ckpt_step") else [])
+    try:
+        with host_digests_raise():
+            if cfg["elastic"]:
+                res = train.main(cfg["args"] + base + ["--ckpt-dir", cfg["root"],
+                                                       "--microbatches", str(cfg["microbatches"])])
+                out["elastic"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
+            elif "runs" in cfg:
+                out["runs"] = []
+                for args in cfg["runs"]:
+                    extra = ckpt if _arg(args, "--arch") == cfg.get("ckpt_arch") else []
+                    out["runs"].append({"arch": _arg(args, "--arch"),
+                                        **tp_train(cfg, args, base, extra, mesh, dev)})
+            else:
+                out.update(tp_train(cfg, cfg["args"], base, ckpt, mesh, dev))
+                out["also"] = []
+                for args in cfg.get("also", []):
+                    reset_peak(dev)
+                    res = train.main(args + base[:-2] + ["--steps", str(cfg["also_steps"])])
+                    out["also"].append({
+                        "arch": _arg(args, "--arch"), "losses": res["losses"],
+                        "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                        "whole_equal": whole_leaves_equal(
+                            res["params"], smoke_model(args).param_specs(mesh), mesh)})
+                    del res
+    finally:
+        train.CheckpointManager = real
+    checkpoint_records(records, out)
     return out
 
 
@@ -2650,16 +2720,20 @@ def four_cards(device, smi: str) -> dict | None:
     return {"card": smi, "cards": cards}
 
 
-def collectives_path(seed: int, device, smi: str,
-                     parts=("collectives", "expert_axis")) -> dict | None:
+COLL_PARTS = ("collectives", "expert_axis", "family_model_axis")
+
+
+def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | None:
     """The four-card phase. With fewer than ``COLL_CARDS`` cards it runs
     nothing (None). Else: (a) ``collectives_worker`` on four ranks; (b)
     ``train_dist_worker`` on four ranks, then the elastic resume of its
     root on two, and step 1 of the same 16 sequences on one card in this
     process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
     families (``model_axis_path``); (d) the expert axis
-    (``expert_axis_path``). ``parts`` without "collectives" runs (d) alone.
-    Every check fails the phase."""
+    (``expert_axis_path``); (e) the model axis of the ssm, hybrid and
+    encdec families (``family_model_axis_path``). ``parts`` without
+    "collectives" runs those of (d) and (e) it names alone. Every check
+    fails the phase."""
     import shutil
     import tempfile
 
@@ -2671,7 +2745,10 @@ def collectives_path(seed: int, device, smi: str,
     smi, dev = out["card"], torch.device(device).type
     t0 = time.perf_counter()
     if "collectives" not in parts:
-        out.update(expert_axis_path(seed, device, dev))
+        if "expert_axis" in parts:
+            out.update(expert_axis_path(seed, device, dev))
+        if "family_model_axis" in parts:
+            out.update(family_model_axis_path(seed, device, dev))
         out["seconds"] = time.perf_counter() - t0
         return out
     coll = run_ranks("collectives", COLL_CARDS, {
@@ -2793,6 +2870,8 @@ def collectives_path(seed: int, device, smi: str,
     out.update(model_axis_path(seed, device, dev, ranks, one, per_step))
     if "expert_axis" in parts:
         out.update(expert_axis_path(seed, device, dev))
+    if "family_model_axis" in parts:
+        out.update(family_model_axis_path(seed, device, dev, out["families"]))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3007,7 +3086,7 @@ def expert_axis_path(seed: int, device, dev: str) -> dict:
             check(r["train"]["whole_equal"], f"{arch} {mesh} rank {r['rank']}: every whole leaf "
                                               "bit-equal across the model group after the steps")
         coll = {k: [max(r["train"]["collective_ms"][k][s] for r in ranks) for s in range(steps)]
-                for k in ("model", "a2a", "batch")}
+                for k in ("model", "gather", "a2a", "batch")}
         return {"losses": losses, "global_batch": t["global_batch"],
                 "f32_rel": max(r["f32"]["rel"] for r in ranks),
                 "f32_rel_sum": max(r["f32"]["rel_sum"] for r in ranks),
@@ -3066,6 +3145,163 @@ def expert_axis_path(seed: int, device, dev: str) -> dict:
         "seconds": time.perf_counter() - t0}}
 
 
+def family_model_axis_path(seed: int, device, dev: str, families=None) -> dict:
+    """The collectives phase's part for the model axis of the ssm, hybrid and
+    encdec families: FAMILY_DIST_RUNS' cuts of ``FAMILY_TP_ARCHS`` over
+    each of ``FAMILY_TP_MESHES`` (``tp_dist_worker`` with ``runs``: one
+    world a mesh trains the three in turn), recurrentgemma-2b's checkpoint
+    saved on ``FAMILY_TP_CKPT_MESH`` and resumed there and on
+    ``FAMILY_TP_ELASTIC_MESH``. Step 1 of each is held to one card's on the
+    same 16 sequences (``ONE_CARD_MICROBATCHES``; taken from ``families``,
+    the pod x data part's runs, where given). Every check fails the
+    phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import _param_shapes
+
+    def close(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    t0 = time.perf_counter()
+    release(device)
+    runs = [a + FAMILY_DIST_COMMON for a in FAMILY_DIST_RUNS if _arg(a, "--arch") in FAMILY_TP_ARCHS]
+    ck_args = next(a for a in runs if _arg(a, "--arch") == FAMILY_TP_CKPT_ARCH)
+    root = tempfile.mkdtemp(prefix="chip-smoke-family-tp-")
+    cfg = {"device": dev, "seed": seed, "runs": runs, "steps": FAMILY_TP_STEPS, "elastic": False}
+    try:
+        worlds = {}
+        for mesh in FAMILY_TP_MESHES:
+            extra = ({"root": root, "ckpt_step": FAMILY_TP_CKPT, "ckpt_arch": FAMILY_TP_CKPT_ARCH}
+                     if mesh == FAMILY_TP_CKPT_MESH else {})
+            worlds[mesh] = run_ranks("tp_dist", COLL_CARDS, {**cfg, "mesh": mesh, **extra},
+                                     FAMILY_TP_TIMEOUT_S)
+        elastic = run_ranks("tp_dist", 2, {
+            "device": dev, "seed": seed, "args": ck_args, "steps": FAMILY_TP_STEPS,
+            "elastic": True, "mesh": FAMILY_TP_ELASTIC_MESH, "root": root,
+            "microbatches": ONE_CARD_MICROBATCHES}, FAMILY_TP_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    one = {f["arch"]: f["one_card_step1"] for f in families or []}
+    for args in runs:
+        arch = _arg(args, "--arch")
+        if arch not in one:
+            one[arch] = train.main(args + [
+                "--seed", str(seed), "--device", str(device), "--mesh", "1x1", "--steps", "1",
+                "--microbatches", str(ONE_CARD_MICROBATCHES)])["losses"][0]
+            release(device)
+    meshes = {}
+    for mesh, ranks in worlds.items():
+        meshes[mesh] = {}
+        for i, args in enumerate(runs):
+            arch = _arg(args, "--arch")
+            tol = ENCDEC_TP_F32_TOL if smoke_model(args).cfg.family == "encdec" else TP_F32_TOL
+            rr = [r["runs"][i] for r in ranks]
+            t = rr[0]["train"]
+            losses = t["losses"]
+            check(len(losses) == FAMILY_TP_STEPS and all(np.isfinite(losses)),
+                  f"{arch} on {mesh}: finite losses {losses}")
+            check(all(r["train"]["losses"] == losses for r in rr), f"{arch} {mesh}: every rank's loss")
+            check(close(losses[:1], [one[arch]]), f"{arch} {mesh}: step 1 {losses[0]} within "
+                                                  f"{LOSS_RTOL} of one card's {one[arch]}")
+            for rank, r in enumerate(rr):
+                f = r["f32"]
+                check(f["rel"] <= tol, f"{arch} {mesh} rank {rank}: f32 logits within {tol:.3g} of "
+                                       f"the largest of one card's ({f['max_abs_err']} of "
+                                       f"{f['max_logit']}; of the largest magnitude sum "
+                                       f"{f['rel_sum']:.3g})")
+                check(r["train"]["whole_equal"], f"{arch} {mesh} rank {rank}: every whole leaf "
+                                                 "bit-equal across the model group after the steps")
+            coll = {k: [max(r["train"]["collective_ms"][k][s] for r in rr)
+                        for s in range(FAMILY_TP_STEPS)] for k in ("model", "gather", "rs", "batch")}
+            meshes[mesh][arch] = {
+                "args": args, "losses": losses, "one_card_step1": one[arch],
+                "global_batch": t["global_batch"], "f32_tol": tol,
+                "f32_rel": max(r["f32"]["rel"] for r in rr),
+                "f32_rel_sum": max(r["f32"]["rel_sum"] for r in rr),
+                "step_ms": 1e3 * median([max(r["train"]["step_s"][s] for r in rr)
+                                         for s in range(1, FAMILY_TP_STEPS)]),
+                "collective_ms": {k: median(v[1:]) for k, v in coll.items()},
+                "collective_ms_first_step": {k: v[0] for k, v in coll.items()},
+                "peak_bytes": [r["train"]["peak_bytes"] for r in rr]}
+    ck_ranks = worlds[FAMILY_TP_CKPT_MESH]
+    i = runs.index(ck_args)
+    c0 = ck_ranks[0]
+    tail = c0["runs"][i]["train"]["losses"][FAMILY_TP_CKPT:]
+    check(all(close(r["runs"][i]["resumed"]["losses"], tail) and r["runs"][i]["resumed"]["whole_equal"]
+              for r in ck_ranks),
+          f"{FAMILY_TP_CKPT_ARCH} {FAMILY_TP_CKPT_MESH}: the resumed step repeats the uninterrupted "
+          f"run's loss {c0['runs'][i]['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+    check(all(close(e["elastic"]["losses"], tail) for e in elastic),
+          f"{FAMILY_TP_CKPT_MESH}'s root resumed on {FAMILY_TP_ELASTIC_MESH} repeats it: "
+          f"{elastic[0]['elastic']['losses']} vs {tail}")
+    # a one-device run's MANIFEST, leaf for leaf: the whole params and both moments
+    whole = flat_tree(_param_shapes(smoke_model(ck_args)))
+    want = {f"{tree}{k}": list(t.shape) for tree in ("params/", "opt/m/", "opt/v/")
+            for k, t in whole.items()}
+    got = {k: e["shape"] for k, e in c0["manifest"]["leaves"].items() if k != "opt/step"}
+    check(got == want, f"{FAMILY_TP_CKPT_MESH}: the MANIFEST names a one-device run's leaves and "
+                       "shapes")
+    check(c0["saved_equal_restored"], f"{FAMILY_TP_CKPT_MESH}: rank 0 restored the whole saved "
+                                      "tree bit for bit")
+    want_launches = ckpt_launches(c0["manifest"])
+    got = c0["save"]["launches"]
+    check(got == {**got, **want_launches["save"]} and got["checksum_copy_words"] == 0,
+          f"{FAMILY_TP_CKPT_MESH}: rank 0's save launched exactly {want_launches['save']}: {got}")
+    for r in ck_ranks + elastic:
+        check(r["restored_equal_rank0"], f"{r['mesh']} rank {r['rank']} restored rank 0's tree "
+                                         "bit for bit")
+        got = r["restore"]["launches"]
+        check(got == {**got, **want_launches["restore"]} and got["checksum_copy_words"] == 0,
+              f"{r['mesh']} rank {r['rank']}'s restore launched exactly "
+              f"{want_launches['restore']}: {got}")
+    return {"family_model_axis": {
+        "meshes": meshes,
+        "ckpt": {"arch": FAMILY_TP_CKPT_ARCH, "mesh": FAMILY_TP_CKPT_MESH, "step": FAMILY_TP_CKPT,
+                 "save_s": c0["save"]["seconds"], "bytes": c0["save"]["bytes"],
+                 "launches_save_rank0": c0["save"]["launches"],
+                 "launches_restore": [r["restore"]["launches"] for r in ck_ranks],
+                 "launches_restore_elastic": [e["restore"]["launches"] for e in elastic],
+                 "expected_launches": want_launches,
+                 "restore_s": [r["restore"]["seconds"] for r in ck_ranks],
+                 "elastic_restore_s": [e["restore"]["seconds"] for e in elastic],
+                 "uninterrupted": tail, "resumed": c0["runs"][i]["resumed"]["losses"],
+                 "elastic": elastic[0]["elastic"]["losses"]},
+        "wall_s": {mesh: ranks[0]["wall_s"] for mesh, ranks in worlds.items()}
+        | {FAMILY_TP_ELASTIC_MESH: elastic[0]["wall_s"]},
+        "seconds": time.perf_counter() - t0}}
+
+
+def print_family_model_axis(m: dict, smi: str) -> None:
+    """The family part's lines."""
+    for mesh, archs in m["meshes"].items():
+        for arch, r in archs.items():
+            c = r["collective_ms"]
+            print(f"collectives family_model_axis {arch} ({' '.join(r['args'][2:6])}) on {mesh}, "
+                  f"{r['global_batch']} sequences a step: {r['step_ms']:.1f} ms/step; ms a step: "
+                  f"model all-reduce {c['model']:.2f}, all-gather {c['gather']:.2f}, "
+                  f"reduce-scatter {c['rs']:.2f}, batch axes {c['batch']:.2f}; peak GB a card "
+                  f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; losses "
+                  f"{[round(x, 4) for x in r['losses']]}, step 1 on one card "
+                  f"{r['one_card_step1']:.6f}; f32 logits within {r['f32_rel']:.3g} of the largest "
+                  f"of one card's ({r['f32_rel_sum']:.3g} of the largest magnitude sum; bound "
+                  f"{r['f32_tol']:.3g}) [{smi}]")
+    c = m["ckpt"]
+    print(f"collectives family_model_axis checkpoint {c['arch']} on {c['mesh']} at step {c['step']}: "
+          f"{c['bytes'] / 1e9:.2f} GB, the whole tree gathered and saved by rank 0 in "
+          f"{c['save_s']:.2f} s (launches {c['launches_save_rank0']}), restored on each rank in "
+          f"{', '.join(f'{x:.2f}' for x in c['restore_s'])} s (launches "
+          f"{c['launches_restore'][0]} each), on {FAMILY_TP_ELASTIC_MESH} in "
+          f"{', '.join(f'{x:.2f}' for x in c['elastic_restore_s'])} s; uninterrupted "
+          f"{c['uninterrupted']}, resumed {c['resumed']}, elastic {c['elastic']}; part "
+          f"{m['seconds']:.1f} s [{smi}]")
+    sys.stdout.flush()
+
+
 def print_expert_axis(m: dict, smi: str) -> None:
     """The expert-axis part's lines."""
     def row(arch, layers, mesh, r, one=None):
@@ -3073,7 +3309,8 @@ def print_expert_axis(m: dict, smi: str) -> None:
         ref = f" (one card {one[0]:.6f}, dropped {one[1]})" if one else ""
         print(f"collectives expert_axis {arch} {layers} on {mesh}, {r['global_batch']} sequences "
               f"a step: {r['step_ms']:.1f} ms/step; ms a step: all-to-all {c['a2a']:.2f}, model "
-              f"all-reduce {c['model']:.2f}, batch axes {c['batch']:.2f}; peak GB a card "
+              f"all-reduce {c['model']:.2f}, all-gather {c['gather']:.2f}, batch axes "
+              f"{c['batch']:.2f}; peak GB a card "
               f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; losses "
               f"{[round(x, 4) for x in r['losses']]}, dropped at step 1 {r['dropped_step1']}{ref}; "
               f"f32 logits within {r['f32_rel_sum']:.3g} of the largest magnitude sum of one "
@@ -3162,6 +3399,7 @@ def print_collectives(coll: dict, smi: str) -> None:
           f"{v['one_card_step1']:.6f}; peak GB a card {[round(b / 1e9, 2) for b in v['peak_bytes']]} "
           f"[{smi}]")
     print_expert_axis(coll["expert_axis"], smi)
+    print_family_model_axis(coll["family_model_axis"], smi)
     print("collectives " + json.dumps(coll))
 
 
@@ -3417,9 +3655,9 @@ def main() -> int:
     if args.rank_worker:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
-    if not phases or phases - set(PHASES) - {"expert_axis"}:
-        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis (that part of "
-                     f"collectives alone) or all, not {args.phases!r}")
+    if not phases or phases - set(PHASES) - set(COLL_PARTS):
+        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis or family_model_axis "
+                     f"(those parts of collectives alone) or all, not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -3457,8 +3695,9 @@ def main() -> int:
     kernels = None
     if "card" in phases:
         kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
-    if phases & {"collectives", "expert_axis"}:
-        parts = ("collectives", "expert_axis") if "collectives" in phases else ("expert_axis",)
+    if phases & set(COLL_PARTS):
+        parts = COLL_PARTS if "collectives" in phases else tuple(
+            p for p in COLL_PARTS if p in phases)
         coll = collectives_path(args.seed, device, smi, parts)
         if coll is None:
             print(f"collectives: not run, needs {COLL_CARDS} cards, "
@@ -3466,7 +3705,10 @@ def main() -> int:
         elif "collectives" in parts:
             print_collectives(coll, coll["card"])
         else:
-            print_expert_axis(coll["expert_axis"], coll["card"])
+            if "expert_axis" in parts:
+                print_expert_axis(coll["expert_axis"], coll["card"])
+            if "family_model_axis" in parts:
+                print_family_model_axis(coll["family_model_axis"], coll["card"])
             print("collectives " + json.dumps(coll))
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     if kernels is not None:

@@ -20,7 +20,7 @@ modes take the auto path, exactly as the reference decides
 (``param_specs``), the model's forward brackets its products with the
 model group's collectives, and AdamW's clip norm sums the sharded leaves'
 squares over that group. Prefill and decode over a ``model`` axis wait for
-ROADMAP Queue 1 items 4 and 6.
+ROADMAP Queue 1 item 6.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
@@ -196,7 +196,7 @@ def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> St
     """Last-position logits of a batch: an encdec's decoder over its encoded
     ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix.
     ``in_shapes`` is ``cell``'s (None without a cell)."""
-    refuse_model_axis(mesh, "prefill", "items 4 and 6")
+    refuse_model_axis(mesh, "prefill", "item 6")
     family = model.cfg.family
     if family == "encdec":
         def hidden(params, batch):
@@ -228,7 +228,7 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
     ``weight_stationary`` picks the reference's serve-time param shardings;
     on one device it changes nothing, and over a ``model`` axis the step
     raises (ROADMAP Queue 1 item 6)."""
-    refuse_model_axis(mesh, "decode", "items 4 and 6")
+    refuse_model_axis(mesh, "decode", "item 6")
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):

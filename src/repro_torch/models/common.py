@@ -21,10 +21,12 @@ operators around each column- and row-parallel pair, a vocab-parallel
 embedding lookup and a vocab-parallel cross-entropy that never gathers the
 (B, S, V) logits; the MoE's expert parallelism adds an all-to-all over the
 group (``all_to_all``) and a stack of the ranks' token slices
-(``_stack_out``). The residual stays whole on every model rank, where the
-reference may shard it by sequence (``constrain``, ``_seq``, ``_res`` are
-layout hints of GSPMD and have no counterpart); the decode caches'
-``kv_cache_spec`` waits for ROADMAP Queue 1 item 4.
+(``_stack_out``), the hybrid's recurrent layer a gather whose backward is
+a reduce-scatter (``_gather_in``) and the ssm's gated norm a statistic
+summed over the group (``_sum_stat``). The residual stays whole on every
+model rank, where the reference may shard it by sequence (``constrain``,
+``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart); the
+decode caches' ``kv_cache_spec`` waits for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -196,6 +198,23 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(-1, dist.get_rank(ctx.group) * n, n).contiguous(), None
 
 
+class _GatherSumModel(_GatherFromModel):
+    """``_GatherFromModel``'s gather, where each rank feeds the whole result
+    into its own output columns: the backward sums the gradient over the
+    group and keeps this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = dist.get_world_size(ctx.group)
+        n = g.shape[-1] // tp
+        blocks = g.reshape(*g.shape[:-1], tp, n).movedim(-2, 0).contiguous()
+        out = g.new_empty((1, *blocks.shape[1:]))
+        # reduce_scatter_tensor's new name where torch has it
+        rs = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        rs(out, blocks, group=ctx.group)
+        return out[0], None
+
+
 class _AllToAllModel(torch.autograd.Function):
     """Block j of dim 0 goes to rank j, and block j of the result came from
     rank j (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``, equal
@@ -282,6 +301,20 @@ class ShardingMixin:
             return x
         return _GatherFromModel.apply(x, self.mesh.group(MODEL))
 
+    def _gather_in(self, x, split: bool = True):
+        """The last dim's blocks of every model rank, concatenated, as the
+        input of this rank's own output columns: the backward sums the
+        gradient over ``model`` and keeps this rank's block."""
+        if not split or self._tp() == 1:
+            return x
+        return _GatherSumModel.apply(x, self.mesh.group(MODEL))
+
+    def _sum_stat(self, s, split: bool = True):
+        """A statistic of this rank's block summed over ``model`` (a norm's
+        sum of squares over a split dim); every rank uses the sum for its
+        own block, so the backward sums the gradient over ``model`` too."""
+        return self._copy_in(self._reduce_out(s, split), split)
+
     def _stack_out(self, x):
         """Every model rank's ``x`` stacked on a new leading dim (over a
         ``model`` axis over 1)."""
@@ -304,6 +337,31 @@ class ShardingMixin:
         inside = (ids >= 0) & (ids < table.shape[0])
         x = F.embedding(torch.where(inside, ids, 0), table)
         return self._reduce_out(torch.where(inside[..., None], x, 0))
+
+    def _unembed(self, params, h):
+        """Whole logits (B, S, V) of hidden states ``h`` through the
+        family's ``_out_w``: over a vocab split, each rank's block,
+        gathered."""
+        vocab = self._vocab() is not None
+        h = self._copy_in(h, vocab)
+        return self._gather_out(torch.einsum("bsd,dv->bsv", h, self._out_w(params)), vocab)
+
+    def _xent(self, params, h, labels, final_cap=None):
+        """``chunked_xent`` of ``h`` against ``labels``, vocab-parallel over
+        a vocab split."""
+        vocab = self._vocab()
+        return chunked_xent(self._copy_in(h, vocab is not None), self._out_w(params),
+                            labels, final_cap=final_cap, vocab=vocab)
+
+    def _local_kv(self, k, v):
+        """The kv heads that this rank's query heads meet: all of ``k``
+        where the kv heads are split with the heads (or nothing is split),
+        else those of the whole set that its heads group with."""
+        cfg = self.cfg
+        if not self._split(cfg.n_heads) or self._split(cfg.n_kv_heads):
+            return k, v
+        h_loc = cfg.n_heads // self._tp()
+        return kv_for_heads(k, v, self._mrank() * h_loc, h_loc, cfg.n_heads // cfg.n_kv_heads)
 
 
 # ---------------------------------------------------------------------------

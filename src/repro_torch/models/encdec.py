@@ -20,6 +20,17 @@ Whisper's 448 target positions the dense one.
 Decode: ``prefill_cross`` fills each decoder layer's cross-attention K/V
 from the encoder output, then ``decode_step`` writes each token's
 self-attention K/V into the cache in place and returns that cache.
+
+Over a ``model`` axis (tensor parallelism) ``param_specs`` is the
+reference's: the encoder's and decoder's self-attention and the
+cross-attention split by heads (the whole encoder output feeds this rank's
+cross K/V heads, so its gradient is summed over ``model``), ``w1`` / ``b1``
+column- and ``w2`` row-parallel with ``b2`` added once after the sum, and
+the tied embedding vocab-parallel where ``model`` divides the vocab.
+``pos_dec``, the layer norms and the encoder's sinusoids stay whole. The
+reference's ``_qspec`` (context-parallel queries where a 16-wide axis
+does not divide 20 heads) is a layout hint of GSPMD with no counterpart.
+Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import DenseLM
@@ -56,11 +68,10 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1).float()
 
 
-class WhisperLM(torch.nn.Module):
+class WhisperLM(cm.ShardingMixin, torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None, *, max_target: int = 448):
         super().__init__()
         self.cfg = cfg
-        cm.refuse_model_axis(mesh, "the encdec family", "item 4")
         self.mesh = mesh
         self.max_target = max_target
 
@@ -102,26 +113,55 @@ class WhisperLM(torch.nn.Module):
             "dec_norm_s": ini.ones((D,)), "dec_norm_b": ini.zeros((D,)),
         }
 
+    def param_specs(self, mesh) -> Any:
+        """The reference's train-time PartitionSpecs, entry for entry."""
+        cfg = self.cfg
+        d_dat = cm.shardable(cfg.d_model, DATA, mesh)
+        h_m = cm.shardable(cfg.n_heads, MODEL, mesh)
+        f_m = cm.shardable(cfg.d_ff, MODEL, mesh)
+        attn = {"ln_s": P(None, None), "ln_b": P(None, None),
+                "wq": P(None, d_dat, h_m, None), "wk": P(None, d_dat, h_m, None),
+                "wv": P(None, d_dat, h_m, None), "wo": P(None, h_m, None, d_dat)}
+        mlp = {"ln_s": P(None, None), "ln_b": P(None, None),
+               "w1": P(None, d_dat, f_m), "b1": P(None, f_m),
+               "w2": P(None, f_m, d_dat), "b2": P(None, None)}
+        return {
+            "embed": P(cm.shardable(cfg.vocab, MODEL, mesh), d_dat),
+            "pos_dec": P(None, None),
+            "enc": {"self": dict(attn), "mlp": dict(mlp)},
+            "enc_norm_s": P(None), "enc_norm_b": P(None),
+            "dec": {"self": dict(attn), "cross": dict(attn), "mlp": dict(mlp)},
+            "dec_norm_s": P(None), "dec_norm_b": P(None),
+        }
+
     # -- sub-layers --------------------------------------------------------------
     def _sa(self, x, lp, *, causal, q_pos):
-        h = layer_norm(x, lp["ln_s"], lp["ln_b"])
+        """Self-attention, by heads over a split (kv heads = heads)."""
+        heads = self._split(self.cfg.n_heads)
+        h = self._copy_in(layer_norm(x, lp["ln_s"], lp["ln_b"]), heads)
         q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
         k = torch.einsum("bsd,dnh->bsnh", h, lp["wk"])
         v = torch.einsum("bsd,dnh->bsnh", h, lp["wv"])
         o = cm.attention(q, k, v, causal=causal, q_positions=q_pos, kv_positions=q_pos)
-        return x + torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
+        return x + self._reduce_out(torch.einsum("bsnh,nhd->bsd", o, lp["wo"]), heads)
 
     def _cross(self, x, lp, enc_k, enc_v, enc_pos, q_pos):
-        h = layer_norm(x, lp["ln_s"], lp["ln_b"])
+        """Cross-attention of this rank's heads over a split (``enc_k`` /
+        ``enc_v`` of the same heads)."""
+        heads = self._split(self.cfg.n_heads)
+        h = self._copy_in(layer_norm(x, lp["ln_s"], lp["ln_b"]), heads)
         q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
         o = cm.attention(q, enc_k, enc_v, causal=False,
                          q_positions=q_pos, kv_positions=enc_pos)
-        return x + torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
+        return x + self._reduce_out(torch.einsum("bsnh,nhd->bsd", o, lp["wo"]), heads)
 
     def _mlp(self, x, lp):
-        h = layer_norm(x, lp["ln_s"], lp["ln_b"])
+        """``w1`` / ``b1`` column- and ``w2`` row-parallel over a split
+        ``d_ff``; the whole ``b2`` is added once, after the sum."""
+        ffn = self._split(self.cfg.d_ff)
+        h = self._copy_in(layer_norm(x, lp["ln_s"], lp["ln_b"]), ffn)
         h = cm.act_fn("gelu")(torch.einsum("bsd,df->bsf", h, lp["w1"]) + lp["b1"])
-        return x + torch.einsum("bsf,fd->bsd", h, lp["w2"]) + lp["b2"]
+        return x + self._reduce_out(torch.einsum("bsf,fd->bsd", h, lp["w2"]), ffn) + lp["b2"]
 
     def _run_stack(self, layer, stack, x, *extra):
         """``x = layer(x, *extra, lp)`` for each layer ``lp`` of ``stack``
@@ -162,7 +202,7 @@ class WhisperLM(torch.nn.Module):
     def dec_hidden(self, params, tokens, enc_out):
         cfg = self.cfg
         B, S = tokens.shape
-        x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+        x = self._lookup(params["embed"], tokens).to(cfg.dtype)
         x = x + params["pos_dec"][:S][None].to(cfg.dtype)
         q_pos = self._positions(B, S, x.device)
         enc_pos = self._positions(B, enc_out.shape[1], x.device)
@@ -174,17 +214,18 @@ class WhisperLM(torch.nn.Module):
             x = self._cross(x, lp["cross"], ek, ev, enc_pos, q_pos)
             return self._mlp(x, lp["mlp"])
 
+        # the whole encoder output feeds this rank's cross K/V heads only
+        enc_out = self._copy_in(enc_out, self._split(cfg.n_heads))
         x = self._run_stack(layer, params["dec"], x, enc_out)
         return layer_norm(x, params["dec_norm_s"], params["dec_norm_b"])
 
     def dec_logits(self, params, tokens, enc_out):
-        x = self.dec_hidden(params, tokens, enc_out)
-        return torch.einsum("bsd,vd->bsv", x, params["embed"].to(self.cfg.dtype))
+        return self._unembed(params, self.dec_hidden(params, tokens, enc_out))
 
     def loss(self, params, batch):
         enc = self.encode(params, batch["audio_embed"])
         h = self.dec_hidden(params, batch["tokens"][:, :-1], enc)
-        return cm.chunked_xent(h, self._out_w(params), batch["tokens"][:, 1:])
+        return self._xent(params, h, batch["tokens"][:, 1:])
 
     def _out_w(self, params):
         return params["embed"].T.to(self.cfg.dtype)
@@ -204,6 +245,7 @@ class WhisperLM(torch.nn.Module):
 
     def prefill_cross(self, params, cache, audio_embed):
         """Compute the encoder output and fill per-layer cross-attn K/V."""
+        cm.refuse_model_axis(self.mesh, "prefill", "item 6")
         enc = self.encode(params, audio_embed)
         ek = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wk"])
         ev = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wv"])
@@ -215,6 +257,7 @@ class WhisperLM(torch.nn.Module):
 
         Returns (logits (B,1,V), cache) — the cache updated in place."""
         cfg = self.cfg
+        cm.refuse_model_axis(self.mesh, "decode", "item 6")
         B = tokens.shape[0]
         x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
         pos_emb = params["pos_dec"][torch.clamp(pos, max=self.max_target - 1).long()]

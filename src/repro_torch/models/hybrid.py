@@ -15,6 +15,17 @@ Training runs the recurrence as a log-depth scan over the sequence
 (Hillis-Steele: log2(l) rounds of the associative combine, where the
 reference calls ``lax.associative_scan``). Decode carries (recurrent state,
 conv window, local-attn KV ring) and updates the cache in place.
+
+Over a ``model`` axis (tensor parallelism) ``param_specs`` is the
+reference's. A recurrent layer runs on this rank's ``lru_width`` channels:
+``wx`` / ``wy`` column-parallel, the conv, ``ba``, ``bxg`` and ``lam`` per
+channel, the conv's output gathered over ``model`` into ``wa`` / ``wxg``
+(only their output dim is cut; the gather's backward is a reduce-scatter),
+the RG-LRU elementwise and ``wo`` row-parallel. The MLPs are column / row
+pairs over ``d_ff``; the attention splits by heads where ``model`` divides
+them (the one kv head whole) and runs whole on every rank where it does
+not; the tied embedding is vocab-parallel. Decode over a ``model`` axis
+waits for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.ssm import _causal_conv
@@ -67,13 +79,12 @@ def rg_lru_step(h, x_t, ga_t, gx_t, lam):
     return h, h
 
 
-class RecurrentGemmaLM(torch.nn.Module):
+class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
     PATTERN = ("r", "r", "a")
 
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
-        cm.refuse_model_axis(mesh, "the hybrid family", "item 4")
         self.mesh = mesh
         self.w = cfg.lru_width or cfg.d_model
         kinds = []
@@ -133,48 +144,110 @@ class RecurrentGemmaLM(torch.nn.Module):
             params["tail"] = self._rec_params(ini, self.n_tail, "tail")
         return params
 
+    def _rec_specs(self, mesh):
+        cfg = self.cfg
+        d_dat = cm.shardable(cfg.d_model, DATA, mesh)
+        w_m = cm.shardable(self.w, MODEL, mesh)
+        f_m = cm.shardable(cfg.d_ff, MODEL, mesh)
+        return {
+            "ln": P(None, None), "ln2": P(None, None),
+            "wx": P(None, d_dat, w_m), "wy": P(None, d_dat, w_m),
+            "conv_w": P(None, w_m, None),
+            "wa": P(None, None, w_m), "ba": P(None, w_m),
+            "wxg": P(None, None, w_m), "bxg": P(None, w_m),
+            "lam": P(None, w_m),
+            "wo": P(None, w_m, d_dat),
+            "mi": P(None, d_dat, f_m), "mg": P(None, d_dat, f_m),
+            "mo": P(None, f_m, d_dat),
+        }
+
+    def param_specs(self, mesh) -> Any:
+        """The reference's train-time PartitionSpecs, entry for entry."""
+        cfg = self.cfg
+        d_dat = cm.shardable(cfg.d_model, DATA, mesh)
+        m_head = cm.shardable(cfg.n_heads, MODEL, mesh)
+        m_kv = cm.shardable(cfg.n_kv_heads, MODEL, mesh)
+        f_m = cm.shardable(cfg.d_ff, MODEL, mesh)
+        attn = {
+            "ln": P(None, None), "ln2": P(None, None),
+            "wq": P(None, d_dat, m_head, None),
+            "wk": P(None, d_dat, m_kv, None),
+            "wv": P(None, d_dat, m_kv, None),
+            "wo": P(None, m_head, None, d_dat),
+            "mi": P(None, d_dat, f_m), "mg": P(None, d_dat, f_m),
+            "mo": P(None, f_m, d_dat),
+        }
+        specs = {
+            "embed": P(cm.shardable(cfg.vocab, MODEL, mesh), d_dat),
+            "final_norm": P(None),
+            "rec0": self._rec_specs(mesh),
+            "rec1": self._rec_specs(mesh),
+            "attn": attn,
+        }
+        if self.n_tail:
+            specs["tail"] = self._rec_specs(mesh)
+        return specs
+
     # -- sub-layer applications ---------------------------------------------
     def _mlp(self, x, lp):
-        h = cm.rms_norm(x, lp["ln2"])
+        """GeGLU, column-parallel ``mi`` / ``mg`` and row-parallel ``mo``
+        over a split ``d_ff``."""
+        ffn = self._split(self.cfg.d_ff)
+        h = self._copy_in(cm.rms_norm(x, lp["ln2"]), ffn)
         g = cm.act_fn("gelu")(torch.einsum("bld,df->blf", h, lp["mg"]))
         u = torch.einsum("bld,df->blf", h, lp["mi"])
-        return x + torch.einsum("blf,fd->bld", g * u, lp["mo"])
+        return x + self._reduce_out(torch.einsum("blf,fd->bld", g * u, lp["mo"]), ffn)
 
     def _rec_in(self, x, lp, conv_cache=None):
         """The recurrent layer up to the RG-LRU: (x branch, gelu branch,
-        recurrence and input gate pre-activations, new conv window)."""
-        h = cm.rms_norm(x, lp["ln"])
+        recurrence and input gate pre-activations, new conv window), each
+        of this rank's ``lru_width`` channels over a split: ``wx`` / ``wy``
+        column-parallel, the conv per channel, and the conv's output
+        gathered over ``model`` into ``wa`` / ``wxg``, whose output dim
+        only is cut."""
+        part = self._split(self.w)
+        h = self._copy_in(cm.rms_norm(x, lp["ln"]), part)
         xb = torch.einsum("bld,dw->blw", h, lp["wx"])
         yb = cm.act_fn("gelu")(torch.einsum("bld,dw->blw", h, lp["wy"]))
         xb, new_conv = _causal_conv(xb, lp["conv_w"], cache=conv_cache)
-        ga = torch.einsum("blw,wu->blu", xb, lp["wa"]) + lp["ba"]
-        gx = torch.einsum("blw,wu->blu", xb, lp["wxg"]) + lp["bxg"]
+        xg = self._gather_in(xb, part)
+        ga = torch.einsum("blw,wu->blu", xg, lp["wa"]) + lp["ba"]
+        gx = torch.einsum("blw,wu->blu", xg, lp["wxg"]) + lp["bxg"]
         return xb, yb, ga, gx, new_conv
 
     def _rec_layer(self, x, lp, conv_cache=None, h0=None):
-        """Returns (x_out, new_conv_cache, h_last)."""
+        """Returns (x_out, new_conv_cache, h_last); ``wo`` row-parallel over
+        a split ``lru_width``."""
         xb, yb, ga, gx, new_conv = self._rec_in(x, lp, conv_cache)
         hseq, h_last = rg_lru(xb, ga, gx, lp["lam"], h0=h0)
         out = torch.einsum("blw,wd->bld", hseq.to(x.dtype) * yb, lp["wo"])
+        out = self._reduce_out(out, self._split(self.w))
         return self._mlp(x + out, lp), new_conv, h_last
 
     def _qkv(self, x, lp, q_pos):
+        """Rotated q, k, v of this rank's heads where ``model`` splits the
+        heads (a whole ``wk`` / ``wv`` feeds them only: its gradient is
+        summed over ``model``); all heads on every rank where it does
+        not."""
         cfg = self.cfg
-        h = cm.rms_norm(x, lp["ln"])
+        heads = self._split(cfg.n_heads)
+        whole_kv = heads and not self._split(cfg.n_kv_heads)
+        h = self._copy_in(cm.rms_norm(x, lp["ln"]), heads)
         q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
-        k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
-        v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+        k = torch.einsum("bsd,dkh->bskh", h, self._copy_in(lp["wk"], whole_kv))
+        v = torch.einsum("bsd,dkh->bskh", h, self._copy_in(lp["wv"], whole_kv))
         return cm.rope(q, q_pos, cfg.rope_theta), cm.rope(k, q_pos, cfg.rope_theta), v
 
     def _attn_layer(self, x, lp, q_pos):
         q, k, v = self._qkv(x, lp, q_pos)
+        k, v = self._local_kv(k, v)
         o = cm.attention(q, k, v, causal=True, q_positions=q_pos,
                          kv_positions=q_pos, window=self.cfg.window)
         o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
-        return self._mlp(x + o, lp)
+        return self._mlp(x + self._reduce_out(o, self._split(self.cfg.n_heads)), lp)
 
     def _embed(self, params, tokens):
-        x = F.embedding(tokens.long(), params["embed"]).to(self.cfg.dtype)
+        x = self._lookup(params["embed"], tokens).to(self.cfg.dtype)
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
 
     @staticmethod
@@ -215,16 +288,14 @@ class RecurrentGemmaLM(torch.nn.Module):
         return params["embed"].T.to(self.cfg.dtype)
 
     def logits(self, params, tokens):
-        x = self.hidden(params, tokens)
-        return torch.einsum("bld,vd->blv", x, params["embed"].to(self.cfg.dtype))
+        return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
         h = self.hidden(params, tokens[:, :-1])
-        return cm.chunked_xent(h, self._out_w(params), tokens[:, 1:],
-                               final_cap=self.cfg.final_softcap)
+        return self._xent(params, h, tokens[:, 1:], final_cap=self.cfg.final_softcap)
 
     # -- decode -------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
@@ -263,6 +334,7 @@ class RecurrentGemmaLM(torch.nn.Module):
         """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
         the cache updated in place."""
         cfg = self.cfg
+        cm.refuse_model_axis(self.mesh, "decode", "item 6")
         x = self._embed(params, tokens)
         q_pos = pos[:, None]
         for b in range(self.n_blocks):

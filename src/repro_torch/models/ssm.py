@@ -8,6 +8,16 @@ work across chunks a tiny state recurrence over the chunk count (a loop of
 (x*dt, A*dt, B, C); depthwise causal conv over (x, B, C); gated RMSNorm
 before the out-projection; D skip connection. Decode carries (conv window,
 SSM state) per layer and updates the cache in place.
+
+Over a ``model`` axis (tensor parallelism) ``param_specs`` is the
+reference's, which cuts only ``norm_scale`` and ``w_out`` (by ``d_inner``)
+and ``embed`` (by vocab). The block runs head-parallel: each rank takes,
+from the whole ``w_in``, the z, x and dt columns of its heads and the whole
+B and C, runs the conv on its channels and the SSD on its heads, sums the
+gated norm's squares over ``model`` and ends in a row-parallel ``w_out``.
+Each whole leaf then feeds this rank's heads only, so its gradient is
+summed over ``model`` (``ShardingMixin._copy_in``). Decode over a
+``model`` axis waits for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 
@@ -102,11 +113,10 @@ def _causal_conv(x, w, cache=None):
     return out, new_cache
 
 
-class Mamba2LM(torch.nn.Module):
+class Mamba2LM(cm.ShardingMixin, torch.nn.Module):
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
-        cm.refuse_model_axis(mesh, "the ssm family", "item 4")
         self.mesh = mesh
         self.d_inner = cfg.d_model * cfg.ssm_expand
         self.nheads = self.d_inner // cfg.ssm_head_dim
@@ -135,52 +145,133 @@ class Mamba2LM(torch.nn.Module):
             "blocks": blocks,
         }
 
+    def param_specs(self, mesh) -> Any:
+        """The reference's train-time PartitionSpecs, entry for entry: only
+        ``norm_scale`` and ``w_out`` are cut over ``model`` (by
+        ``d_inner``), and ``embed`` by vocab."""
+        cfg = self.cfg
+        d_dat = cm.shardable(cfg.d_model, DATA, mesh)
+        di_m = cm.shardable(self.d_inner, MODEL, mesh)
+        return {
+            "embed": P(cm.shardable(cfg.vocab, MODEL, mesh), d_dat),
+            "final_norm": P(None),
+            "blocks": {
+                "ln": P(None, None),
+                "w_in": P(None, d_dat, None),
+                "conv_w": P(None, None, None),
+                "A_log": P(None, None),
+                "D": P(None, None),
+                "dt_bias": P(None, None),
+                "norm_scale": P(None, di_m),
+                "w_out": P(None, di_m, d_dat),
+            },
+        }
+
+    # -- the model axis ----------------------------------------------------------
+    def _ranges(self):
+        """((first, count) of the heads that this rank's SSD runs, (first,
+        count) of the ``d_inner`` channels that its gated norm and
+        ``w_out`` take): this rank's blocks where ``model`` splits them,
+        else all. Where ``d_inner`` splits and the heads do not, every rank
+        runs every head and keeps its channels at the norm."""
+        tp, r = self._tp(), self._mrank()
+        nh, di = self.nheads, self.d_inner
+        heads = (r * (nh // tp), nh // tp) if self._split(nh) else (0, nh)
+        inner = (r * (di // tp), di // tp) if self._split(di) else (0, di)
+        return heads, inner
+
+    def _local(self, lp):
+        """This rank's columns of ``w_in`` (z, x and dt of its heads; B and
+        C whole), rows of ``conv_w`` (x of its heads; B and C) and entries
+        of the per-head leaves. Over a split ``d_inner`` each whole leaf
+        feeds this rank's channels only, so its gradient is summed over
+        ``model``."""
+        (h0, nh), _ = self._ranges()
+        part = self._split(self.d_inner)
+        lp = {k: self._copy_in(t, part) if k in ("w_in", "conv_w", "A_log", "D", "dt_bias")
+              else t for k, t in lp.items()}
+        if nh == self.nheads:
+            return lp
+        hd, di, ns = self.cfg.ssm_head_dim, self.d_inner, self.n_state
+        x0, n = h0 * hd, nh * hd
+        w, c = lp["w_in"], lp["conv_w"]
+        return {**lp,
+                "w_in": torch.cat([w[:, x0:x0 + n], w[:, di + x0:di + x0 + n],
+                                   w[:, 2 * di:2 * di + 2 * ns],
+                                   w[:, 2 * di + 2 * ns + h0:2 * di + 2 * ns + h0 + nh]], dim=-1),
+                "conv_w": torch.cat([c[x0:x0 + n], c[di:di + 2 * ns]], dim=0),
+                "A_log": lp["A_log"][h0:h0 + nh], "D": lp["D"][h0:h0 + nh],
+                "dt_bias": lp["dt_bias"][h0:h0 + nh]}
+
     # -- shared projections ----------------------------------------------------
     def _split_proj(self, h, lp):
-        di, ns = self.d_inner, self.n_state
+        """z, x, B, C and dt of this rank's heads (``_local``'s leaves)."""
+        (_, nh), _ = self._ranges()
+        n, ns = nh * self.cfg.ssm_head_dim, self.n_state
         zxbcdt = torch.einsum("bld,de->ble", h, lp["w_in"])
-        z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, ns, ns, self.nheads], dim=-1)
+        z, xin, Bc, Cc, dt = torch.split(zxbcdt, [n, n, ns, ns, nh], dim=-1)
         dt = F.softplus(dt.float() + lp["dt_bias"].float())
         return z, xin, Bc, Cc, dt
 
+    def _gated_norm(self, y, scale):
+        """``rms_norm`` over the whole ``d_inner`` of this rank's channels
+        ``y``: over a split, the sum of squares is summed over ``model``."""
+        if not self._split(self.d_inner):
+            return cm.rms_norm(y, scale)
+        dt = y.dtype
+        y = y.float()
+        ss = self._sum_stat(torch.sum(torch.square(y), dim=-1, keepdim=True))
+        y = y * torch.rsqrt(ss / self.d_inner + 1e-6)
+        return (y * (1.0 + scale.float())).to(dt)
+
     def _finish(self, y, z, x_res, dt, lp):
-        """Gated norm + D-skip + out projection. y:(b,l,h,p)."""
+        """Gated norm + D-skip + out projection. y:(b,l,h,p), this rank's
+        heads; ``w_out`` row-parallel over a split ``d_inner``."""
         cfg = self.cfg
-        nh, hd = self.nheads, cfg.ssm_head_dim
+        (h0, nh), (i0, ni) = self._ranges()
+        hd = cfg.ssm_head_dim
         b, l = y.shape[0], y.shape[1]
         xh = x_res.reshape(b, l, nh, hd)
         y = y + lp["D"].float()[None, None, :, None] * xh.float()
-        y = y.reshape(b, l, self.d_inner).to(cfg.dtype)
-        y = cm.rms_norm(y * F.silu(z), lp["norm_scale"])
-        return torch.einsum("ble,ed->bld", y, lp["w_out"])
+        y = y.reshape(b, l, nh * hd).to(cfg.dtype)
+        if ni != nh * hd:                        # every head ran: keep this rank's channels
+            y, z = y.narrow(-1, i0 - h0 * hd, ni), z.narrow(-1, i0 - h0 * hd, ni)
+        y = self._gated_norm(y * F.silu(z), lp["norm_scale"])
+        out = torch.einsum("ble,ed->bld", y, lp["w_out"])
+        return self._reduce_out(out, self._split(self.d_inner))
 
     def _conv_split(self, xin, Bc, Cc, lp, cache=None):
         conv_in = torch.cat([xin, Bc, Cc], dim=-1)
         conv_out, new_conv = _causal_conv(conv_in, lp["conv_w"], cache=cache)
         conv_out = F.silu(conv_out)
-        xc, Bc, Cc = torch.split(conv_out, [self.d_inner, self.n_state, self.n_state], dim=-1)
+        xc, Bc, Cc = torch.split(conv_out, [xin.shape[-1], self.n_state, self.n_state], dim=-1)
         return xc, Bc, Cc, new_conv
 
     def _embed(self, params, tokens):
-        return F.embedding(tokens.long(), params["embed"]).to(self.cfg.dtype)
+        return self._lookup(params["embed"], tokens).to(self.cfg.dtype)
 
     # -- train forward -----------------------------------------------------------
     def hidden(self, params, tokens):
+        """Over a ``model`` axis the block runs head-parallel: each rank
+        its heads' z, x, dt and the whole B, C from the whole ``w_in``, the
+        conv on its channels, the SSD on its heads, the gated norm over
+        the whole ``d_inner`` and a row-parallel ``w_out``."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self._embed(params, tokens)
-        nh, hd = self.nheads, cfg.ssm_head_dim
+        hd = cfg.ssm_head_dim
         keys = list(params["blocks"])
+        part = self._split(self.d_inner)
 
         def body(x, *leaves):
-            lp = dict(zip(keys, leaves))
-            h = cm.rms_norm(x, lp["ln"])
+            lp = self._local(dict(zip(keys, leaves)))
+            h = self._copy_in(cm.rms_norm(x, lp["ln"]), part)
             z, xin, Bc, Cc, dt = self._split_proj(h, lp)
             xc, Bc, Cc, _ = self._conv_split(xin, Bc, Cc, lp)
             A = -torch.exp(lp["A_log"].float())                       # (nh,)
             a = dt * A[None, None, :]                                  # (b,l,nh)
             ssd_dt = torch.bfloat16 if cfg.ssm_bf16 else torch.float32
-            xh = xc.reshape(B, -1, nh, hd).float()
+            xh = xc.reshape(B, -1, dt.shape[-1], hd).float()
             xdt = (xh * dt[..., None]).to(ssd_dt)
             y, _ = ssd_chunked(xdt, a, Bc.to(ssd_dt), Cc.to(ssd_dt),
                                chunk=min(cfg.ssm_chunk, xh.shape[1]))
@@ -195,15 +286,14 @@ class Mamba2LM(torch.nn.Module):
         return params["embed"].T.to(self.cfg.dtype)
 
     def logits(self, params, tokens):
-        x = self.hidden(params, tokens)
-        return torch.einsum("bld,vd->blv", x, params["embed"].to(self.cfg.dtype))
+        return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
         h = self.hidden(params, tokens[:, :-1])
-        return cm.chunked_xent(h, self._out_w(params), tokens[:, 1:])
+        return self._xent(params, h, tokens[:, 1:])
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, device="cuda") -> Any:
@@ -220,6 +310,7 @@ class Mamba2LM(torch.nn.Module):
         """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
         the cache updated in place."""
         cfg = self.cfg
+        cm.refuse_model_axis(self.mesh, "decode", "item 6")
         B = tokens.shape[0]
         x = self._embed(params, tokens)                                # (B,1,D)
         nh, hd = self.nheads, cfg.ssm_head_dim

@@ -23,7 +23,7 @@ rank's blocks of the weights (``param_specs``, then
 ``wo`` row-parallel, ``wi``/``wg`` column- and ``wmo`` row-parallel, and
 ``embed``/``unembed`` by vocab, each bracketed by ``ShardingMixin``'s
 operators. The residual stays whole on every model rank. Decode over a
-``model`` axis waits for ROADMAP Queue 1 items 4 and 6.
+``model`` axis waits for ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -133,17 +133,6 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         k_new = cm.rope(k_new, q_pos, cfg.rope_theta)
         return q, k_new, v_new
 
-    def _local_kv(self, k, v):
-        """The kv heads that this rank's query heads meet: all of ``k``
-        where the kv heads are split with the heads (or nothing is split),
-        else those of the whole set that its heads group with."""
-        cfg = self.cfg
-        if not self._split(cfg.n_heads) or self._split(cfg.n_kv_heads):
-            return k, v
-        h_loc = cfg.n_heads // self._tp()
-        return cm.kv_for_heads(k, v, self._mrank() * h_loc, h_loc,
-                               cfg.n_heads // cfg.n_kv_heads)
-
     def _attn_out(self, o, lp):
         o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
         o = self._reduce_out(o, self._split(self.cfg.n_heads))
@@ -217,20 +206,6 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return w.to(cfg.dtype)
 
-    def _unembed(self, params, h):
-        """Whole logits (B, S, V) of hidden states ``h``: over a vocab
-        split, each rank's block, gathered."""
-        vocab = self._vocab() is not None
-        h = self._copy_in(h, vocab)
-        return self._gather_out(torch.einsum("bsd,dv->bsv", h, self._out_w(params)), vocab)
-
-    def _xent(self, params, h, labels, final_cap=None):
-        """``chunked_xent`` of ``h`` against ``labels``, vocab-parallel over
-        a vocab split."""
-        vocab = self._vocab()
-        return cm.chunked_xent(self._copy_in(h, vocab is not None), self._out_w(params),
-                               labels, final_cap=final_cap, vocab=vocab)
-
     def logits(self, params, tokens):
         return self._unembed(params, self.hidden(params, tokens))
 
@@ -272,7 +247,7 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
 
         Returns (logits (B,1,V), cache) — the cache updated in place."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "items 4 and 6")
+        cm.refuse_model_axis(self.mesh, "decode", "item 6")
         x = self._embed(params, tokens)
         q_pos = pos[:, None]
         for b in range(self.n_blocks):

@@ -308,7 +308,8 @@ def _port_collectives(rank, root):
     for what, call in (
             ("model_axis", lambda: Mamba2LM(get_config("mamba2-370m", smoke=True),
                                             make_mesh((1, 2, 2), (POD, DATA, "model"),
-                                                      device="cpu"))),
+                                                      device="cpu")).decode_step(
+                {}, {}, torch.zeros((1, 1), dtype=torch.int32), torch.zeros(1, dtype=torch.int32))),
             ("mesh_over_world", lambda: make_mesh((2, 2, 2), (POD, DATA, "model"),
                                                   device="cpu")),
             ("mesh_under_world", lambda: make_mesh((2,), (DATA,), device="cpu")),
@@ -455,9 +456,10 @@ def test_each_ring_step_carries_n_chunks_messages(kind, nc, port):
     ("mmrs_rows", "ValueError", "6 rows do not split over an axis of 4"),
 ])
 def test_refusals_inside_a_world_of_four(what, error, text, port):
-    """An ssm over a model axis of 2 (``make_mesh`` builds the mesh; the
-    ssm's model axis is ROADMAP Queue 1 item 4), a mesh that is not the
-    world, and shapes the reference asserts on all raise, on every rank."""
+    """An ssm's decode over a model axis of 2 (``make_mesh`` builds the
+    mesh; decode over ``model`` is ROADMAP Queue 1 item 6), a mesh
+    that is not the world, and shapes the reference asserts on all raise,
+    on every rank."""
     for meta in port[1]:
         msg = meta["refusals"][what]
         assert msg is not None and msg.startswith(error + ":") and text in msg, msg

@@ -147,8 +147,10 @@ def _require_contiguous(dist) -> list:
         return call
 
     for name in ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
-                 "batch_isend_irecv", "barrier"):
-        setattr(dist, name, wrap(name, getattr(dist, name)))
+                 "batch_isend_irecv", "barrier", "reduce_scatter_tensor",
+                 "reduce_scatter_single"):
+        if hasattr(dist, name):          # reduce_scatter_single: torch >= 2.13
+            setattr(dist, name, wrap(name, getattr(dist, name)))
     return loose
 
 

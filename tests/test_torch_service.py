@@ -270,6 +270,7 @@ def _crash_restart(first, second, tmp_path, **cfg_kw):
     same root. Returns what the second incarnation saw."""
     items = make_files(tmp_path, 2, 1_200_000)
     pace = lambda task_id, item, chunk, attempt: time.sleep(0.004)  # noqa: E731
+    before = set(threading.enumerate())
     svc = first.TransferService(tmp_path / "svc", svc_config(first, **cfg_kw),
                                 fault_injector=pace)
     tids = svc.submit(items, batch=False) + \
@@ -277,9 +278,17 @@ def _crash_restart(first, second, tmp_path, **cfg_kw):
     wait_progress(svc, tids[0], 5)
     svc.kill()                                   # SIGKILL equivalent
 
-    # kill() abandons threads mid-flight (a pipelined task's verifiers drain
-    # their queue and journal what they vouch for, as in-flight appends of a
-    # killed process would land): read the journals once they are quiet
+    # kill() abandons threads mid-flight: a serial task's movers finish the
+    # chunk they hold, and a pipelined task's verifiers (``integrity-*``)
+    # drain their queue up to the sentinels that ``close(abandon=True)``
+    # enqueues, each journaling what it vouches for, as in-flight appends of
+    # a killed process would land. Read the journals once every thread the
+    # killed service started has exited.
+    deadline = time.monotonic() + 30
+    for th in set(threading.enumerate()) - before:
+        th.join(max(0.0, deadline - time.monotonic()))
+        assert not th.is_alive(), f"{th.name} still running 30 s after kill()"
+
     def journals():
         out = {}
         for tid in tids:
@@ -289,13 +298,6 @@ def _crash_restart(first, second, tmp_path, **cfg_kw):
         return out
 
     journaled = journals()
-    deadline = time.monotonic() + 10
-    while time.monotonic() < deadline:
-        time.sleep(0.2)
-        nxt = journals()
-        if nxt == journaled:
-            break
-        journaled = nxt
     # a task that finished before the kill is replayed as SUCCEEDED, not resumed
     resumed_ids = [tid for tid in tids if svc.store.records[tid].state != "SUCCEEDED"]
     assert tids[0] in resumed_ids
