@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
-    python3 chip_smoke.py [--seed 0] [--phases card,collectives|expert_axis|family_model_axis]
+    python3 chip_smoke.py [--seed 0]
+        [--phases card,collectives|expert_axis|family_model_axis|zero_axis]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
-the one-card phases alone). In order:
+the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
+``zero_axis`` run that part of it alone). In order:
 
   1. prints the card: torch's device name, and nvidia-smi's name and power
      limit (every number below is this card's, at that limit);
@@ -157,7 +159,7 @@ the one-card phases alone). In order:
      one layer within ``TP_F32_TOL`` of the largest sum of magnitudes
      behind one card's logits (max |h| @ |W|) at the tokens whose top-k
      experts agree (the flipped share under ``FLIP_SHARE_F32``),
-     whole leaves bit-equal across the model group; an 18.7 GB checkpoint
+     every leaf bit-equal on the ranks that hold its block; an 18.7 GB checkpoint
      at step 4 from 1x2x2 in the tp = 2 layout, restored bit-equal on every
      rank with exact launch counts and resumed there and on 1x1x2; then
      grok-1-314b at 1 of 64 layers on 1x1x4 (2 of its 8 experts a card),
@@ -173,12 +175,31 @@ the one-card phases alone). In order:
      1x1x4, 3 steps each in one world a mesh: finite losses, step 1 within
      ``LOSS_RTOL`` of one card's, the f32 forward of one layer within
      ``TP_F32_TOL`` of the largest of one card's logits (whisper's within
-     ``ENCDEC_TP_F32_TOL``), whole leaves bit-equal across the model group;
+     ``ENCDEC_TP_F32_TOL``), every leaf bit-equal on the ranks that hold its block;
      recurrentgemma-2b's checkpoint at step 2 from 1x2x2, its MANIFEST a
      one-device run's, restored bit-equal on every rank with exact launch
      counts and resumed there and on 1x1x2. Each run prints ms a step, the
      model all-reduce, all-gather and reduce-scatter ms a step and peak GB
-     a card;
+     a card; (f) ZeRO-3 over the data axis (``zero_axis_path``; ``--phases
+     zero_axis`` runs it alone), which every part above also runs wherever
+     its mesh has ``data`` over 1: gemma-2b at full width, 2 layers, the
+     same 16 sequences a step, on 1x4x1, 2x2x1 and 1x2x2, 6 steps each:
+     finite falling losses, step 1 within ``LOSS_RTOL`` of one card's, the
+     f32 forward of one layer within ``TP_F32_TOL`` of one card's largest
+     logit, every leaf bit-equal on the ranks that hold its block
+     (``blocks_agree``); the roots saved at step 4 on 1x4x1 and 1x2x2, each
+     a one-device run's MANIFEST, restored bit-equal (gathered) on every
+     rank with exact launch counts, leaf by leaf into each rank's blocks,
+     and resumed there and on 1x2x1 / 1x1x2; then mistral-nemo-12b at all
+     40 layers on 1x4x1, 3 steps of 16 sequences (4 a card a pass, halved
+     while the steps' peak passes ``ZERO_PEAK_MAX``): finite falling
+     losses, every peak under ``CARD_BYTES``, each rank's param, gradient
+     and moment bytes equal to the arithmetic (``zero_state_bytes``:
+     36.7 GB a rank against 147 GB whole). Each run prints ms a step, the
+     ZeRO all-gather and reduce-scatter ms a step over ``data`` (apart
+     from the model axis's), peak GB a card (the steps' and, for the
+     first, the init's) and its state GB a rank; the part prints its
+     seconds;
  17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
      last line, ``{"ok": true, "device": {...}}``.
 
@@ -1954,6 +1975,21 @@ FAMILY_TP_TIMEOUT_S = 480        # each world of the family part
 ENCDEC_TP_F32_TOL = F32_TOL
 
 
+# ZeRO-3 over data: gemma-2b (TRAIN_DIST_ARGS) on 1x4x1, 2x2x1 and 1x2x2, 6 steps each, the
+# roots saved at step 4 on 1x4x1 and 1x2x2 resumed there and on 1x2x1 / 1x1x2 (the same
+# sequences a pass as on the saving mesh); then mistral-nemo-12b at its full 40 layers on
+# 1x4x1, whose training state (147 GB whole) fits only cut over the four cards: 3 steps of
+# 16 sequences, 4 a card a pass, halved while the steps' peak passes ZERO_PEAK_MAX
+ZERO_MESHES = ("1x4x1", "2x2x1", "1x2x2")
+ZERO_ELASTIC = {"1x4x1": ("1x2x1", ELASTIC_MICROBATCHES), "1x2x2": ("1x1x2", ONE_CARD_MICROBATCHES)}
+ZERO_NEMO_ARGS = ["--arch", "mistral-nemo-12b", "--seq-len", "2048", "--global-batch", "16",
+                  "--lr", "3e-3", "--log-every", "0"]
+ZERO_NEMO_MESH, ZERO_NEMO_STEPS = "1x4x1", 3
+ZERO_PEAK_MAX = 75e9             # bytes a card: over it the steps run in more passes
+CARD_BYTES = 80e9                # an H100's memory: every peak below it
+ZERO_TIMEOUT_S = 480             # each world of the ZeRO part
+
+
 def launch_counters():
     """(reset, counts) of the kernels' launch counters: ``counts()`` maps each
     kernel wrapper to its launches since the last ``reset()``."""
@@ -2198,43 +2234,29 @@ def train_dist_worker(cfg: dict) -> dict:
                 out["resumed"] = {"losses": res["losses"], "step_s": res["step_seconds"]}
     finally:
         steps.world_mean, steps.cross_pod_mean, train.CheckpointManager = real
-    if "save" in records:
-        saved, restored = records["saved"], records["restored"]
-        out["saved_equal_restored"] = sorted(saved) == sorted(restored) and all(
-            torch.equal(restored[k].reshape(-1).view(torch.uint8),
-                        t.to(restored[k].device).reshape(-1).view(torch.uint8))
-            for k, t in saved.items())
-        with open(os.path.join(records["save"]["path"], "MANIFEST.json")) as fh:
-            out["manifest"] = json.load(fh)
-        out["save"] = {k: records["save"][k] for k in ("seconds", "launches", "bytes")}
-    restored = records["restored"]
-    equal = True
-    for key in sorted(restored):          # every rank's restored tree against rank 0's
-        t = restored[key].reshape(-1).contiguous()
-        theirs = t.clone()
-        dist.broadcast(theirs, src=0)
-        equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
-    out["restored_equal_rank0"] = equal
-    out["restore"] = records["restore"]
-    out["restored_bytes"] = sum(t.numel() * t.element_size() for t in restored.values())
-    out["device"] = str(restored[sorted(restored)[0]].device)
+    from repro_torch.launch.train import parse_mesh
+
+    mesh = parse_mesh(cfg["mesh"], device)
+    checkpoint_records(records, out, mesh, ckpt_specs(cfg["args"], mesh))
     return out
 
 
 class collective_timer:
     """Times every collective of the model axis in ``models.common``'s
-    operators and in AdamW's clip norm (``dist.all_reduce``, kind "model";
-    ``dist.all_gather``, kind "gather"; the reduce-scatter of
-    ``_GatherSumModel``'s backward, kind "rs"; the MoE's
-    ``dist.all_to_all_single``, kind "a2a") and every mean over the batch
-    axes (``launch.steps.world_mean``, kind "batch") while entered: CUDA events around each call on the card (the
+    operators and in AdamW's clip norm (``dist.all_reduce``, kind "model",
+    the norm's sums over ``data`` included; ``dist.all_gather``, kind
+    "gather"; the reduce-scatter of ``_GatherSumModel``'s backward, kind
+    "rs"; the MoE's ``dist.all_to_all_single``, kind "a2a"), ZeRO's
+    gathers over ``data`` and the reduce-scatters of their backward (kinds
+    "gather_data" and "rs_data") and every mean over the batch axes
+    (``launch.steps.world_mean``, kind "batch") while entered: CUDA events around each call on the card (the
     compute stream's wait for the collective; no host synchronisation), the
     host clock on the CPU. ``per_step(n)`` sums each kind's calls a step."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.calls: dict[str, list] = {"model": [], "gather": [], "rs": [], "a2a": [],
-                                       "batch": []}
+                                       "batch": [], "gather_data": [], "rs_data": []}
 
     def _timed(self, fn, key):
         def call(*a, **kw):
@@ -2269,9 +2291,13 @@ class collective_timer:
                 setattr(proxy, name, self._timed(getattr(dist, name), "rs"))
         proxy.all_to_all_single = self._timed(dist.all_to_all_single, "a2a")
         self.saved = [(common, "dist", common.dist), (adamw, "dist", adamw.dist),
-                      (steps, "world_mean", steps.world_mean)]
+                      (steps, "world_mean", steps.world_mean),
+                      (common, "all_gather_into", common.all_gather_into),
+                      (common, "reduce_scatter_into", common.reduce_scatter_into)]
         common.dist = adamw.dist = proxy
         steps.world_mean = self._timed(steps.world_mean, "batch")
+        common.all_gather_into = self._timed(common.all_gather_into, "gather_data")
+        common.reduce_scatter_into = self._timed(common.reduce_scatter_into, "rs_data")
         return self
 
     def __exit__(self, *_exc):
@@ -2337,25 +2363,33 @@ def family_dist_worker(cfg: dict) -> dict:
     return out
 
 
-def whole_leaves_equal(params, specs, mesh) -> bool:
-    """Every leaf of this rank's ``params`` that ``specs`` leaves whole
-    equals model rank 0's copy, bit for bit (a broadcast over the model
-    group)."""
-    import torch.distributed as dist
+def blocks_agree(params, specs, mesh) -> bool:
+    """Every leaf of this rank's ``params`` bit-equal on the ranks that hold
+    the same block of it: those whose indices on the axes that cut the leaf
+    under ``specs`` agree (every rank, for a leaf no axis cuts). Each leaf
+    is gathered over the world (``dist.all_gather_into_tensor``), in tree
+    order, and every rank compares the blocks it sees."""
+    import itertools
 
-    from repro_torch.distributed.mesh import MODEL, model_dims
+    from repro_torch.distributed.mesh import all_gather_into, cut_axes
     from repro_torch.optim.adamw import tree_map
 
-    g = mesh.group(MODEL)
-    src = dist.get_global_rank(g, 0)
+    names = mesh.axis_names
+    coords = list(itertools.product(*(range(mesh.shape[a]) for a in names)))   # row-major
     equal = []
 
     def leaf(t, spec):
-        if not model_dims(spec):
-            mine = t.contiguous()
-            theirs = mine.clone()
-            dist.broadcast(theirs, src=src, group=g)
-            equal.append(bool(torch.equal(theirs.view(torch.uint8), mine.view(torch.uint8))))
+        axes = [names.index(a) for a in cut_axes(mesh, spec)]
+        mine = t.contiguous().view(-1).view(torch.uint8)[None]
+        every = mine.new_empty((len(coords), mine.numel()))
+        all_gather_into(every, mine, None)
+        first: dict = {}
+        for r, c in enumerate(coords):
+            at = tuple(c[i] for i in axes)
+            if at in first:
+                equal.append(bool(torch.equal(every[r], every[first[at]])))
+            else:
+                first[at] = r
 
     tree_map(leaf, params, specs)
     return bool(equal) and all(equal)
@@ -2495,77 +2529,160 @@ def step1_dropped(args: list, seed: int, mesh, dev, microbatches: int = 1) -> in
     return dropped
 
 
+class step_memory:
+    """While entered: the card's peak bytes up to the first train step (the
+    whole params drawn, then cut into this rank's blocks: ``init_peak``),
+    after which the peak restarts, so ``peak_bytes`` afterwards is the
+    steps' own; and the bytes of this rank's params, gradients and AdamW
+    moments as the first step's ``adamw.apply`` receives them
+    (``state_bytes``)."""
+
+    def __init__(self, dev):
+        self.dev, self.init_peak, self.state_bytes = dev, None, None
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        from repro_torch.optim import adamw
+
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size() for t in adamw.tree_leaves(tree))
+
+        def build(*a, **kw):
+            bundle = real_build(*a, **kw)
+            fn = bundle.fn
+
+            def first(*args):
+                if self.init_peak is None:
+                    self.init_peak = peak_bytes(self.dev)
+                    reset_peak(self.dev)
+                return fn(*args)
+
+            bundle.fn = first
+            return bundle
+
+        def apply(params, grads, state, *a, **kw):
+            if self.state_bytes is None:
+                self.state_bytes = {"params": nbytes(params), "grads": nbytes(grads),
+                                    "moments": nbytes(state.m) + nbytes(state.v)}
+            return real_apply(params, grads, state, *a, **kw)
+
+        real_build, real_apply = train.build_train_step, adamw.apply
+        self.saved = [(train, "build_train_step", real_build), (adamw, "apply", real_apply)]
+        train.build_train_step, adamw.apply = build, apply
+        return self
+
+    def __exit__(self, *_exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+
+
 def tp_train(cfg: dict, args: list, base: list, extra: list, mesh, dev) -> dict:
     """One model-axis run of ``args`` on this rank: the f32 forward check
     (``f32_forward_error``), then ``launch.train.main`` with every
-    model-axis and batch-axes collective timed (``collective_timer``),
-    with ``extra`` (a checkpoint) where given, then a fresh ``main`` that
-    restores it and runs the rest; after each run, whether every whole leaf
-    is bit-equal across the model group. With ``cfg["peak_max"]`` (no
-    checkpoint), a run whose peak passes it on any card runs again at half
-    the global batch. A MoE also counts the assignments its step-1 forward
-    drops on this rank (``step1_dropped``)."""
+    model-axis, data-axis and batch-axes collective timed
+    (``collective_timer``) and the card's memory split at the first step
+    (``step_memory``), with ``extra`` (a checkpoint) where given, then a
+    fresh ``main`` that restores it and runs the rest; after each run,
+    whether every leaf is bit-equal on the ranks that hold its block
+    (``blocks_agree``). With ``cfg["peak_max"]`` (no checkpoint), a run
+    whose peak passes it on any card runs again at half the global batch;
+    with ``cfg["halve"] == "microbatches"``, a run whose steps' peak passes
+    it, at the same batch in twice the microbatches (down to one sequence
+    a card a pass). A MoE also
+    counts the assignments its step-1 forward drops on this rank
+    (``step1_dropped``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import train
 
     out = {"f32": f32_forward_error(args, cfg["seed"], mesh, dev)}
     specs = smoke_model(args).param_specs(mesh)
+    by_micro = cfg.get("halve") == "microbatches"
     while True:
         reset_peak(dev)
-        with collective_timer(dev) as timer:
+        with collective_timer(dev) as timer, step_memory(dev) as memory:
             res = train.main(args + base + extra)
-        worst = torch.tensor([float(peak_bytes(dev))], device=dev)
+        step_peak = peak_bytes(dev)
+        run_peak = max(step_peak, memory.init_peak or 0)
+        worst = torch.tensor([float(step_peak if by_micro else run_peak)], device=dev)
         dist.all_reduce(worst, op=dist.ReduceOp.MAX)
         batch = int(_arg(args, "--global-batch"))
-        if not cfg.get("peak_max") or float(worst) <= cfg["peak_max"] or extra:
+        micro = int(_arg(args, "--microbatches", 1))
+        per_card = batch // (mesh.shape.get("pod", 1) * mesh.shape.get("data", 1) * micro)
+        if (not cfg.get("peak_max") or float(worst) <= cfg["peak_max"] or extra
+                or (by_micro and per_card == 1)):
             break
-        # over the bound on some card: the same run at half the batch
+        # over the bound on some card: the same run at half the sequences a pass
         del res
         release(dev)
-        args = with_arg(args, "--global-batch", batch // 2)
+        args = (with_arg(args, "--microbatches", 2 * micro) if "--microbatches" in args
+                else args + ["--microbatches", "2"]) if by_micro else \
+            with_arg(args, "--global-batch", batch // 2)
     out["train"] = {"losses": res["losses"], "grad_norms": res["grad_norms"],
-                    "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                    "step_s": res["step_seconds"], "peak_bytes": run_peak,
+                    "step_peak_bytes": step_peak, "init_peak_bytes": memory.init_peak,
+                    "state_bytes": memory.state_bytes, "sequences_a_pass": per_card,
                     "collective_ms": timer.per_step(cfg["steps"]), "global_batch": batch,
-                    "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
+                    "blocks_equal": blocks_agree(res["params"], specs, mesh)}
     del res
     if smoke_model(args).cfg.family == "moe":
         out["dropped"] = step1_dropped(args, cfg["seed"], mesh, dev)
     if extra:
         res = train.main(args + base + extra[:2])
         out["resumed"] = {"losses": res["losses"],
-                          "whole_equal": whole_leaves_equal(res["params"], specs, mesh)}
+                          "blocks_equal": blocks_agree(res["params"], specs, mesh)}
         del res
     release(dev)
     return out
 
 
-def checkpoint_records(records: dict, out: dict) -> None:
+def checkpoint_records(records: dict, out: dict, mesh=None, specs=None) -> None:
     """Into ``out``: whether rank 0 restored what it saved bit for bit, the
     MANIFEST and the save's seconds, launches and bytes (rank 0), and
     whether this rank's restored tree equals rank 0's, with the restore's
-    seconds and launches."""
+    seconds and launches. A restore that kept this rank's blocks (``specs``,
+    the checkpoint's, over ``mesh``) is gathered whole leaf by leaf, in key
+    order on every rank, before it is compared."""
     import torch.distributed as dist
 
+    from repro_torch.distributed.mesh import gather
+
+    if "restored" not in records:
+        if "save" in records:
+            raise RuntimeError("rank 0 saved a checkpoint but restored none")
+        return
+    flat = flat_tree(specs) if specs is not None else {}
+    equal, saved_equal = True, True
+    saved = records.get("saved")
+    restored = records["restored"]
+    for key in sorted(restored):          # every rank's restored tree against rank 0's
+        t = restored[key]
+        if key in flat:
+            t = gather(mesh, t, flat[key])
+        t = t.reshape(-1).contiguous()
+        if saved is not None:
+            saved_equal = saved_equal and key in saved and torch.equal(
+                t.view(torch.uint8), saved[key].to(t.device).reshape(-1).view(torch.uint8))
+        theirs = t.clone()
+        dist.broadcast(theirs, src=0)
+        equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
+    out["restored_equal_rank0"] = equal
+    out["restore"] = records["restore"]
+    out["restored_bytes"] = sum(t.numel() * t.element_size() for t in restored.values())
+    out["device"] = str(restored[sorted(restored)[0]].device)
     if "save" in records:
-        saved, restored = records["saved"], records["restored"]
-        out["saved_equal_restored"] = sorted(saved) == sorted(restored) and all(
-            torch.equal(restored[k].reshape(-1).view(torch.uint8),
-                        t.to(restored[k].device).reshape(-1).view(torch.uint8))
-            for k, t in saved.items())
+        out["saved_equal_restored"] = saved_equal and sorted(saved) == sorted(restored)
         with open(os.path.join(records["save"]["path"], "MANIFEST.json")) as fh:
             out["manifest"] = json.load(fh)
         out["save"] = {k: records["save"][k] for k in ("seconds", "launches", "bytes")}
-    if "restored" in records:
-        restored = records["restored"]
-        equal = True
-        for key in sorted(restored):      # every rank's restored tree against rank 0's
-            t = restored[key].reshape(-1).contiguous()
-            theirs = t.clone()
-            dist.broadcast(theirs, src=0)
-            equal = equal and bool(torch.equal(theirs.view(torch.uint8), t.view(torch.uint8)))
-        out["restored_equal_rank0"] = equal
-        out["restore"] = records["restore"]
+
+
+def ckpt_specs(args: list, mesh):
+    """The checkpoint tree's specs of ``args``' model over ``mesh``
+    (``launch.train.checkpoint_specs``)."""
+    from repro_torch.launch import train
+
+    return train.checkpoint_specs(smoke_model(args), mesh)
 
 
 def tp_dist_worker(cfg: dict) -> dict:
@@ -2574,7 +2691,7 @@ def tp_dist_worker(cfg: dict) -> dict:
     every host digest patched to raise, with a checkpoint at
     ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree). Then
     each of ``cfg["also"]`` (another arch on the same mesh, trained and its
-    whole leaves checked). With ``cfg["runs"]`` in place of ``cfg["args"]``,
+    blocks checked). With ``cfg["runs"]`` in place of ``cfg["args"]``,
     ``tp_train`` on each of them in turn (``out["runs"]``), the checkpoint
     on the run whose arch is ``cfg["ckpt_arch"]``. On ``cfg["elastic"]``,
     only the resume of ``cfg["root"]``."""
@@ -2620,12 +2737,14 @@ def tp_dist_worker(cfg: dict) -> dict:
                     out["also"].append({
                         "arch": _arg(args, "--arch"), "losses": res["losses"],
                         "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
-                        "whole_equal": whole_leaves_equal(
+                        "blocks_equal": blocks_agree(
                             res["params"], smoke_model(args).param_specs(mesh), mesh)})
                     del res
     finally:
         train.CheckpointManager = real
-    checkpoint_records(records, out)
+    ck_args = cfg.get("args") or next(
+        (a for a in cfg.get("runs", []) if _arg(a, "--arch") == cfg.get("ckpt_arch")), None)
+    checkpoint_records(records, out, mesh, ckpt_specs(ck_args, mesh) if ck_args else None)
     return out
 
 
@@ -2720,7 +2839,7 @@ def four_cards(device, smi: str) -> dict | None:
     return {"card": smi, "cards": cards}
 
 
-COLL_PARTS = ("collectives", "expert_axis", "family_model_axis")
+COLL_PARTS = ("collectives", "expert_axis", "family_model_axis", "zero_axis")
 
 
 def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | None:
@@ -2731,9 +2850,10 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
     process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
     families (``model_axis_path``); (d) the expert axis
     (``expert_axis_path``); (e) the model axis of the ssm, hybrid and
-    encdec families (``family_model_axis_path``). ``parts`` without
-    "collectives" runs those of (d) and (e) it names alone. Every check
-    fails the phase."""
+    encdec families (``family_model_axis_path``); first of all, ZeRO-3
+    over ``data`` (``zero_axis_path``). ``parts`` without "collectives"
+    runs those of (d), (e) and ZeRO it names alone. Every check fails the
+    phase."""
     import shutil
     import tempfile
 
@@ -2749,8 +2869,12 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
             out.update(expert_axis_path(seed, device, dev))
         if "family_model_axis" in parts:
             out.update(family_model_axis_path(seed, device, dev))
+        if "zero_axis" in parts:
+            out.update(zero_axis_path(seed, device, dev))
         out["seconds"] = time.perf_counter() - t0
         return out
+    if "zero_axis" in parts:      # first: its mistral-nemo-12b run is the heaviest
+        out.update(zero_axis_path(seed, device, dev))
     coll = run_ranks("collectives", COLL_CARDS, {
         "device": dev, "seed": seed, "bytes": COLL_BYTES, "rows": COLL_ROWS,
         "chunks": list(COLL_CHUNKS), "agmm": [AGMM_TOKENS, AGMM_K, AGMM_N]})
@@ -2962,8 +3086,8 @@ def model_axis_path(seed: int, device, dev: str, ranks: list, one: dict,
             check(r["f32"]["rel"] <= TP_F32_TOL,
                   f"{mesh} rank {r['rank']}: f32 logits within {TP_F32_TOL} of the largest of one "
                   f"card's ({r['f32']['max_abs_err']} of {r['f32']['max_logit']})")
-            check(r["train"]["whole_equal"], f"{mesh} rank {r['rank']}: every whole leaf "
-                                              "bit-equal across the model group after the steps")
+            check(r["train"]["blocks_equal"], f"{mesh} rank {r['rank']}: every leaf "
+                                              "bit-equal on the ranks that hold its block")
         coll = {k: [max(r["train"]["collective_ms"][k][s] for r in ranks)
                     for s in range(TRAIN_DIST_STEPS)] for k in ("model", "batch")}
         meshes[mesh] = {
@@ -2976,10 +3100,10 @@ def model_axis_path(seed: int, device, dev: str, ranks: list, one: dict,
     ck_ranks = tp[TP_CKPT_MESH]
     c0 = ck_ranks[0]
     tail = c0["train"]["losses"][TRAIN_DIST_CKPT:]
-    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["whole_equal"]
+    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["blocks_equal"]
               for r in ck_ranks),
           f"{TP_CKPT_MESH}: the resumed steps repeat the uninterrupted run's losses "
-          f"{c0['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+          f"{c0['resumed']['losses']} vs {tail}, every block bit-equal on its ranks")
     check(all(close(e["elastic"]["losses"], tail) for e in elastic),
           f"{TP_CKPT_MESH}'s root resumed on {TP_ELASTIC_MESH} repeats them: "
           f"{elastic[0]['elastic']['losses']} vs {tail}")
@@ -3000,9 +3124,9 @@ def model_axis_path(seed: int, device, dev: str, ranks: list, one: dict,
         check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
               f"{r['mesh']} rank {r['rank']}'s restore launched exactly {want['restore']}: {got}")
     vlm = [r["also"][0] for r in tp[TP_VLM_MESH]]
-    check(all(np.isfinite(vlm[0]["losses"])) and all(v["whole_equal"] for v in vlm)
+    check(all(np.isfinite(vlm[0]["losses"])) and all(v["blocks_equal"] for v in vlm)
           and all(v["losses"] == vlm[0]["losses"] for v in vlm),
-          f"internvl2-2b on {TP_VLM_MESH}: finite losses on every rank, whole leaves bit-equal")
+          f"internvl2-2b on {TP_VLM_MESH}: finite losses on every rank, every block bit-equal on its ranks")
     check(close(vlm[0]["losses"][:1], vlm_one),
           f"internvl2-2b on {TP_VLM_MESH}: step 1 {vlm[0]['losses'][0]} within {LOSS_RTOL} of "
           f"one card's {vlm_one[0]}")
@@ -3083,8 +3207,8 @@ def expert_axis_path(seed: int, device, dev: str) -> dict:
                   f"{arch} {mesh} rank {r['rank']}: f32 logits within {TP_F32_TOL} of the largest "
                   f"sum of magnitudes behind a logit of one card's ({f['max_abs_err']} of "
                   f"{f['max_magnitude_sum']}; the largest logit {f['max_logit']})")
-            check(r["train"]["whole_equal"], f"{arch} {mesh} rank {r['rank']}: every whole leaf "
-                                              "bit-equal across the model group after the steps")
+            check(r["train"]["blocks_equal"], f"{arch} {mesh} rank {r['rank']}: every leaf "
+                                              "bit-equal on the ranks that hold its block")
         coll = {k: [max(r["train"]["collective_ms"][k][s] for r in ranks) for s in range(steps)]
                 for k in ("model", "gather", "a2a", "batch")}
         return {"losses": losses, "global_batch": t["global_batch"],
@@ -3103,10 +3227,10 @@ def expert_axis_path(seed: int, device, dev: str) -> dict:
     ck_ranks = ep[EP_CKPT_MESH]
     c0 = ck_ranks[0]
     tail = c0["train"]["losses"][EP_CKPT:]
-    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["whole_equal"]
+    check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["blocks_equal"]
               for r in ck_ranks),
           f"{EP_CKPT_MESH}: the resumed steps repeat the uninterrupted run's losses "
-          f"{c0['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+          f"{c0['resumed']['losses']} vs {tail}, every block bit-equal on its ranks")
     check(all(close(e["elastic"]["losses"], tail) for e in elastic),
           f"{EP_CKPT_MESH}'s root resumed on {EP_ELASTIC_MESH} repeats them: "
           f"{elastic[0]['elastic']['losses']} vs {tail}")
@@ -3214,8 +3338,8 @@ def family_model_axis_path(seed: int, device, dev: str, families=None) -> dict:
                                        f"the largest of one card's ({f['max_abs_err']} of "
                                        f"{f['max_logit']}; of the largest magnitude sum "
                                        f"{f['rel_sum']:.3g})")
-                check(r["train"]["whole_equal"], f"{arch} {mesh} rank {rank}: every whole leaf "
-                                                 "bit-equal across the model group after the steps")
+                check(r["train"]["blocks_equal"], f"{arch} {mesh} rank {rank}: every leaf "
+                                                 "bit-equal on the ranks that hold its block")
             coll = {k: [max(r["train"]["collective_ms"][k][s] for r in rr)
                         for s in range(FAMILY_TP_STEPS)] for k in ("model", "gather", "rs", "batch")}
             meshes[mesh][arch] = {
@@ -3232,10 +3356,10 @@ def family_model_axis_path(seed: int, device, dev: str, families=None) -> dict:
     i = runs.index(ck_args)
     c0 = ck_ranks[0]
     tail = c0["runs"][i]["train"]["losses"][FAMILY_TP_CKPT:]
-    check(all(close(r["runs"][i]["resumed"]["losses"], tail) and r["runs"][i]["resumed"]["whole_equal"]
+    check(all(close(r["runs"][i]["resumed"]["losses"], tail) and r["runs"][i]["resumed"]["blocks_equal"]
               for r in ck_ranks),
           f"{FAMILY_TP_CKPT_ARCH} {FAMILY_TP_CKPT_MESH}: the resumed step repeats the uninterrupted "
-          f"run's loss {c0['runs'][i]['resumed']['losses']} vs {tail}, whole leaves bit-equal")
+          f"run's loss {c0['runs'][i]['resumed']['losses']} vs {tail}, every block bit-equal on its ranks")
     check(all(close(e["elastic"]["losses"], tail) for e in elastic),
           f"{FAMILY_TP_CKPT_MESH}'s root resumed on {FAMILY_TP_ELASTIC_MESH} repeats it: "
           f"{elastic[0]['elastic']['losses']} vs {tail}")
@@ -3274,6 +3398,230 @@ def family_model_axis_path(seed: int, device, dev: str, families=None) -> dict:
         "wall_s": {mesh: ranks[0]["wall_s"] for mesh, ranks in worlds.items()}
         | {FAMILY_TP_ELASTIC_MESH: elastic[0]["wall_s"]},
         "seconds": time.perf_counter() - t0}}
+
+
+def zero_state_bytes(args: list, mesh_spec: str) -> dict:
+    """The bytes of ``args``' training state whole and on one rank of
+    ``mesh_spec`` (pod x data x model), by arithmetic on the whole param
+    shapes and the blocks ``param_specs`` cuts: the params and their
+    gradients in the model's dtype, AdamW's m and v in f32."""
+    from repro_torch.distributed.mesh import Mesh, cut_axes
+    from repro_torch.launch.steps import _param_shapes
+
+    model = smoke_model(args)
+    shape = dict(zip(("pod", "data", "model"), (int(x) for x in mesh_spec.split("x"))))
+    mesh = Mesh(shape, (torch.device("cpu"),))
+    specs = flat_tree(model.param_specs(mesh))
+    whole = rank = 0
+    for key, t in flat_tree(_param_shapes(model)).items():
+        n = int(np.prod(t.shape))
+        whole += n
+        rank += n // int(np.prod([shape[a] for a in cut_axes(mesh, specs[key])] or [1]))
+    size = model.cfg.dtype.itemsize
+    return {"whole": {"params": whole * size, "grads": whole * size, "moments": whole * 8},
+            "rank": {"params": rank * size, "grads": rank * size, "moments": rank * 8}}
+
+
+def zero_axis_path(seed: int, device, dev: str) -> dict:
+    """The collectives phase's ZeRO-3 part: gemma-2b (``TRAIN_DIST_ARGS``)
+    over each of ``ZERO_MESHES`` with ``tp_dist_worker``, its roots saved on
+    the meshes of ``ZERO_ELASTIC`` and resumed there and on the smaller
+    mesh, step 1 held to one card's on the same 16 sequences; then
+    mistral-nemo-12b at full depth (``ZERO_NEMO_ARGS``) on
+    ``ZERO_NEMO_MESH``, its state bytes a rank held to the arithmetic
+    (``zero_state_bytes``). Every check fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import _param_shapes
+
+    def close(a, b):
+        return len(a) == len(b) and all(abs(x - y) <= LOSS_RTOL * abs(y) for x, y in zip(a, b))
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def coll_ms(ranks, steps, kinds=("gather_data", "rs_data", "model", "gather", "rs", "batch")):
+        c = {k: [max(r["train"]["collective_ms"][k][i] for r in ranks) for i in range(steps)]
+             for k in kinds}
+        return {k: median(v[1:]) for k, v in c.items()}, {k: v[0] for k, v in c.items()}
+
+    t0 = time.perf_counter()
+    release(device)
+    cfg = {"device": dev, "seed": seed, "args": TRAIN_DIST_ARGS, "steps": TRAIN_DIST_STEPS,
+           "elastic": False}
+    roots = {mesh: tempfile.mkdtemp(prefix=f"chip-smoke-zero-{mesh}-") for mesh in ZERO_ELASTIC}
+    try:
+        gemma, elastic = {}, {}
+        for mesh in ZERO_MESHES:
+            extra = {"root": roots[mesh], "ckpt_step": TRAIN_DIST_CKPT} if mesh in roots else {}
+            gemma[mesh] = run_ranks("tp_dist", COLL_CARDS, {**cfg, "mesh": mesh, **extra},
+                                    ZERO_TIMEOUT_S)
+        for mesh, (small, micro) in ZERO_ELASTIC.items():
+            elastic[mesh] = run_ranks("tp_dist", 2, {**cfg, "mesh": small, "elastic": True,
+                                                     "root": roots[mesh], "microbatches": micro},
+                                      ZERO_TIMEOUT_S)
+    finally:
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+    nemo = run_ranks("tp_dist", COLL_CARDS, {
+        "device": dev, "seed": seed, "args": ZERO_NEMO_ARGS, "steps": ZERO_NEMO_STEPS,
+        "elastic": False, "mesh": ZERO_NEMO_MESH, "peak_max": ZERO_PEAK_MAX,
+        "halve": "microbatches"}, ZERO_TIMEOUT_S)
+    one = train.main(TRAIN_DIST_ARGS + ["--seed", str(seed), "--device", str(device),
+                                        "--mesh", "1x1", "--steps", "1",
+                                        "--microbatches", str(ONE_CARD_MICROBATCHES)])
+    del one["params"]
+    release(device)
+    meshes = {}
+    for mesh, ranks in gemma.items():
+        t = ranks[0]["train"]
+        losses = t["losses"]
+        check(len(losses) == TRAIN_DIST_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"zero gemma-2b on {mesh}: finite losses that fall: {losses}")
+        check(all(r["train"]["losses"] == losses for r in ranks), f"zero {mesh}: every rank's loss")
+        check(close(losses[:1], one["losses"]), f"zero {mesh}: step 1 {losses[0]} within "
+                                                f"{LOSS_RTOL} of one card's {one['losses'][0]}")
+        for r in ranks:
+            check(r["f32"]["rel"] <= TP_F32_TOL,
+                  f"zero {mesh} rank {r['rank']}: f32 logits within {TP_F32_TOL} of the largest "
+                  f"of one card's ({r['f32']['max_abs_err']} of {r['f32']['max_logit']})")
+            check(r["train"]["blocks_equal"], f"zero {mesh} rank {r['rank']}: every leaf "
+                                               "bit-equal on the ranks that hold its block")
+        steady, first = coll_ms(ranks, TRAIN_DIST_STEPS)
+        meshes[mesh] = {
+            "losses": losses, "f32_rel": max(r["f32"]["rel"] for r in ranks),
+            "step_ms": 1e3 * median([max(r["train"]["step_s"][i] for r in ranks)
+                                     for i in range(1, TRAIN_DIST_STEPS)]),
+            "collective_ms": steady, "collective_ms_first_step": first,
+            "peak_bytes": [r["train"]["peak_bytes"] for r in ranks],
+            "step_peak_bytes": [r["train"]["step_peak_bytes"] for r in ranks],
+            "state_bytes": ranks[0]["train"]["state_bytes"]}
+    whole = flat_tree(_param_shapes(smoke_model(TRAIN_DIST_ARGS)))
+    one_device = {f"{tree}{k}": list(t.shape) for tree in ("params/", "opt/m/", "opt/v/")
+                  for k, t in whole.items()}
+    ckpts, layouts = {}, []
+    for mesh, (small, _micro) in ZERO_ELASTIC.items():
+        ranks, el = gemma[mesh], elastic[mesh]
+        c0 = ranks[0]
+        tail = c0["train"]["losses"][TRAIN_DIST_CKPT:]
+        check(all(close(r["resumed"]["losses"], tail) and r["resumed"]["blocks_equal"]
+                  for r in ranks),
+              f"zero {mesh}: the resumed steps repeat the uninterrupted run's losses "
+              f"{c0['resumed']['losses']} vs {tail}, every block bit-equal on its ranks")
+        check(all(close(e["elastic"]["losses"], tail) for e in el),
+              f"zero {mesh}'s root resumed on {small} repeats them: "
+              f"{el[0]['elastic']['losses']} vs {tail}")
+        got = {k: e["shape"] for k, e in c0["manifest"]["leaves"].items() if k != "opt/step"}
+        check(got == one_device, f"zero {mesh}: the MANIFEST names a one-device run's leaves "
+                                 "and shapes")
+        layouts.append(manifest_layout(c0["manifest"]))
+        check(c0["saved_equal_restored"], f"zero {mesh}: rank 0 restored the whole saved tree "
+                                          "bit for bit")
+        want = ckpt_launches(c0["manifest"])
+        got = c0["save"]["launches"]
+        check(got == {**got, **want["save"]} and got["checksum_copy_words"] == 0,
+              f"zero {mesh}: rank 0's save launched exactly {want['save']}: {got}")
+        for r in ranks + el:
+            check(r["restored_equal_rank0"], f"zero {r['mesh']} rank {r['rank']} restored rank "
+                                             "0's tree bit for bit")
+            got = r["restore"]["launches"]
+            check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+                  f"zero {r['mesh']} rank {r['rank']}'s restore launched exactly "
+                  f"{want['restore']}: {got}")
+        ckpts[mesh] = {
+            "elastic_mesh": small, "save_s": c0["save"]["seconds"], "bytes": c0["save"]["bytes"],
+            "launches_save_rank0": c0["save"]["launches"], "expected_launches": want,
+            "launches_restore": [r["restore"]["launches"] for r in ranks],
+            "launches_restore_elastic": [e["restore"]["launches"] for e in el],
+            "restore_s": [r["restore"]["seconds"] for r in ranks],
+            "elastic_restore_s": [e["restore"]["seconds"] for e in el],
+            "restored_bytes": [r["restored_bytes"] for r in ranks],
+            "uninterrupted": tail, "resumed": c0["resumed"]["losses"],
+            "elastic": el[0]["elastic"]["losses"]}
+    check(all(x == layouts[0] for x in layouts), "zero: every root's MANIFEST has the same layout")
+    t = nemo[0]["train"]
+    losses = t["losses"]
+    check(len(losses) == ZERO_NEMO_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"zero mistral-nemo-12b on {ZERO_NEMO_MESH}: finite losses that fall: {losses}")
+    check(all(r["train"]["losses"] == losses for r in nemo), "zero mistral-nemo-12b: every "
+                                                              "rank's loss")
+    arith = zero_state_bytes(ZERO_NEMO_ARGS, ZERO_NEMO_MESH)
+    for r in nemo:
+        check(r["train"]["peak_bytes"] < CARD_BYTES,
+              f"zero mistral-nemo-12b rank {r['rank']}: peak {r['train']['peak_bytes'] / 1e9:.2f} "
+              f"GB under {CARD_BYTES / 1e9:.0f} GB")
+        check(r["train"]["state_bytes"] == arith["rank"],
+              f"zero mistral-nemo-12b rank {r['rank']}: state bytes {r['train']['state_bytes']} "
+              f"equal the arithmetic {arith['rank']}")
+        check(r["train"]["blocks_equal"], f"zero mistral-nemo-12b rank {r['rank']}: every leaf "
+                                           "bit-equal on the ranks that hold its block")
+    steady, first = coll_ms(nemo, ZERO_NEMO_STEPS)
+    return {"zero_axis": {
+        "gemma": {"arch": "gemma-2b", "meshes": meshes, "one_card_step1": one["losses"][0],
+                  "ckpt": ckpts},
+        "nemo": {"arch": "mistral-nemo-12b", "mesh": ZERO_NEMO_MESH, "losses": losses,
+                 "layers": smoke_model(ZERO_NEMO_ARGS).cfg.n_layers,
+                 "global_batch": t["global_batch"], "sequences_a_pass": t["sequences_a_pass"],
+                 "f32_rel": max(r["f32"]["rel"] for r in nemo),
+                 "step_ms": 1e3 * median([max(r["train"]["step_s"][i] for r in nemo)
+                                          for i in range(1, ZERO_NEMO_STEPS)]),
+                 "step_s": [max(r["train"]["step_s"][i] for r in nemo)
+                            for i in range(ZERO_NEMO_STEPS)],
+                 "collective_ms": steady, "collective_ms_first_step": first,
+                 "peak_bytes": [r["train"]["peak_bytes"] for r in nemo],
+                 "step_peak_bytes": [r["train"]["step_peak_bytes"] for r in nemo],
+                 "init_peak_bytes": [r["train"]["init_peak_bytes"] for r in nemo],
+                 "state_bytes": [r["train"]["state_bytes"] for r in nemo],
+                 "state_arithmetic": arith, "wall_s": nemo[0]["wall_s"]},
+        "seconds": time.perf_counter() - t0}}
+
+
+def print_zero_axis(m: dict, smi: str) -> None:
+    """The ZeRO part's lines."""
+    def gb(xs):
+        return [round(b / 1e9, 2) for b in xs]
+
+    def ms(c):
+        return (f"ZeRO all-gather {c['gather_data']:.2f}, reduce-scatter {c['rs_data']:.2f} over "
+                f"data; all-reduce of the model axis and the clip norm {c['model']:.2f}, model "
+                f"all-gather {c['gather']:.2f}, reduce-scatter {c['rs']:.2f}; batch axes "
+                f"{c['batch']:.2f}")
+
+    g = m["gemma"]
+    for mesh, r in g["meshes"].items():
+        sb = r["state_bytes"]
+        print(f"collectives zero_axis {g['arch']} 2 layers on {mesh}: {r['step_ms']:.1f} ms/step; "
+              f"ms a step: {ms(r['collective_ms'])}; peak GB a card {gb(r['peak_bytes'])} "
+              f"(steps {gb(r['step_peak_bytes'])}); state GB a rank: params "
+              f"{sb['params'] / 1e9:.3f}, grads {sb['grads'] / 1e9:.3f}, moments "
+              f"{sb['moments'] / 1e9:.3f}; losses {[round(x, 4) for x in r['losses']]}, step 1 on "
+              f"one card {g['one_card_step1']:.6f}; f32 logits within {r['f32_rel']:.3g} of one "
+              f"card's [{smi}]")
+    for mesh, c in g["ckpt"].items():
+        print(f"collectives zero_axis checkpoint on {mesh}: {c['bytes'] / 1e9:.2f} GB, every leaf "
+              f"gathered over pod 0 and saved by rank 0 in {c['save_s']:.2f} s (launches "
+              f"{c['launches_save_rank0']}), restored leaf by leaf into each rank's blocks "
+              f"({gb(c['restored_bytes'])} GB a rank) in "
+              f"{', '.join(f'{x:.2f}' for x in c['restore_s'])} s (launches "
+              f"{c['launches_restore'][0]} each), on {c['elastic_mesh']} in "
+              f"{', '.join(f'{x:.2f}' for x in c['elastic_restore_s'])} s; uninterrupted "
+              f"{c['uninterrupted']}, resumed {c['resumed']}, elastic {c['elastic']} [{smi}]")
+    n = m["nemo"]
+    a = n["state_arithmetic"]
+    sb = n["state_bytes"][0]
+    print(f"collectives zero_axis {n['arch']} {n['layers']} layers on {n['mesh']}, {n['global_batch']} "
+          f"sequences a step, {n['sequences_a_pass']} a card a pass: {n['step_ms']:.1f} ms/step "
+          f"(steps {[round(x, 2) for x in n['step_s']]} s); ms a step: {ms(n['collective_ms'])}; "
+          f"peak GB a card {gb(n['peak_bytes'])} (steps {gb(n['step_peak_bytes'])}, init "
+          f"{gb(n['init_peak_bytes'])}); state GB a rank: params {sb['params'] / 1e9:.2f}, grads "
+          f"{sb['grads'] / 1e9:.2f}, moments {sb['moments'] / 1e9:.2f}, "
+          f"{sum(sb.values()) / 1e9:.2f} in all against {sum(a['whole'].values()) / 1e9:.2f} "
+          f"whole; losses {[round(x, 4) for x in n['losses']]}; f32 logits of one layer within "
+          f"{n['f32_rel']:.3g} of one card's; world {n['wall_s']:.1f} s; part "
+          f"{m['seconds']:.1f} s [{smi}]")
+    sys.stdout.flush()
 
 
 def print_family_model_axis(m: dict, smi: str) -> None:
@@ -3400,6 +3748,7 @@ def print_collectives(coll: dict, smi: str) -> None:
           f"[{smi}]")
     print_expert_axis(coll["expert_axis"], smi)
     print_family_model_axis(coll["family_model_axis"], smi)
+    print_zero_axis(coll["zero_axis"], smi)
     print("collectives " + json.dumps(coll))
 
 
@@ -3656,8 +4005,8 @@ def main() -> int:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
     if not phases or phases - set(PHASES) - set(COLL_PARTS):
-        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis or family_model_axis "
-                     f"(those parts of collectives alone) or all, not {args.phases!r}")
+        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis, family_model_axis or "
+                     f"zero_axis (those parts of collectives alone) or all, not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -3709,6 +4058,8 @@ def main() -> int:
                 print_expert_axis(coll["expert_axis"], coll["card"])
             if "family_model_axis" in parts:
                 print_family_model_axis(coll["family_model_axis"], coll["card"])
+            if "zero_axis" in parts:
+                print_zero_axis(coll["zero_axis"], coll["card"])
             print("collectives " + json.dumps(coll))
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     if kernels is not None:

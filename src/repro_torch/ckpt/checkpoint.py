@@ -264,9 +264,14 @@ def restore_checkpoint(
     verify_chunks: bool = True,
     movers: int = 8,
     device="cuda",
+    keep: Callable[[str, torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[dict, int]:
     """Read + verify a checkpoint directory -> (nested dict of tensors on
-    ``device``, step).
+    ``device``, step). ``keep(key, leaf)``, when given, makes the tensor
+    kept for each whole leaf once it is verified (called in MANIFEST
+    order, one leaf at a time: a rank's block of it, so the whole leaf is
+    freed before the next is read); the counterpart of
+    ``save_checkpoint``'s ``materialize``.
 
     Verification is per chunk, on ``device``: each leaf file is copied there
     once, its chunks are digested in place (tile-aligned runs in one
@@ -304,6 +309,8 @@ def restore_checkpoint(
 
     for item in manifest["leaves"].items():
         load_leaf(item)
+        if keep is not None:
+            leaves[item[0]] = keep(item[0], leaves[item[0]])
     return _unflatten(leaves), int(manifest["step"])
 
 

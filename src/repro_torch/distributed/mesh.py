@@ -21,11 +21,12 @@ that share this rank's ``model`` index, over which gradients are meaned.
 The sharding rules are the reference's (``_RULES``, ``spec``,
 ``batch_spec``), with ``PartitionSpec`` a tuple of mesh axes a dim.
 ``shard`` is the port's ``device_put(x, NamedSharding(mesh, spec))``: it
-cuts this rank's block out of a whole tensor along each dim whose entry
-names ``model``, and ``gather`` puts the whole tensor back together. An
-entry over ``data`` or ``pod`` leaves the dim whole: every rank of a batch
-axis holds whole weights until ZeRO over ``data`` is ported (ROADMAP Queue
-1 item 5). The ``shard_map`` shims of the reference have no counterpart.
+cuts this rank's block out of a whole tensor along every dim whose entry
+names a mesh axis (an entry that is a tuple of axes row-major over them),
+and ``gather`` puts the whole tensor back together. Params specs name
+``data`` (ZeRO-3: the ``d_model`` dim of every weight) and ``model``
+(tensor parallelism). The ``shard_map`` shims of the reference have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -239,40 +240,80 @@ def batch_spec(mesh: Mesh, *, seq_sharded: bool = False) -> PartitionSpec:
     return P(b, MODEL if seq_sharded else None)
 
 
+def _entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names (None: none)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
 def model_dims(pspec) -> list[int]:
     """The dims of ``pspec`` whose entry names the ``model`` axis."""
-    return [i for i, e in enumerate(pspec)
-            if e == MODEL or (isinstance(e, tuple) and MODEL in e)]
+    return [i for i, e in enumerate(pspec) if MODEL in _entry_axes(e)]
+
+
+def data_dims(pspec) -> list[int]:
+    """The dims of ``pspec`` whose entry names the ``data`` axis (ZeRO-3)."""
+    return [i for i, e in enumerate(pspec) if DATA in _entry_axes(e)]
+
+
+def cut_axes(mesh: Mesh, pspec) -> tuple[str, ...]:
+    """The mesh axes over 1 that cut a leaf of ``pspec``, in mesh order."""
+    named = {a for e in pspec for a in _entry_axes(e)}
+    return tuple(a for a in mesh.axis_names if a in named and mesh.shape[a] > 1)
 
 
 def shard(mesh: Mesh, x: torch.Tensor, pspec) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``pspec``: cut
-    along each dim that names ``model`` (a view; ``x`` itself where nothing
-    is cut). A dim that does not split evenly raises ``ValueError``."""
-    tp, r = axis_size(mesh, MODEL), mesh.rank(MODEL)
-    if tp == 1:
-        return x
-    for d in model_dims(pspec):
-        if x.shape[d] % tp:
-            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split over {tp} ranks")
-        n = x.shape[d] // tp
-        x = x.narrow(d, r * n, n)
+    along every dim whose entry names a mesh axis, row-major over the axes
+    of a tuple entry, as ``device_put`` cuts it (a view; ``x`` itself where
+    nothing is cut). A dim that does not split evenly raises ``ValueError``."""
+    for d, e in enumerate(pspec):
+        axes = [a for a in _entry_axes(e) if axis_size(mesh, a) > 1]
+        if not axes:
+            continue
+        n = math.prod(axis_size(mesh, a) for a in axes)
+        idx = 0
+        for a in axes:
+            idx = idx * axis_size(mesh, a) + mesh.rank(a)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split over {n} ranks")
+        size = x.shape[d] // n
+        x = x.narrow(d, idx * size, size)
     return x
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``out`` = the group's contiguous ``x`` stacked along dim 0, in rank
+    order (``all_gather_single``, ``all_gather_into_tensor``'s new name
+    where torch has it)."""
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``out`` = this rank's block along dim 0 of the group's contiguous
+    ``x``, summed (``reduce_scatter_single``, ``reduce_scatter_tensor``'s
+    new name where torch has it)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, x, group=group)
 
 
 def gather(mesh: Mesh, x: torch.Tensor, pspec) -> torch.Tensor:
     """The whole tensor of this rank's block ``x`` under ``pspec``: the
-    inverse of ``shard``, an all-gather over the ``model`` group a sharded
-    dim (every rank of the group calls it, in the same order)."""
-    tp = axis_size(mesh, MODEL)
-    if tp == 1:
-        return x
-    for d in model_dims(pspec):
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(tp)]
-        dist.all_gather(parts, x.contiguous(), group=mesh.group(MODEL))
-        x = torch.cat(parts, dim=d)
-    return x
+    inverse of ``shard``, an all-gather a cut dim over the group of each
+    axis it names, the innermost axis of a tuple entry first (every rank of
+    each group calls it, in the same order)."""
+    for d, e in enumerate(pspec):
+        for a in reversed(_entry_axes(e)):
+            n = axis_size(mesh, a)
+            if n == 1:
+                continue
+            blocks = x.movedim(d, 0).contiguous()
+            out = blocks.new_empty((n * blocks.shape[0], *blocks.shape[1:]))
+            all_gather_into(out, blocks, mesh.group(a))
+            x = out.movedim(0, d)
+    return x.contiguous()
 
 
 def axis_size(mesh: Mesh, name: str) -> int:

@@ -19,8 +19,13 @@ modes take the auto path, exactly as the reference decides
 (``n_pods > 1``). Over a ``model`` axis the params are this rank's blocks
 (``param_specs``), the model's forward brackets its products with the
 model group's collectives, and AdamW's clip norm sums the sharded leaves'
-squares over that group. Prefill and decode over a ``model`` axis wait for
-ROADMAP Queue 1 item 6.
+squares over that group. Over a ``data`` axis (ZeRO-3) every weight, its
+m and v are cut by ``d_model`` too: the forward gathers each layer's
+weights over the data group and the backward reduce-scatters their
+gradients, so such a leaf's block arrives summed over ``data`` and only
+its ``pod`` part of the mean remains ("auto": one ``dist.all_reduce``
+over the pod group; "chunked": ``cross_pod_mean``), then the division.
+Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
@@ -38,7 +43,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
 from repro_torch.distributed.fsdp import cross_pod_mean
-from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size, model_dims, shard
+from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size, cut_axes, shard
 from repro_torch.models.common import refuse_model_axis
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -122,10 +127,13 @@ def build_train_step(
     if cell.global_batch % (ranks * microbatches):
         raise ValueError(f"global batch {cell.global_batch} does not split over {ranks} "
                          f"ranks into {microbatches} microbatches")
-    sharded, model_group = None, None
-    if mesh is not None and axis_size(mesh, MODEL) > 1:
-        sharded = tree_map(lambda s: bool(model_dims(s)), model.param_specs(mesh))
-        model_group = mesh.group(MODEL)
+    dp = axis_size(mesh, DATA) if mesh is not None else 1
+    sharded, groups, zero = None, None, None
+    if mesh is not None and (dp > 1 or axis_size(mesh, MODEL) > 1):
+        specs = model.param_specs(mesh)
+        sharded = tree_map(lambda s: cut_axes(mesh, s), specs)
+        groups = {a: mesh.group(a) for a in (DATA, MODEL) if axis_size(mesh, a) > 1}
+        zero = zero_leaves(model, mesh)
 
     def grads_of(params, batch):
         if microbatches == 1:
@@ -145,12 +153,12 @@ def build_train_step(
         if ranks == 1:
             return loss, grads
         if not chunked:
-            group = mesh.batch_group
-            return world_mean(loss, group, ranks), world_mean(grads, group, ranks)
-        dp = axis_size(mesh, DATA)
+            return batch_mean(loss, grads, mesh, zero)
         if dp > 1:
             loss = world_mean(loss, mesh.group(DATA), dp)
-            grads = world_mean(grads, mesh.group(DATA), dp)
+            # a ZeRO block arrives summed over data (the reduce-scatter)
+            grads = tree_map(lambda g, z: g / dp if z else world_mean(g, mesh.group(DATA), dp),
+                             grads, zero)
         if compress:
             # beyond-paper: 'gradient compression' for the cross-pod hop —
             # cast to bf16 for the wire, back to each leaf's dtype after
@@ -165,14 +173,41 @@ def build_train_step(
     def step(params, opt, batch):
         loss, grads = synced(*grads_of(params, batch))
         params, opt, stats = adamw.apply(params, grads, opt, ocfg, sharded=sharded,
-                                         group=model_group)
+                                         groups=groups)
         return params, opt, {"loss": loss, **stats}
 
     p_shapes = _param_shapes(model)
-    if sharded is not None:          # this rank's blocks
+    if sharded is not None:          # this rank's blocks over data and model
         p_shapes = tree_map(lambda t, s: shard(mesh, t, s), p_shapes, model.param_specs(mesh))
     shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell))
     return StepBundle(step, model, "train", shapes)
+
+
+def batch_mean(loss, grads, mesh, zero=None):
+    """The "auto" mean over pod x data of this rank's loss and gradients:
+    one ``dist.all_reduce`` a leaf over ``mesh.batch_group``, except a ZeRO
+    leaf's (``zero``, a tree of flags; None: none): its block arrives
+    summed over ``data`` by the forward's gather's reduce-scatter, so only
+    its sum over ``pod`` remains (one all-reduce over the pod group where
+    there are pods), then the division by pods x data."""
+    n_pods, ranks = axis_size(mesh, POD), axis_size(mesh, POD) * axis_size(mesh, DATA)
+    group = mesh.batch_group
+
+    def pod_mean(g):
+        return world_mean(g, mesh.group(POD), ranks) if n_pods > 1 else g / ranks
+
+    if zero is None:
+        return world_mean(loss, group, ranks), world_mean(grads, group, ranks)
+    return world_mean(loss, group, ranks), tree_map(
+        lambda g, z: pod_mean(g) if z else world_mean(g, group, ranks), grads, zero)
+
+
+def zero_leaves(model, mesh):
+    """A tree of flags: the leaves that ZeRO cuts over ``data`` (None where
+    the mesh has no ``data`` axis over 1)."""
+    if mesh is None or axis_size(mesh, DATA) == 1:
+        return None
+    return tree_map(lambda s: DATA in cut_axes(mesh, s), model.param_specs(mesh))
 
 
 def world_mean(tree, group, n: int):

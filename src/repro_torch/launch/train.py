@@ -16,7 +16,8 @@ is the reference's:
     resumes the other's checkpoints;
   * **elastic restart**: checkpoints hold whole leaves, so a root saved by
     four ranks resumes on two, over data and over data x model (``--mesh
-    2x2`` to ``1x2``, as the reference's test does; ``2x2x1`` to ``1x2x1``).
+    2x2`` to ``1x2``, as the reference's test does; ``2x2x1`` and ``1x4x1``
+    to ``1x2x1``; ``1x2x2`` to ``1x1x2``).
     A MoE's whole expert leaves are laid out for the model axis's size
     (``(layers, tp, E/tp, ...)``), so its root resumes on that size only:
     on another, the restore raises (a dim that does not split) or the
@@ -24,15 +25,18 @@ is the reference's:
 
 On a world of ranks every rank draws the whole params from the same seed
 (the one-device weights) and keeps its blocks of them
-(``distributed.mesh.shard`` under the model's ``param_specs``): the ranks
-of a ``model`` group hold the blocks of one model, and the groups stay
-equal, since every step applies the same synchronised gradients. Rank 0
-writes the whole tree, the MANIFEST of a one-device run: each leaf cut over
-``model`` is gathered from rank 0's model group just before it is written
-(``save_checkpoint(materialize=)``, one leaf at a time) and digested on the
-device, while the other ranks wait at a barrier. Every rank restores the
-whole root onto its own device, checking every chunk there, and keeps its
-blocks. Rank 0 prints; ``main`` returns the same dict on every rank.
+(``distributed.mesh.shard`` under the model's ``param_specs``): over
+``model`` for tensor parallelism and over ``data`` for ZeRO-3, so the
+ranks of one pod hold the blocks of one model and AdamW's moments the same
+blocks; the pods stay equal, since every step applies the same
+synchronised gradients. Rank 0 writes the whole tree, the MANIFEST of a
+one-device run: each cut leaf is gathered over pod 0's data x model ranks
+just before it is written (``save_checkpoint(materialize=)``, one leaf at
+a time) and digested on the device, while the other pods wait at a
+barrier. Every rank reads the root onto its own device, checking every
+chunk there, and keeps its blocks leaf by leaf
+(``restore_checkpoint(keep=)``), so no rank holds the whole tree. Rank 0
+prints; ``main`` returns the same dict on every rank.
 
 Where the port differs: ``--device`` (default ``cuda``; a request for the
 card without one raises) and ``--layers N``, which overrides the config's
@@ -40,7 +44,7 @@ card without one raises) and ``--layers N``, which overrides the config's
 a full-width model fits a run. An encdec's batch carries zero frame
 embeddings and a vlm's zero patch embeddings beside the tokens, as the
 reference's. ``main`` also returns each step's seconds and grad norm, and
-this rank's params (its blocks over a ``model`` axis).
+this rank's params (its blocks over ``data`` and ``model``).
 
 Usage (CPU, reduced config; then four ranks, one card each, over pod x
 data and over data x model):
@@ -65,7 +69,7 @@ from repro_torch.ckpt.checkpoint import _flatten
 from repro_torch.configs.registry import ShapeCell, build_model
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.distributed.mesh import (
-    DATA, MODEL, POD, axis_size, gather, is_primary, make_mesh, model_dims, shard)
+    DATA, MODEL, POD, axis_size, cut_axes, gather, is_primary, make_mesh, shard)
 from repro_torch.launch.steps import _rebuild, _with_layers, build_train_step
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_map
@@ -108,8 +112,9 @@ def modality_inputs(cfg, batch: int, device) -> dict:
 
 def checkpoint_specs(model, mesh):
     """PartitionSpecs of the checkpoint tree ``{"params", "opt": {"step",
-    "m", "v"}}``; None where no leaf is cut (no ``model`` axis over 1)."""
-    if axis_size(mesh, MODEL) == 1:
+    "m", "v"}}``; None where no leaf is cut (no ``data`` or ``model`` axis
+    over 1)."""
+    if axis_size(mesh, DATA) == 1 and axis_size(mesh, MODEL) == 1:
         return None
     specs = model.param_specs(mesh)
     o = adamw.state_specs(specs)
@@ -121,7 +126,8 @@ def shard_state(mesh, tree, specs):
     so the whole leaf can be freed."""
     if specs is None:
         return tree
-    return tree_map(lambda t, s: shard(mesh, t, s).clone() if model_dims(s) else t, tree, specs)
+    return tree_map(lambda t, s: shard(mesh, t, s).clone() if cut_axes(mesh, s) else t,
+                    tree, specs)
 
 
 def _flat_specs(specs, prefix: str = "") -> dict:
@@ -136,10 +142,11 @@ def _flat_specs(specs, prefix: str = "") -> dict:
 
 
 def save_whole(mgr: CheckpointManager, step: int, tree, mesh, specs):
-    """Rank 0 saves the whole tree (the report; None elsewhere). Over a
-    ``model`` axis each cut leaf is gathered over rank 0's model group, in
-    the checkpoint's leaf order, as rank 0 writes it; every other rank
-    waits at the caller's barrier."""
+    """Rank 0 saves the whole tree (the report; None elsewhere), the
+    MANIFEST of a one-device run. Each cut leaf is gathered over pod 0's
+    data x model ranks, in the checkpoint's leaf order, as rank 0 writes
+    it (one whole leaf at a time); every rank of pod 0 takes part, and
+    every other rank waits at the caller's barrier."""
     if specs is None:
         return mgr.save(step, tree) if is_primary() else None
     flat = _flat_specs(specs)
@@ -149,7 +156,7 @@ def save_whole(mgr: CheckpointManager, step: int, tree, mesh, specs):
 
     if is_primary():
         return mgr.save(step, tree, materialize=whole)
-    if mesh.rank(POD) == 0 and mesh.rank(DATA) == 0:       # rank 0's model group
+    if mesh.rank(POD) == 0:
         for key, t in _flatten(tree).items():
             whole(key, t)
     return None
@@ -157,9 +164,18 @@ def save_whole(mgr: CheckpointManager, step: int, tree, mesh, specs):
 
 def restore_into(mgr: CheckpointManager, mesh=None, specs=None):
     """Restore the latest checkpoint onto the manager's device (the
-    mesh's), and keep this rank's blocks."""
-    tree, step = mgr.restore()
-    tree = shard_state(mesh, tree, specs)
+    mesh's), keeping this rank's blocks leaf by leaf as each leaf is
+    verified: a rank holds its blocks and at most one whole leaf, never
+    the whole tree."""
+    keep = None
+    if specs is not None:
+        flat = _flat_specs(specs)
+
+        def keep(key, t):
+            s = flat[key]
+            return shard(mesh, t, s).clone() if cut_axes(mesh, s) else t
+
+    tree, step = mgr.restore(keep=keep)
     o = tree["opt"]
     return tree["params"], adamw.OptState(step=o["step"], m=o["m"], v=o["v"]), step
 

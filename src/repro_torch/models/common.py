@@ -23,7 +23,10 @@ embedding lookup and a vocab-parallel cross-entropy that never gathers the
 group (``all_to_all``) and a stack of the ranks' token slices
 (``_stack_out``), the hybrid's recurrent layer a gather whose backward is
 a reduce-scatter (``_gather_in``) and the ssm's gated norm a statistic
-summed over the group (``_sum_stat``). The residual stays whole on every
+summed over the group (``_sum_stat``). Over the ``data`` axis (ZeRO-3)
+every weight's ``d_model`` dim is cut, gathered over the data group just
+before its layer uses it (``_GatherFromData``, whose backward
+reduce-scatters). The residual stays whole on every
 model rank, where the reference may shard it by sequence (``constrain``,
 ``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart); the
 decode caches' ``kv_cache_spec`` waits for ROADMAP Queue 1 item 6.
@@ -40,7 +43,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size
+from repro_torch.distributed.mesh import (
+    DATA, MODEL, POD, all_gather_into, axis_size, data_dims, reduce_scatter_into)
 
 Params = Any
 
@@ -254,6 +258,29 @@ class _StackFromModel(torch.autograd.Function):
         return g[dist.get_rank(ctx.group)].contiguous(), None
 
 
+class _GatherFromData(torch.autograd.Function):
+    """ZeRO-3's gather: the group's blocks of ``x`` concatenated along
+    ``dim`` (an all-gather of a contiguous copy, the blocks stacked on dim 0
+    and moved back); the backward sums the gradient over the group and
+    keeps this rank's block (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        blocks = x.movedim(dim, 0).contiguous()
+        out = blocks.new_empty((dist.get_world_size(group) * blocks.shape[0], *blocks.shape[1:]))
+        all_gather_into(out, blocks, group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = g.movedim(ctx.dim, 0).contiguous()
+        out = whole.new_empty((whole.shape[0] // dist.get_world_size(ctx.group),
+                               *whole.shape[1:]))
+        reduce_scatter_into(out, whole, ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
 def all_to_all(x, group):
     """``_AllToAllModel`` over ``group``: dim 0's block j sent to rank j,
     the blocks received in rank order (the MoE's dispatch and return
@@ -261,13 +288,22 @@ def all_to_all(x, group):
     return _AllToAllModel.apply(x, group)
 
 
+class _TopWhole(dict):
+    """A params tree whose top-level leaves ``ShardingMixin._zero_top``
+    has gathered whole over ``data``."""
+
+
 class ShardingMixin:
-    """Tensor parallelism over the mesh's ``model`` axis. A dim that the
-    axis divides is split (``shardable``); a model rank then holds block
-    ``rank`` of it, and these helpers bracket each product with the
-    operator that keeps every replicated value and every replicated
-    leaf's gradient equal on every model rank, bit for bit. On a mesh
-    without a ``model`` axis over 1 each helper is the identity."""
+    """Tensor parallelism over the mesh's ``model`` axis, and ZeRO-3 over
+    its ``data`` axis. A dim that the axis divides is split
+    (``shardable``); a model rank then holds block ``rank`` of it, and
+    these helpers bracket each product with the operator that keeps every
+    replicated value and every replicated leaf's gradient equal on every
+    model rank, bit for bit. A weight's ``d_model`` dim is cut over
+    ``data`` and gathered just before its layer uses it (``_zero_layer``,
+    ``_zero_top``), its gradient reduce-scattered back. On a mesh without a
+    ``model`` (``data``) axis over 1 each helper of that axis is the
+    identity."""
 
     mesh: Any = None
 
@@ -319,6 +355,43 @@ class ShardingMixin:
         """Every model rank's ``x`` stacked on a new leading dim (over a
         ``model`` axis over 1)."""
         return _StackFromModel.apply(x, self.mesh.group(MODEL))
+
+    # -- ZeRO-3 over ``data`` ----------------------------------------------------
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else axis_size(self.mesh, DATA)
+
+    def _zero(self, t, pspec):
+        """``t`` (this rank's block under ``pspec``) whole along each dim
+        that names ``data``; its gradient is reduce-scattered back over the
+        data group. The identity where the mesh has no ``data`` axis over 1."""
+        if self._dp() == 1:
+            return t
+        for d in data_dims(pspec):
+            t = _GatherFromData.apply(t, d, self.mesh.group(DATA))
+        return t
+
+    def _zero_layer(self, leaves, specs):
+        """One layer's leaves (slices of the stacked leaves, in ``specs``'
+        order), each whole along its ``data`` dim: called inside the
+        function that ``maybe_remat`` wraps, so under ``remat="full"`` the
+        gather runs again in the backward pass and no whole layer weight is
+        held across layers. ``specs`` are the stacked leaves' (the layer
+        dim is dropped here)."""
+        if self._dp() == 1:
+            return tuple(leaves)
+        return tuple(self._zero(t, s[1:]) for t, s in zip(leaves, specs))
+
+    def _zero_top(self, params):
+        """``params`` with its top-level leaves (``embed``, ``unembed``)
+        whole along ``data``: gathered once a forward, before the lookup and
+        the unembedding that share them. A tree this returned passes
+        through unchanged, so entry points that call one another gather
+        once."""
+        if self._dp() == 1 or isinstance(params, _TopWhole):
+            return params
+        specs = self.param_specs(self.mesh)
+        return _TopWhole({k: v if isinstance(v, dict) else self._zero(v, specs[k])
+                          for k, v in params.items()})
 
     def _vocab(self):
         """(group, first row) of this rank's vocab block, None where the

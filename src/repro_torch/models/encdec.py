@@ -27,7 +27,10 @@ cross-attention split by heads (the whole encoder output feeds this rank's
 cross K/V heads, so its gradient is summed over ``model``), ``w1`` / ``b1``
 column- and ``w2`` row-parallel with ``b2`` added once after the sum, and
 the tied embedding vocab-parallel where ``model`` divides the vocab.
-``pos_dec``, the layer norms and the encoder's sinusoids stay whole. The
+``pos_dec``, the layer norms and the encoder's sinusoids stay whole. Over
+a ``data`` axis (ZeRO-3) both stacks' weights and ``embed`` are cut by
+``d_model`` and gathered where they are used (``_run_stack``,
+``_zero_top``). The
 reference's ``_qspec`` (context-parallel queries where a 16-wide axis
 does not divide 20 heads) is a layout hint of GSPMD with no counterpart.
 Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6.
@@ -163,15 +166,21 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
         h = cm.act_fn("gelu")(torch.einsum("bsd,df->bsf", h, lp["w1"]) + lp["b1"])
         return x + self._reduce_out(torch.einsum("bsf,fd->bsd", h, lp["w2"]), ffn) + lp["b2"]
 
-    def _run_stack(self, layer, stack, x, *extra):
+    def _run_stack(self, layer, name, stack, x, *extra):
         """``x = layer(x, *extra, lp)`` for each layer ``lp`` of ``stack``
-        (sub-layers of leaves stacked on a leading axis), each recomputed in
-        the backward pass under remat."""
+        (sub-layers of leaves stacked on a leading axis; ``name`` its key in
+        the params tree), each recomputed in the backward pass under remat,
+        its leaves gathered over ``data`` inside that region."""
         keys = [(sub, k) for sub in stack for k in stack[sub]]
+        lspecs = None
+        if self._dp() > 1:
+            specs = self.param_specs(self.mesh)[name]
+            lspecs = [specs[sub][k] for sub, k in keys]
 
         def body(x, *args):
             lp: dict = {}
-            for (sub, k), t in zip(keys, args[len(extra):]):
+            leaves = self._zero_layer(args[len(extra):], lspecs)
+            for (sub, k), t in zip(keys, leaves):
                 lp.setdefault(sub, {})[k] = t
             return layer(x, *args[:len(extra)], lp)
 
@@ -195,13 +204,14 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
             x = self._sa(x, lp["self"], causal=False, q_pos=pos)
             return self._mlp(x, lp["mlp"])
 
-        x = self._run_stack(layer, params["enc"], x)
+        x = self._run_stack(layer, "enc", params["enc"], x)
         return layer_norm(x, params["enc_norm_s"], params["enc_norm_b"])
 
     # -- decoder (train) -------------------------------------------------------------
     def dec_hidden(self, params, tokens, enc_out):
         cfg = self.cfg
         B, S = tokens.shape
+        params = self._zero_top(params)
         x = self._lookup(params["embed"], tokens).to(cfg.dtype)
         x = x + params["pos_dec"][:S][None].to(cfg.dtype)
         q_pos = self._positions(B, S, x.device)
@@ -216,13 +226,15 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
 
         # the whole encoder output feeds this rank's cross K/V heads only
         enc_out = self._copy_in(enc_out, self._split(cfg.n_heads))
-        x = self._run_stack(layer, params["dec"], x, enc_out)
+        x = self._run_stack(layer, "dec", params["dec"], x, enc_out)
         return layer_norm(x, params["dec_norm_s"], params["dec_norm_b"])
 
     def dec_logits(self, params, tokens, enc_out):
+        params = self._zero_top(params)
         return self._unembed(params, self.dec_hidden(params, tokens, enc_out))
 
     def loss(self, params, batch):
+        params = self._zero_top(params)
         enc = self.encode(params, batch["audio_embed"])
         h = self.dec_hidden(params, batch["tokens"][:, :-1], enc)
         return self._xent(params, h, batch["tokens"][:, 1:])

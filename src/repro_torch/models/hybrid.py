@@ -258,13 +258,16 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
     def hidden(self, params, tokens):
         cfg = self.cfg
         B, S = tokens.shape
+        params = self._zero_top(params)
         x = self._embed(params, tokens)
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         names = ("rec0", "rec1", "attn")
         keys = {n: list(params[n]) for n in names}
+        specs = self.param_specs(self.mesh) if self._dp() > 1 else None
+        lspecs = None if specs is None else [specs[n][k] for n in names for k in keys[n]]
 
         def body(x, *leaves):
-            it = iter(leaves)
+            it = iter(self._zero_layer(leaves, lspecs))
             blk = {n: {k: next(it) for k in keys[n]} for n in names}
             x, _, _ = self._rec_layer(x, blk["rec0"])
             x, _, _ = self._rec_layer(x, blk["rec1"])
@@ -275,9 +278,10 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
             x = step(x, *leaves)
         if self.n_tail:
             tkeys = list(params["tail"])
+            tspecs = None if specs is None else [specs["tail"][k] for k in tkeys]
 
             def tail_body(x, *leaves):
-                return self._rec_layer(x, dict(zip(tkeys, leaves)))[0]
+                return self._rec_layer(x, dict(zip(tkeys, self._zero_layer(leaves, tspecs))))[0]
 
             tail_step = cm.maybe_remat(tail_body, cfg)
             for leaves in cm.layer_slices([params["tail"][k] for k in tkeys]):
@@ -288,12 +292,14 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
         return params["embed"].T.to(self.cfg.dtype)
 
     def logits(self, params, tokens):
+        params = self._zero_top(params)
         return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
+        params = self._zero_top(params)
         h = self.hidden(params, tokens[:, :-1])
         return self._xent(params, h, tokens[:, 1:], final_cap=self.cfg.final_softcap)
 

@@ -49,7 +49,10 @@ another order, with no atomics.
 
 Over the pod and data axes each rank routes its own rows, with the
 capacity C taken over its own tokens, as the reference's per-shard
-``block`` does inside its ``shard_map``.
+``block`` does inside its ``shard_map``. Over a ``data`` axis (ZeRO-3)
+the router and each rank's expert blocks are cut by ``D`` too and reach
+``_mlp`` gathered whole in ``D`` (``DenseLM._backbone`` gathers a layer's
+leaves before its attention), still cut over ``model``.
 """
 from __future__ import annotations
 

@@ -255,16 +255,21 @@ class Mamba2LM(cm.ShardingMixin, torch.nn.Module):
         """Over a ``model`` axis the block runs head-parallel: each rank
         its heads' z, x, dt and the whole B, C from the whole ``w_in``, the
         conv on its channels, the SSD on its heads, the gated norm over
-        the whole ``d_inner`` and a row-parallel ``w_out``."""
+        the whole ``d_inner`` and a row-parallel ``w_out``. Over a ``data``
+        axis ``w_in`` and ``w_out`` are gathered first (ZeRO-3), before the
+        head-parallel column selection."""
         cfg = self.cfg
         B, S = tokens.shape
+        params = self._zero_top(params)
         x = self._embed(params, tokens)
         hd = cfg.ssm_head_dim
         keys = list(params["blocks"])
         part = self._split(self.d_inner)
+        specs = self.param_specs(self.mesh)["blocks"] if self._dp() > 1 else None
+        lspecs = None if specs is None else [specs[k] for k in keys]
 
         def body(x, *leaves):
-            lp = self._local(dict(zip(keys, leaves)))
+            lp = self._local(dict(zip(keys, self._zero_layer(leaves, lspecs))))
             h = self._copy_in(cm.rms_norm(x, lp["ln"]), part)
             z, xin, Bc, Cc, dt = self._split_proj(h, lp)
             xc, Bc, Cc, _ = self._conv_split(xin, Bc, Cc, lp)
@@ -286,12 +291,14 @@ class Mamba2LM(cm.ShardingMixin, torch.nn.Module):
         return params["embed"].T.to(self.cfg.dtype)
 
     def logits(self, params, tokens):
+        params = self._zero_top(params)
         return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
+        params = self._zero_top(params)
         h = self.hidden(params, tokens[:, :-1])
         return self._xent(params, h, tokens[:, 1:])
 

@@ -22,8 +22,12 @@ rank's blocks of the weights (``param_specs``, then
 (whole where the axis does not divide them, as gemma-2b's one kv head),
 ``wo`` row-parallel, ``wi``/``wg`` column- and ``wmo`` row-parallel, and
 ``embed``/``unembed`` by vocab, each bracketed by ``ShardingMixin``'s
-operators. The residual stays whole on every model rank. Decode over a
-``model`` axis waits for ROADMAP Queue 1 item 6.
+operators. The residual stays whole on every model rank. Over a ``data``
+axis (ZeRO-3) every weight's ``d_model`` dim is cut too: a block's leaves
+are gathered inside its remat region, ``embed`` / ``unembed`` once a
+forward (``_zero_top``), and their gradients reduce-scattered. Decode
+takes whole params; over a ``model`` axis it waits for ROADMAP Queue 1
+item 6.
 """
 from __future__ import annotations
 
@@ -80,9 +84,10 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         return params
 
     def param_specs(self, mesh, *, serve: bool = False) -> Any:
-        """The reference's train-time PartitionSpecs, entry for entry. Only
-        the ``model`` entries cut a leaf (``distributed.mesh.shard``); the
-        ``data`` ones (ZeRO-3) wait for ROADMAP Queue 1 item 5."""
+        """The reference's train-time PartitionSpecs, entry for entry: the
+        ``model`` entries cut a leaf for tensor parallelism and the ``data``
+        ones (every weight's ``d_model`` dim) for ZeRO-3
+        (``distributed.mesh.shard``)."""
         if serve:
             raise NotImplementedError(
                 "weight-stationary serve specs are not ported (ROADMAP Queue 1 item 6)")
@@ -178,16 +183,23 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
     # -- train forward -------------------------------------------------------
     def hidden(self, params, tokens):
         """Backbone: final-normed hidden states (B, S, D)."""
+        params = self._zero_top(params)
         return self._backbone(params, self._embed(params, tokens))
 
     def _backbone(self, params, x):
         """The blocks and the final norm over embedded inputs ``x`` (B, S, D)
-        at positions 0..S-1."""
+        at positions 0..S-1; each block's leaves are gathered over ``data``
+        inside its remat region."""
         B, S = x.shape[:2]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        lspecs = None
+        if self._dp() > 1:
+            specs = self.param_specs(self.mesh)["blocks"]
+            lspecs = [specs[str(i)][k] for i in range(len(self.pattern))
+                      for k in params["blocks"][str(i)]]
 
         def body(x, *leaves):
-            it = iter(leaves)
+            it = iter(self._zero_layer(leaves, lspecs))
             for i, kind in enumerate(self.pattern):
                 lp = {k: next(it) for k in params["blocks"][str(i)]}
                 x = self._attn(x, lp, kind, pos)
@@ -207,12 +219,14 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         return w.to(cfg.dtype)
 
     def logits(self, params, tokens):
+        params = self._zero_top(params)
         return self._unembed(params, self.hidden(params, tokens))
 
     forward = logits
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
+        params = self._zero_top(params)
         h = self.hidden(params, tokens[:, :-1])
         return self._xent(params, h, tokens[:, 1:], final_cap=self.cfg.final_softcap)
 

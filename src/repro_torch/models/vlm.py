@@ -7,7 +7,8 @@ embeddings as a causal prefix; the loss is masked to text positions.
 Decode is ``DenseLM``'s, unchanged: like the reference, the model has no
 call that puts a visual prefix into the cache. Over a ``model`` axis the
 lookup and the loss are ``DenseLM``'s vocab-parallel ones (internvl2-2b's
-odd vocab of 92553 keeps ``embed`` and ``unembed`` whole).
+odd vocab of 92553 keeps ``embed`` and ``unembed`` whole over it); over a
+``data`` axis the prefix path gathers ``embed`` once, as ``hidden`` does.
 """
 from __future__ import annotations
 
@@ -22,17 +23,20 @@ class InternVLM(DenseLM):
         followed by the tokens (looked up without ``embed_scale``, as the
         reference's ``_lookup``), at positions 0..Nv+S-1."""
         cfg = self.cfg
+        params = self._zero_top(params)
         xt = self._lookup(params["embed"], tokens)
         x = torch.cat([vis_embed.to(cfg.dtype), xt.to(cfg.dtype)], dim=1)
         return self._backbone(params, x)
 
     def logits_mm(self, params, tokens, vis_embed):
+        params = self._zero_top(params)
         return self._unembed(params, self.hidden_mm(params, tokens, vis_embed))
 
     def loss(self, params, batch):
         tokens = batch["tokens"]
         vis = batch["vis_embed"]
         Nv = vis.shape[1]
+        params = self._zero_top(params)
         h = self.hidden_mm(params, tokens[:, :-1], vis)
         # text-only loss: positions [Nv-1, Nv+S-2) predict tokens[:, 1:]
         h_text = h[:, Nv - 1 : -1] if Nv > 0 else h

@@ -221,6 +221,9 @@ class _Task:
         self.striped_chunks = 0
         self.state = tk.PENDING
         self.error: str | None = None
+        # False from _finish()'s transition until its event has gone out:
+        # wait() returns only on a terminal state that is also settled
+        self.settled = True
         self.lock = threading.Lock()
         # observability: per-worker lane ids, queue-entry timestamps (queue-
         # wait spans), the task's monotonic activation mark and root span id
@@ -715,7 +718,7 @@ class TransferService:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
             t = self._require(task_id)
-            while t.state not in tk.TERMINAL:
+            while t.state not in tk.TERMINAL or not t.settled:
                 remaining = None if deadline is None else deadline - time.monotonic()
                 if remaining is not None and remaining <= 0:
                     raise TimeoutError(f"task {task_id} still {t.state} after {timeout}s")
@@ -1940,14 +1943,15 @@ class TransferService:
             if state == tk.PAUSED and not t.pause_evt.is_set():
                 state = tk.PENDING      # resume() raced the pause drain
             self._transition(t, state, error)
+            t.settled = False
             if state in tk.TERMINAL:
                 t.finished_s = wall_s()
             if state == tk.SUCCEEDED:
                 t.item_reports = reports
             self._alloc_dirty = True
-        # waiters are notified AFTER the terminal event is emitted (below),
-        # so a client woken by wait() observes the event-stream effect of the
-        # transition too — subscribers never lag a returned wait()
+        # the task is settled only AFTER the terminal event is emitted
+        # (below): a wait() woken by any other notify in between sees it
+        # unsettled and sleeps on, so subscribers never lag a returned wait()
         if t.t0_mono is not None:
             # task root span: the makespan window obs.attr sweeps by default
             self.tracer.add("task", "task", t.t0_mono, mono_s(),
@@ -1981,6 +1985,7 @@ class TransferService:
                     pass           # mask the task failure it is documenting
         finally:
             with self._cond:
+                t.settled = True
                 self._cond.notify_all()
 
     def _task_metrics(self, t: _Task) -> dict[str, Any]:

@@ -29,7 +29,9 @@ global batch. For ``sync_mode`` "auto", "chunked" and "chunked_bf16":
     the same decay), and all but 1e-3 of each leaf's within 1e-3·lr; later
     steps compound the flips along a trajectory whose loss swings from
     33.6 to 35.7 to 28.5 at this lr, so only its losses are held there;
-  * every rank ends with the same params, bit for bit.
+  * every rank ends with the same params, bit for bit: gathered whole, and
+    each ZeRO block (every weight's ``d_model`` dim is cut over ``data``)
+    on the ranks that hold it.
 
 Every other family trains over pod x data the same way (model = 1): the
 smoke configs of qwen3-moe-30b-a3b (each rank routes its own rows, with
@@ -148,10 +150,38 @@ def _require_contiguous(dist) -> list:
 
     for name in ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
                  "batch_isend_irecv", "barrier", "reduce_scatter_tensor",
-                 "reduce_scatter_single"):
-        if hasattr(dist, name):          # reduce_scatter_single: torch >= 2.13
+                 "reduce_scatter_single", "all_gather_into_tensor", "all_gather_single"):
+        if hasattr(dist, name):          # the *_single names: torch >= 2.13
             setattr(dist, name, wrap(name, getattr(dist, name)))
     return loose
+
+
+def cut_of(mesh, specs) -> dict:
+    """Each leaf's key -> the mesh axes over 1 that cut it (ZeRO's ``data``,
+    tensor parallelism's ``model``)."""
+    from repro_torch.distributed.mesh import cut_axes
+    return {k: list(cut_axes(mesh, s)) for k, s in _flat(specs).items()}
+
+
+def assert_blocks_agree(arrays, coords, cut, prefix):
+    """Every leaf under ``prefix`` bit-equal across the ranks that hold the
+    same block of it: those whose indices on the axes that cut the leaf
+    agree (every rank, for a leaf no axis cuts). ``coords`` is each rank's
+    {axis: index}, ``cut`` each leaf's axes."""
+    n = 0
+    for key, axes in cut.items():
+        k = f"{prefix}{key}"
+        first: dict = {}
+        for r, arr in enumerate(arrays):
+            if k not in arr:
+                continue
+            n += 1
+            at = tuple(coords[r][a] for a in axes)
+            if at in first:
+                assert arr[k].tobytes() == arrays[first[at]][k].tobytes(), (r, k)
+            else:
+                first[at] = r
+    assert n, prefix
 
 
 def _port_steps(rank, root):
@@ -159,7 +189,7 @@ def _port_steps(rank, root):
 
     from repro_torch.configs import registry as treg
     from repro_torch.configs.registry import ShapeCell
-    from repro_torch.convert import params_from_reference
+    from repro_torch.convert import gather_params, params_from_reference
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.distributed.mesh import make_mesh
     from repro_torch.launch import train
@@ -170,11 +200,14 @@ def _port_steps(rank, root):
     mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cpu")
     rows = TokenPipeline._rows(BATCH, mesh)
     model = treg.build_model("gemma-2b", mesh, smoke=True)
+    specs = model.param_specs(mesh)
     ref = _unflat(dict(np.load(root / "params.npz")))
     ocfg = adamw.AdamWConfig(lr=LR, warmup_steps=1)
-    out, meta = {}, {"rank": {"pod": mesh.rank("pod"), "data": mesh.rank("data")}}
+    out, meta = {}, {"rank": {"pod": mesh.rank("pod"), "data": mesh.rank("data")},
+                     "coords": {a: mesh.rank(a) for a in ("pod", "data", "model")},
+                     "cut": {"gemma-2b": cut_of(mesh, specs)}}
     for mode in MODES:
-        params = params_from_reference(ref, "cpu")
+        params = train.shard_state(mesh, params_from_reference(ref, "cpu"), specs)
         opt = adamw.init(params, ocfg)
         step = build_train_step(model, mesh, ocfg, cell=ShapeCell("t", SEQ, BATCH, "train"),
                                 sync_mode=mode).fn
@@ -190,17 +223,21 @@ def _port_steps(rank, root):
                 losses.append(float(stats["loss"]))
                 norms.append(float(stats["grad_norm"]))
                 for key, t in _flat(params).items():
+                    out[f"block/{mode}/{i}/{key}"] = t.numpy().copy()
+                for key, t in _flat(gather_params(params, mesh, specs)).items():
                     out[f"{mode}/{i}/{key}"] = t.numpy().copy()
         finally:
             data.close()
         meta[mode] = {"losses": losses, "grad_norms": norms}
     for arch in FAMILIES:
         model = train.with_layers(treg.build_model(arch, mesh, smoke=True), FAMILY_LAYERS.get(arch))
+        fspecs = model.param_specs(mesh)
+        meta["cut"][arch] = cut_of(mesh, fspecs)
         ref = _unflat(dict(np.load(root / f"params-{arch}.npz")))
         inputs = {k: torch.from_numpy(v[rows]) for k, v in
                   np.load(root / f"inputs-{arch}.npz").items()}
         for mode in FAMILY_MODES:
-            params = params_from_reference(ref, "cpu")
+            params = train.shard_state(mesh, params_from_reference(ref, "cpu"), fspecs)
             opt = adamw.init(params, ocfg)
             step = build_train_step(model, mesh, ocfg, cell=ShapeCell("t", SEQ, BATCH, "train"),
                                     sync_mode=mode).fn
@@ -214,6 +251,8 @@ def _port_steps(rank, root):
                     norms.append(float(stats["grad_norm"]))
                     if i == 0:
                         for key, t in _flat(params).items():
+                            out[f"block/{arch}/{mode}/0/{key}"] = t.numpy().copy()
+                        for key, t in _flat(gather_params(params, mesh, fspecs)).items():
                             out[f"{arch}/{mode}/0/{key}"] = t.numpy().copy()
             finally:
                 data.close()
@@ -411,6 +450,9 @@ def test_rank_blocks_concatenate_to_the_reference_batch(port):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_every_rank_ends_with_the_same_params(mode, port):
+    """Every rank's params, gathered whole, bit-equal after every step; each
+    rank's own ZeRO blocks bit-equal on the ranks that hold the same block
+    (the two pods)."""
     arrays, meta = port
     keys = sorted(k for k in arrays[0] if k.startswith(mode + "/"))
     assert keys
@@ -418,6 +460,10 @@ def test_every_rank_ends_with_the_same_params(mode, port):
         assert meta[r][mode] == meta[0][mode]
         for k in keys:
             assert arrays[r][k].tobytes() == arrays[0][k].tobytes(), (r, k)
+    assert any(meta[0]["cut"]["gemma-2b"].values())          # ZeRO cuts over data
+    coords = [m["coords"] for m in meta]
+    for i in range(STEPS):
+        assert_blocks_agree(arrays, coords, meta[0]["cut"]["gemma-2b"], f"block/{mode}/{i}/")
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -457,7 +503,8 @@ def test_every_family_trains_over_pod_x_data(case, port, reference, root):
     norm within LOSS_RTOL, the params after step 1 within UPDATE_RTOL of
     the norm of the reference's update over the elements whose AdamW
     denominator is settled (the others within 2·lr), and every rank's
-    params after step 1 bit-equal.
+    params after step 1 bit-equal, gathered whole and block by block on
+    the ranks that share a block.
 
     The reference's MoE cannot take the chunked step on the installed JAX:
     its ``_mlp`` opens a ``shard_map`` over the whole mesh inside the
@@ -494,6 +541,8 @@ def test_every_family_trains_over_pod_x_data(case, port, reference, root):
         for r in range(1, 4):
             assert arrays[r][k].tobytes() == arrays[0][k].tobytes(), (r, k)
         assert meta[3][case] == meta[0][case]
+    assert_blocks_agree(arrays, [m["coords"] for m in meta], meta[0]["cut"][case.split("/")[0]],
+                        f"block/{case}/0/")
 
 
 def test_every_tensor_sent_is_contiguous(port):

@@ -28,9 +28,11 @@ Held, case by case:
   * step 1's gradients, meaned over pod x data and gathered over
     ``model``, within ``GRAD_RTOL`` of each leaf's norm;
   * three train steps' losses and step 1's grad norm within ``LOSS_RTOL``;
-  * every leaf that is not cut over ``model`` bit-equal on every rank after
-    every step (the router, the norms, the kv heads that four columns do
-    not divide);
+  * every leaf bit-equal after every step on the ranks that hold the same
+    block of it: every rank for a leaf no axis cuts, and over a ``data``
+    axis the ranks of one ZeRO block (every weight's ``d_model`` dim is cut
+    over ``data``; the router, the kv heads that four columns do not
+    divide, and the norms stay whole over ``model``);
   * every tensor handed to ``torch.distributed`` contiguous, as NCCL needs
     (the all-to-alls' buffers included).
 
@@ -59,7 +61,8 @@ import torch
 
 from test_torch_collectives import spawn_world
 from test_torch_dist_train import (
-    _flat, _require_contiguous, _unflat, finish_multidevice, start_multidevice)
+    _flat, _require_contiguous, _unflat, assert_blocks_agree, cut_of, finish_multidevice,
+    start_multidevice)
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = LOSS_RTOL              # of a leaf's gradient norm: f32, summation order only
@@ -256,7 +259,8 @@ def _port_ep(rank, root):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.distributed.mesh import make_mesh, model_dims
     from repro_torch.launch import train
-    from repro_torch.launch.steps import _value_and_grad, build_train_step, world_mean
+    from repro_torch.launch.steps import (
+        _value_and_grad, batch_mean, build_train_step, zero_leaves)
     from repro_torch.configs.registry import ShapeCell
     from repro_torch.models.moe import capacity
     from repro_torch.optim import adamw
@@ -298,10 +302,8 @@ def _port_ep(rank, root):
                                                        minlength=E) - C, min=0).sum())
                         for p in model.route_log)
                     model.route_log = None
-                    shards = shape[0] * shape[1]                 # pod x data
-                    if shards > 1:
-                        loss = world_mean(loss, mesh.batch_group, shards)
-                        grads = world_mean(grads, mesh.batch_group, shards)
+                    if shape[0] * shape[1] > 1:                  # pod x data
+                        loss, grads = batch_mean(loss, grads, mesh, zero_leaves(model, mesh))
                     meta[f"{name}/loss0"] = float(loss)
                     for key, t in _flat(gather_params(grads, mesh, specs)).items():
                         if rank == 0:
@@ -310,11 +312,10 @@ def _port_ep(rank, root):
                 losses.append(float(stats["loss"]))
                 norms.append(float(stats["grad_norm"]))
                 for key, t in _flat(params).items():
-                    if not model_dims(_flat(specs)[key]):
-                        out[f"{name}/{i}/{key}"] = t.numpy().copy()      # every rank's own
+                    out[f"{name}/{i}/{key}"] = t.numpy().copy()          # every rank's own
         finally:
             data.close()
-        meta[name] = {"losses": losses, "grad_norms": norms,
+        meta[name] = {"losses": losses, "grad_norms": norms, "cut": cut_of(mesh, specs),
                       "whole": sorted(k for k, s in _flat(specs).items() if not model_dims(s))}
     # the launcher on data x model, then a restore onto another model size
     ck = root / "launch"
@@ -427,21 +428,22 @@ def test_train_steps_match_the_reference(name, port, reference):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_every_model_rank_has_the_same_losses_and_whole_leaves(name, port):
-    """Every rank reports the same losses and grad norms, and every leaf that
-    is not cut over ``model`` is bit-equal on all four ranks after every
-    step: the router's and the normed residual's partial gradients are
-    summed over ``model``, so no rank's copy drifts."""
+    """Every rank reports the same losses and grad norms, and every leaf is
+    bit-equal after every step on the ranks that hold the same block of it
+    (on all four ranks for a leaf no axis cuts; over a ``data`` axis ZeRO
+    cuts every weight's ``d_model`` dim, the router's too): the router's
+    and the normed residual's partial gradients are summed over ``model``,
+    so no rank's copy drifts."""
     arrays, meta = port
     whole = meta[0][name]["whole"]
     assert {"blocks/0/router", "blocks/0/ln2", "final_norm"} <= set(whole)
     assert not {"blocks/0/we_g", "blocks/0/we_i", "blocks/0/we_o"} & set(whole)
+    coords = [m["mesh"][name] for m in meta]
     for r in range(1, 4):
         assert meta[r][name]["losses"] == meta[0][name]["losses"]
         assert meta[r][name]["grad_norms"] == meta[0][name]["grad_norms"]
-        for i in range(STEPS):
-            for key in whole:
-                k = f"{name}/{i}/{key}"
-                assert arrays[r][k].tobytes() == arrays[0][k].tobytes(), (r, k)
+    for i in range(STEPS):
+        assert_blocks_agree(arrays, coords, meta[0][name]["cut"], f"{name}/{i}/")
 
 
 def test_the_hot_case_drops_assignments(port):

@@ -158,7 +158,43 @@ def test_submit_to_complete(pkg, tmp_path):
             assert read(src) == read(dst)
         for rep, (src, _dst) in zip(st.item_reports, items):
             assert rep.digest_hex == pkg.fingerprint_bytes(read(src)).hexdigest()
+        if pkg.name == "repro":
+            # the reference's wait() may return before its terminal event
+            # has gone out (pinned by test_wait_does_not_return_before_the_event)
+            t0 = time.monotonic()
+            while "SUCCEEDED" not in kinds and time.monotonic() - t0 < 5:
+                time.sleep(0.005)
         assert "SUBMITTED" in kinds and "ACTIVATED" in kinds and "SUCCEEDED" in kinds
+    finally:
+        svc.close()
+
+
+def test_wait_does_not_return_before_the_event(pkg, tmp_path):
+    """A notify from another thread between ``_finish``'s transition and
+    its emit must not let ``wait()`` return ahead of the SUCCEEDED event.
+    The port settles the task only after the emit; the reference returns
+    early (a fault of the reference, pinned here)."""
+    items = make_files(tmp_path, 4, 100_000)
+    svc = pkg.TransferService(tmp_path / "svc", svc_config(pkg))
+    kinds = []
+    svc.subscribe(lambda e: kinds.append(e.kind))
+    emit = svc.events.emit
+
+    def slow_succeeded(kind, *args, **kw):
+        if kind == "SUCCEEDED":
+            with svc._cond:
+                svc._cond.notify_all()
+            time.sleep(0.3)
+        return emit(kind, *args, **kw)
+    svc.events.emit = slow_succeeded
+    try:
+        [tid] = svc.submit(items, tenant="alice", batch=False)
+        st = svc.wait(tid, timeout=30)
+        assert st.state == "SUCCEEDED"
+        if pkg.name == "repro_torch":
+            assert "SUCCEEDED" in kinds
+        else:
+            assert "SUCCEEDED" not in kinds
     finally:
         svc.close()
 

@@ -59,7 +59,8 @@ import torch
 
 from test_torch_collectives import spawn_world
 from test_torch_dist_train import (
-    ADAM_B2, SETTLED, _flat, _require_contiguous, _unflat, finish_multidevice, start_multidevice)
+    ADAM_B2, SETTLED, _flat, _require_contiguous, _unflat, assert_blocks_agree, cut_of,
+    finish_multidevice, start_multidevice)
 
 LOSS_RTOL, UPDATE_RTOL = 1e-4, 1e-3
 GRAD_RTOL = LOSS_RTOL              # of a leaf's gradient norm: f32, summation order only
@@ -76,6 +77,7 @@ CASES = [(arch, shape, mode, vocab)
 # over ATTN_DENSE_MAX (1024) and two seq chunks of the loss (512): the blocked
 # attention and the vocab-parallel chunked cross-entropy, recomputed under remat
 LONG_SEQ = 1100
+SHARD_MESHES = ((1, 1, 4), (2, 2, 1))
 ELASTIC_ARGS = ["--arch", "gemma-2b", "--smoke", "--seq-len", "32", "--global-batch", "4",
                 "--log-every", "0", "--lr", "3e-3", "--device", "cpu", "--seed", "1"]
 
@@ -217,7 +219,8 @@ def _port_tp(rank, root):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.distributed.mesh import P, gather, make_mesh, model_dims, shard
     from repro_torch.launch import train
-    from repro_torch.launch.steps import _value_and_grad, build_train_step, world_mean
+    from repro_torch.launch.steps import (
+        _value_and_grad, batch_mean, build_train_step, zero_leaves)
     from repro_torch.optim import adamw
 
     loose = _require_contiguous(dist)
@@ -255,10 +258,9 @@ def _port_tp(rank, root):
                 if vlm:
                     batch["vis_embed"] = torch.from_numpy(inp["train_vis"][rows])
                 if i == 0:
-                    grads = _value_and_grad(model, params, batch)[1]
-                    shards = shape[0] * shape[1]                 # pod x data
-                    if shards > 1:
-                        grads = world_mean(grads, mesh.batch_group, shards)
+                    loss, grads = _value_and_grad(model, params, batch)
+                    if shape[0] * shape[1] > 1:                  # pod x data
+                        grads = batch_mean(loss, grads, mesh, zero_leaves(model, mesh))[1]
                     for key, t in _flat(gather_params(grads, mesh, specs)).items():
                         if rank == 0:
                             out[f"{name}/grad/{key}"] = t.numpy().copy()
@@ -266,23 +268,24 @@ def _port_tp(rank, root):
                 losses.append(float(stats["loss"]))
                 norms.append(float(stats["grad_norm"]))
                 full = _flat(gather_params(params, mesh, specs)) if i == 0 else {}
-                flat_specs = _flat(specs)
                 for key, t in _flat(params).items():
-                    if not model_dims(flat_specs[key]):
-                        out[f"{name}/{i}/{key}"] = t.numpy().copy()      # every rank's own
-                    elif rank == 0 and i == 0:
+                    out[f"block/{name}/{i}/{key}"] = t.numpy().copy()    # every rank's own
+                    if rank == 0 and i == 0:
                         out[f"{name}/{i}/{key}"] = full[key].numpy().copy()
         finally:
             data.close()
-        meta[name] = {"losses": losses, "grad_norms": norms,
+        meta[name] = {"losses": losses, "grad_norms": norms, "cut": cut_of(mesh, specs),
                       "whole": sorted(k for k, s in _flat(specs).items() if not model_dims(s))}
     # the blocks of a whole tensor, and the long-sequence paths under remat
-    mesh = make_mesh((1, 1, 4), AXES, device="cpu")
     x = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
-    for spec in (P(None, "model"), P(("pod", "data"), "model"), P("model", None)):
-        block = shard(mesh, x, spec)
-        out[f"shard/{spec!r}"] = block.numpy().copy()
-        out[f"gather/{spec!r}"] = gather(mesh, block, spec).numpy()
+    for shape in SHARD_MESHES:
+        mesh = make_mesh(shape, AXES, device="cpu")
+        for spec in (P(None, "model"), P(("pod", "data"), "model"), P("model", None),
+                     P("data", None)):
+            block = shard(mesh, x, spec)
+            out[f"shard/{shape}/{spec!r}"] = block.numpy().copy()
+            out[f"gather/{shape}/{spec!r}"] = gather(mesh, block, spec).numpy()
+    mesh = make_mesh((1, 1, 4), AXES, device="cpu")
     model = train.rebuild(treg.build_model("gemma-2b", mesh, smoke=True),
                           dataclasses.replace(treg.get_config("gemma-2b", smoke=True), remat="full"))
     whole = params_from_reference(_unflat(dict(np.load(root / "params-gemma-2b.npz"))), "cpu")
@@ -413,10 +416,12 @@ def test_train_steps_match_the_reference(name, port, reference, root):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_every_model_rank_has_the_same_losses_and_whole_leaves(name, port):
-    """Every rank reports the same losses and grad norms, and every leaf that
-    is not cut over ``model`` is bit-equal on all four ranks after every
-    step: the operators sum each partial gradient of a whole leaf over
-    ``model``, so no rank's copy drifts."""
+    """Every rank reports the same losses and grad norms, and every leaf is
+    bit-equal after every step on the ranks that hold the same block of it
+    (all four ranks for a leaf no axis cuts; over a ``data`` axis ZeRO cuts
+    every weight's ``d_model`` dim): the operators sum each partial
+    gradient of a leaf whole over ``model`` over the group, so no rank's
+    copy drifts."""
     arrays, meta = port
     whole = meta[0][name]["whole"]
     assert {"final_norm", "blocks/0/ln1", "blocks/0/ln2"} <= set(whole)
@@ -424,27 +429,38 @@ def test_every_model_rank_has_the_same_losses_and_whole_leaves(name, port):
         assert {"blocks/0/wk", "blocks/0/wv"} <= set(whole)
     if name.endswith(f"v{ODD_VOCAB}"):
         assert "embed" in whole and ("unembed" in whole or name.startswith("gemma-2b"))
+    coords = [m["mesh"][name] for m in meta]
     for r in range(1, 4):
         assert meta[r][name]["losses"] == meta[0][name]["losses"]
         assert meta[r][name]["grad_norms"] == meta[0][name]["grad_norms"]
-        for i in range(STEPS):
-            for key in whole:
-                k = f"{name}/{i}/{key}"
-                assert arrays[r][k].tobytes() == arrays[0][k].tobytes(), (r, k)
+    for i in range(STEPS):
+        assert_blocks_agree(arrays, coords, meta[0][name]["cut"], f"block/{name}/{i}/")
 
 
 @pytest.mark.parametrize("spec", ["P(None, 'model')", "P(('pod', 'data'), 'model')",
-                                  "P('model', None)"])
+                                  "P('model', None)", "P('data', None)"])
 def test_shard_cuts_this_ranks_block_and_gather_undoes_it(spec, port):
-    """``shard`` keeps block r of each dim that names ``model`` (and leaves a
-    ``pod`` / ``data`` entry whole); ``gather`` puts the whole back."""
+    """``shard`` keeps this rank's block of each dim whose entry names mesh
+    axes, row-major over the axes of a tuple entry, as ``jax.device_put``
+    under ``NamedSharding`` cuts it (on (1, 1, 4) and on (2, 2, 1), where
+    ``('pod', 'data')`` cuts over all four ranks); ``gather`` puts the
+    whole back."""
     x = np.arange(8 * 12, dtype=np.float32).reshape(8, 12)
-    dim = 0 if spec.startswith("P('model'") else 1
-    for r, arrays in enumerate(port[0]):
-        n = x.shape[dim] // 4
-        want = x[r * n:(r + 1) * n] if dim == 0 else x[:, r * n:(r + 1) * n]
-        assert arrays[f"shard/{spec}"].tobytes() == want.tobytes()
-        assert arrays[f"gather/{spec}"].tobytes() == x.tobytes()
+    entries = eval(spec, {"P": lambda *e: e})
+    for shape in SHARD_MESHES:
+        for r, arrays in enumerate(port[0]):
+            coords = dict(zip(AXES, np.unravel_index(r, shape)))
+            want = x
+            for d, e in enumerate(entries):
+                axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+                n = int(np.prod([shape[AXES.index(a)] for a in axes]))
+                idx = 0
+                for a in axes:
+                    idx = idx * shape[AXES.index(a)] + int(coords[a])
+                size = x.shape[d] // n
+                want = np.take(want, range(idx * size, (idx + 1) * size), axis=d)
+            assert arrays[f"shard/{shape}/{spec}"].tobytes() == want.tobytes(), (shape, r)
+            assert arrays[f"gather/{shape}/{spec}"].tobytes() == x.tobytes()
 
 
 def test_long_sequences_under_remat_match_one_device(port, root):

@@ -59,7 +59,8 @@ import torch
 
 from test_torch_collectives import spawn_world
 from test_torch_dist_train import (
-    ADAM_B2, SETTLED, _flat, _require_contiguous, _unflat, finish_multidevice, start_multidevice)
+    ADAM_B2, SETTLED, _flat, _require_contiguous, _unflat, assert_blocks_agree, cut_of,
+    finish_multidevice, start_multidevice)
 
 LOSS_RTOL, UPDATE_RTOL = 1e-4, 1e-3
 GRAD_RTOL = LOSS_RTOL              # of a leaf's gradient norm: f32, summation order only
@@ -339,13 +340,13 @@ def _port_tp(rank, root):
                             out[f"{name}/grad/{key}"] = t.numpy().copy()
                 full = _flat(gather_params(params, mesh, specs)) if i == 0 else {}
                 for key, t in _flat(params).items():
-                    if not model_dims(flat_specs[key]):
-                        out[f"{name}/{i}/{key}"] = t.numpy().copy()      # every rank's own
-                    elif rank == 0 and i == 0:
+                    out[f"block/{name}/{i}/{key}"] = t.numpy().copy()    # every rank's own
+                    if rank == 0 and i == 0:
                         out[f"{name}/{i}/{key}"] = full[key].numpy().copy()
         finally:
             data.close()
         meta[name] = {"losses": losses, "grad_norms": norms,
+                      "coords": {a: mesh.rank(a) for a in AXES}, "axes": cut_of(mesh, specs),
                       "whole": sorted(k for k, s in flat_specs.items() if not model_dims(s)),
                       "cut": sorted(k for k, s in flat_specs.items() if model_dims(s))}
     # each family under remat="full" on (1, 1, 4): the recompute's collectives
@@ -640,11 +641,13 @@ WHOLE = {"mamba2-370m": {"blocks/w_in", "blocks/conv_w", "blocks/A_log", "blocks
 
 @pytest.mark.parametrize("name", NAMES)
 def test_every_model_rank_has_the_same_losses_and_whole_leaves(name, port):
-    """Every rank reports the same losses and grad norms, and every leaf that
-    is not cut over ``model`` is bit-equal on all four ranks after every
-    step (mamba2's whole ``w_in``, ``conv_w`` and per-head leaves, which
-    each rank uses for its own heads; recurrentgemma's one kv head; the
-    whole heads and vocabs of the override cases)."""
+    """Every rank reports the same losses and grad norms, and every leaf is
+    bit-equal after every step on the ranks that hold the same block of it:
+    all four ranks for a leaf no axis cuts, and over a ``data`` axis the
+    ranks of one ZeRO block (every weight's ``d_model`` dim). The leaves
+    whole over ``model`` are mamba2's ``w_in``, ``conv_w`` and per-head
+    leaves, which each rank uses for its own heads, recurrentgemma's one kv
+    head, and the whole heads and vocabs of the override cases."""
     arrays, meta = port
     arch, shape, override = CASES[NAMES.index(name)]
     whole, cut = set(meta[0][name]["whole"]), set(meta[0][name]["cut"])
@@ -661,10 +664,9 @@ def test_every_model_rank_has_the_same_losses_and_whole_leaves(name, port):
     for r in range(1, 4):
         assert meta[r][name]["losses"] == meta[0][name]["losses"]
         assert meta[r][name]["grad_norms"] == meta[0][name]["grad_norms"]
-        for i in range(STEPS):
-            for key in whole:
-                k = f"{name}/{i}/{key}"
-                assert arrays[r][k].tobytes() == arrays[0][k].tobytes(), (r, k)
+    coords = [m[name]["coords"] for m in meta]
+    for i in range(STEPS):
+        assert_blocks_agree(arrays, coords, meta[0][name]["axes"], f"block/{name}/{i}/")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
