@@ -199,7 +199,22 @@ the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
      ZeRO all-gather and reduce-scatter ms a step over ``data`` (apart
      from the model axis's), peak GB a card (the steps' and, for the
      first, the init's) and its state GB a rank; the part prints its
-     seconds;
+     seconds; (g) serving over the model axis (``serve_model_axis_path``;
+     ``--phases serve_model_axis`` runs it alone): gemma-2b at full width,
+     2 layers (``SERVE_ARGS``), its one-device params saved by rank 0 as a
+     params-only root (every host digest patched to raise), then on 1x1x4
+     under the train specs and under the weight-stationary serve specs and
+     on 1x2x2 under the serve specs: each rank restores only its blocks
+     (``restore_checkpoint(keep=)``; bit-equal to rank 0's saved tree,
+     gathered, with the chunk plan's launches), the cache cut by
+     ``cache_specs`` (time over ``model``); the f32 logits of the
+     teacher-forced 64-token prompt for a batch of 4 within ``TP_F32_TOL``
+     of one card's largest at ``TP_F32_LAYERS`` layer and within
+     ``F32_TOL`` at 2 (one card's own f32 forward printed beside), then 32
+     greedy tokens in bf16, counted against one card's (not bounded). Each run prints ms a
+     decoded token (one card's beside it), the model all-gather and
+     all-reduce ms a token (``collective_timer``), cache bytes and peak GB
+     a card, and the save and restore seconds;
  17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
      last line, ``{"ok": true, "device": {...}}``.
 
@@ -1989,6 +2004,11 @@ ZERO_PEAK_MAX = 75e9             # bytes a card: over it the steps run in more p
 CARD_BYTES = 80e9                # an H100's memory: every peak below it
 ZERO_TIMEOUT_S = 480             # each world of the ZeRO part
 
+# serving over the model axis: gemma-2b (SERVE_ARGS) from a params-only root, each
+# (mesh, weight-stationary) run in one world of four
+SERVE_TP_RUNS = (("1x1x4", False), ("1x1x4", True), ("1x2x2", True))
+SERVE_TP_TIMEOUT_S = 480
+
 
 def launch_counters():
     """(reset, counts) of the kernels' launch counters: ``counts()`` maps each
@@ -2748,6 +2768,166 @@ def tp_dist_worker(cfg: dict) -> dict:
     return out
 
 
+def teacher_forced(model, params, prompts, cache_specs=None):
+    """Each step's logits (B, S, V) in f32 of decoding ``prompts`` token by
+    token; under ``cache_specs`` (over the model's mesh), this rank's rows
+    of them, over its blocks of the cache."""
+    from repro_torch.distributed.mesh import P, shard
+    from repro_torch.launch.train import shard_state
+
+    B, S = prompts.shape
+    cache = model.init_cache(B, S, device=prompts.device)
+    kw = {}
+    if cache_specs is not None:
+        cache = shard_state(model.mesh, cache, cache_specs)
+        prompts = shard(model.mesh, prompts, P(cache_specs["p0"][1], None))
+        kw = {"cache_specs": cache_specs}
+    out = []
+    with torch.no_grad():
+        for t in range(S):
+            pos = torch.full((prompts.shape[0],), t, dtype=torch.int32, device=prompts.device)
+            lg, cache = model.decode_step(params, cache, prompts[:, t:t + 1], pos, **kw)
+            out.append(lg.float())
+    return torch.cat(out, dim=1)
+
+
+def f32_cut(model, params, n_layers: int):
+    """``model`` (on its mesh) in f32 at its first ``n_layers`` layers, and
+    ``params`` (whole or this rank's blocks: the layer dim is never cut)
+    cut to them, in f32."""
+    import dataclasses
+
+    from repro_torch.launch.train import with_layers
+    from repro_torch.optim.adamw import tree_map
+
+    cut = with_layers(type(model)(dataclasses.replace(model.cfg, dtype=torch.float32),
+                                  model.mesh), n_layers)
+    blocks = {i: {k: t[:cut.n_blocks] for k, t in lp.items()}
+              for i, lp in params["blocks"].items()}
+    return cut, tree_map(lambda t: t.float(), {**params, "blocks": blocks})
+
+
+def timed_generate(model, params, prompts, gen: int, dev, timer=None):
+    """(rows, ms a decode step) of ``launch.serve.generate`` after a
+    two-token warm-up, with ``timer`` (a ``collective_timer``) entered
+    around the timed run only."""
+    import contextlib
+
+    from repro_torch.launch import serve
+
+    Lp = prompts.shape[1]
+    serve.generate(model, params, prompts, 2, Lp + 2)
+    sync(dev)
+    t0 = time.perf_counter()
+    with timer if timer is not None else contextlib.nullcontext():
+        rows = serve.generate(model, params, prompts, gen, Lp + gen)
+        sync(dev)
+    return rows, 1e3 * (time.perf_counter() - t0) / (Lp + gen - 1)
+
+
+def serve_dist_worker(cfg: dict) -> dict:
+    """One rank of the serve world: rank 0 draws the one-device params of
+    ``cfg["args"]`` (gemma-2b, full width), saves them as a params-only
+    root and decodes on its card alone (the f32 teacher-forced logits of
+    the prompt at the whole depth and at ``TP_F32_LAYERS``, with its own
+    f32 forward's distance from them; the bf16 greedy tokens and their ms
+    a step); then each of ``cfg["runs"]`` (mesh, weight-stationary): every
+    rank restores its blocks of the root under those specs (every host
+    digest patched to raise; compared bit for bit, gathered, with rank 0's
+    saved tree), cuts the cache by ``cache_specs``, decodes the prompt in
+    f32 at both depths (rank 0 holds the gathered logits to its one-card
+    ones) and then ``cfg["gen"]`` greedy tokens in bf16 with every
+    model-axis collective timed, and checks its blocks bit-equal on the
+    ranks that hold them."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import P, cut_axes, gather, shard
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import parse_mesh
+
+    device = cfg["device"]
+    dev = rank_device(device)
+    rank = dist.get_rank()
+    one = smoke_model(cfg["args"])
+    B, Lp, gen = cfg["batch"], cfg["prompt"], cfg["gen"]
+    reset, counts = launch_counters()
+    records: dict = {}
+    mgr = recording_manager(records, dev, reset, counts)(cfg["root"], device=dev)
+    prompts = serve.prompts_for(cfg["seed"], B, Lp, one.cfg.vocab, dev)
+    out: dict = {"rank": rank, "world": dist.get_world_size(), "runs": []}
+    depths = (one.cfg.n_layers, TP_F32_LAYERS)
+    want_f32 = {}
+    if rank == 0:
+        params = one.init_params(cfg["seed"], dev)
+        with host_digests_raise():
+            mgr.save(0, {"params": params})
+        out["one_card"] = {}
+        for n in depths:
+            m32, p32 = f32_cut(one, params, n)
+            want_f32[n] = teacher_forced(m32, p32, prompts)
+            with torch.no_grad():       # one card's own spread: its forward's order of sums
+                fwd = m32.logits(p32, prompts).float()
+            out["one_card"][str(n)] = {
+                "max_logit": float(want_f32[n].abs().max()),
+                "decode_vs_forward": float((fwd - want_f32[n]).abs().max())}
+            del p32, fwd
+        want_rows, one_ms = timed_generate(one, params, prompts, gen, dev)
+        out["one_card"]["ms_per_decode_step"] = one_ms
+        del params
+    dist.barrier()
+    for mesh_spec, stationary in cfg["runs"]:
+        release(dev)
+        mesh = parse_mesh(mesh_spec, device)
+        model = type(one)(one.cfg, mesh)
+        pspecs = model.param_specs(mesh, serve=stationary)
+        flat = flat_tree({"params": pspecs})
+
+        def keep(key, t):
+            s = flat[key]
+            return shard(mesh, t, s).clone() if cut_axes(mesh, s) else t
+
+        with host_digests_raise():
+            params = mgr.restore(keep=keep)[0]["params"]
+        run = {"mesh": mesh_spec, "weight_stationary": stationary}
+        checkpoint_records(records, run, mesh, {"params": pspecs})
+        if "manifest" in run:
+            out["manifest"] = run.pop("manifest")
+        run["blocks_equal"] = blocks_agree(params, pspecs, mesh)
+        run["f32_max_abs_err"] = {}
+        for n in depths:
+            m32, p32 = f32_cut(model, params, n)
+            specs = m32.cache_specs(mesh, B, Lp)
+            got = gather(mesh, teacher_forced(m32, p32, prompts, specs),
+                         P(specs["p0"][1], None, None))
+            if rank == 0:
+                run["f32_max_abs_err"][str(n)] = float((got - want_f32[n]).abs().max())
+            del got, p32
+        reset_peak(dev)
+        timer = collective_timer(dev)
+        mine, ms = timed_generate(model, params, prompts, gen, dev, timer)
+        cache = model.init_cache(B, Lp + gen, device=dev)
+        cspecs = model.cache_specs(mesh, B, Lp + gen)
+        run["cache_bytes"] = sum(t.numel() * t.element_size() for t in
+                                 train.shard_state(mesh, cache, cspecs).values())
+        run["cache_bytes_whole"] = sum(t.numel() * t.element_size() for t in cache.values())
+        del cache
+        steps = Lp + gen - 1
+        run.update(ms_per_decode_step=ms, peak_bytes=peak_bytes(dev),
+                   collective_ms=timer.per_step(steps),
+                   collective_calls={k: len(v) // steps for k, v in timer.calls.items()})
+        whole = gather(mesh, mine, P(cspecs["p0"][1], None))
+        if rank == 0:
+            new, ref = whole[:, Lp:], want_rows[:, Lp:]
+            run["prompt_equal"] = bool(torch.equal(whole[:, :Lp], want_rows[:, :Lp]))
+            run["greedy_agree"] = int((new == ref).sum())
+            run["greedy_tokens"] = int(new.numel())
+            run["first_divergence"] = [int((r != w).nonzero()[0]) if bool((r != w).any())
+                                       else None for r, w in zip(new, ref)]
+        del params
+        out["runs"].append(run)
+    return out
+
+
 def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) -> list[dict]:
     """Run ``name``'s worker on ``n`` ranks under ``python -m
     torch.distributed.run`` (this file in its rank-worker mode, the port on
@@ -2811,7 +2991,8 @@ def rank_worker(name: str, cfg_path: str) -> int:
     init_world(cfg["device"])
     try:
         res = {"collectives": collectives_worker, "train_dist": train_dist_worker,
-               "family_dist": family_dist_worker, "tp_dist": tp_dist_worker}[name](cfg)
+               "family_dist": family_dist_worker, "tp_dist": tp_dist_worker,
+               "serve_dist": serve_dist_worker}[name](cfg)
     except BaseException:
         # leave at once, before any teardown: NCCL's would wait for the
         # peers' collectives, and this rank's error would never be printed
@@ -2839,7 +3020,7 @@ def four_cards(device, smi: str) -> dict | None:
     return {"card": smi, "cards": cards}
 
 
-COLL_PARTS = ("collectives", "expert_axis", "family_model_axis", "zero_axis")
+COLL_PARTS = ("collectives", "expert_axis", "family_model_axis", "zero_axis", "serve_model_axis")
 
 
 def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | None:
@@ -2850,9 +3031,10 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
     process (``ONE_CARD_MICROBATCHES``); (c) the model axis and the other
     families (``model_axis_path``); (d) the expert axis
     (``expert_axis_path``); (e) the model axis of the ssm, hybrid and
-    encdec families (``family_model_axis_path``); first of all, ZeRO-3
-    over ``data`` (``zero_axis_path``). ``parts`` without "collectives"
-    runs those of (d), (e) and ZeRO it names alone. Every check fails the
+    encdec families (``family_model_axis_path``); (f) serving over the
+    model axis (``serve_model_axis_path``); first of all, ZeRO-3 over
+    ``data`` (``zero_axis_path``). ``parts`` without "collectives" runs
+    those of (d), (e), (f) and ZeRO it names alone. Every check fails the
     phase."""
     import shutil
     import tempfile
@@ -2871,6 +3053,8 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
             out.update(family_model_axis_path(seed, device, dev))
         if "zero_axis" in parts:
             out.update(zero_axis_path(seed, device, dev))
+        if "serve_model_axis" in parts:
+            out.update(serve_model_axis_path(seed, device, dev))
         out["seconds"] = time.perf_counter() - t0
         return out
     if "zero_axis" in parts:      # first: its mistral-nemo-12b run is the heaviest
@@ -2996,6 +3180,8 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
         out.update(expert_axis_path(seed, device, dev))
     if "family_model_axis" in parts:
         out.update(family_model_axis_path(seed, device, dev, out["families"]))
+    if "serve_model_axis" in parts:
+        out.update(serve_model_axis_path(seed, device, dev))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3578,6 +3764,111 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
         "seconds": time.perf_counter() - t0}}
 
 
+def serve_model_axis_path(seed: int, device, dev: str) -> dict:
+    """The collectives phase's serving part: ``serve_dist_worker`` on four
+    ranks over ``SERVE_TP_RUNS``. Every check fails the phase: rank 0's
+    save and each restore launch the chunk plan's digests, each rank's
+    restored blocks equal rank 0's saved tree (gathered) and agree on the
+    ranks that hold them, the f32 logits lie within ``TP_F32_TOL`` of one
+    card's largest at ``TP_F32_LAYERS`` layer (as every four-card part
+    holds its f32 forward) and within ``F32_TOL`` at the whole depth (as
+    the one-card serve phase holds its f32 decode against its forward),
+    and the teacher-forced prompt is echoed. The
+    greedy tokens are counted against one card's, not bounded."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    release(device)
+    root = tempfile.mkdtemp(prefix="chip-smoke-serve-tp-")
+    try:
+        ranks = run_ranks("serve_dist", COLL_CARDS, {
+            "device": dev, "seed": seed, "args": SERVE_ARGS, "root": root,
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+            "runs": [list(r) for r in SERVE_TP_RUNS]}, SERVE_TP_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    want = ckpt_launches(r0["manifest"])
+    save = r0["runs"][0]["save"]
+    check(save["launches"] == {**save["launches"], **want["save"]}
+          and save["launches"]["checksum_copy_words"] == 0,
+          f"serve_model_axis: rank 0's save launched exactly {want['save']}: {save['launches']}")
+    one = r0["one_card"]
+    deep, shallow = str(smoke_model(SERVE_ARGS).cfg.n_layers), str(TP_F32_LAYERS)
+    tol = {shallow: TP_F32_TOL, deep: F32_TOL}
+    runs = []
+    for i, (mesh, stationary) in enumerate(SERVE_TP_RUNS):
+        rs = [r["runs"][i] for r in ranks]
+        a = rs[0]
+        what = f"serve_model_axis {mesh} {'serve' if stationary else 'train'} specs"
+        check(a["saved_equal_restored"], f"{what}: rank 0 restored the saved tree bit for bit")
+        for r in ranks:
+            x = r["runs"][i]
+            check(x["restored_equal_rank0"] and x["blocks_equal"],
+                  f"{what} rank {r['rank']}: its restored blocks are rank 0's saved tree's, "
+                  "bit-equal on the ranks that hold them")
+            got = x["restore"]["launches"]
+            check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+                  f"{what} rank {r['rank']}'s restore launched exactly {want['restore']}: {got}")
+        for n, err in a["f32_max_abs_err"].items():
+            check(err <= tol[n] * one[n]["max_logit"],
+                  f"{what}: f32 logits at {n} layer(s) within {tol[n]} of one card's largest "
+                  f"({err} of {one[n]['max_logit']})")
+        check(a["prompt_equal"], f"{what}: the teacher-forced prompt echoed")
+        steps = SERVE_PROMPT + SERVE_GEN - 1
+        runs.append({
+            "mesh": mesh, "weight_stationary": stationary,
+            "ms_per_decode_step": max(x["ms_per_decode_step"] for x in rs),
+            "collective_ms_per_step": {k: sum(max(x["collective_ms"][k][j] for x in rs)
+                                              for j in range(steps)) / steps
+                                       for k in ("model", "gather")},
+            "collective_calls_per_step": a["collective_calls"],
+            "cache_bytes": [x["cache_bytes"] for x in rs], "cache_bytes_whole": a["cache_bytes_whole"],
+            "peak_bytes": [x["peak_bytes"] for x in rs],
+            "restore_s": [x["restore"]["seconds"] for x in rs],
+            "launches_restore": [x["restore"]["launches"] for x in rs],
+            "f32_max_abs_err": a["f32_max_abs_err"],
+            "f32_rel": {n: e / one[n]["max_logit"] for n, e in a["f32_max_abs_err"].items()},
+            "greedy_agree": a["greedy_agree"], "greedy_tokens": a["greedy_tokens"],
+            "first_divergence": a["first_divergence"]})
+    return {"serve_model_axis": {
+        "arch": _arg(SERVE_ARGS, "--arch"), "layers": smoke_model(SERVE_ARGS).cfg.n_layers,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+        "one_card_ms_per_decode_step": one["ms_per_decode_step"],
+        "one_card_f32": {n: one[n] for n in (deep, shallow)}, "f32_tolerance": tol,
+        "save_s": save["seconds"], "bytes": save["bytes"],
+        "launches_save_rank0": save["launches"], "expected_launches": want, "runs": runs,
+        "wall_s": r0["wall_s"], "seconds": time.perf_counter() - t0}}
+
+
+def print_serve_model_axis(m: dict, smi: str) -> None:
+    """The serving part's lines."""
+    for r in m["runs"]:
+        c = r["collective_ms_per_step"]
+        n = r["collective_calls_per_step"]
+        f32 = ", ".join(
+            f"{rel:.3g} of one card's largest at {d} layer(s) (bound {m['f32_tolerance'][d]:.3g}; "
+            f"one card's decode vs forward {m['one_card_f32'][d]['decode_vs_forward'] / m['one_card_f32'][d]['max_logit']:.3g})"
+            for d, rel in r["f32_rel"].items())
+        print(f"collectives serve_model_axis {m['arch']} {m['layers']} layers on {r['mesh']}, "
+              f"{'serve' if r['weight_stationary'] else 'train'} specs, batch {m['batch']}, "
+              f"{m['prompt']}-token prompt + {m['generated']}: {r['ms_per_decode_step']:.2f} ms a "
+              f"decode step (one card {m['one_card_ms_per_decode_step']:.2f}); ms a step: model "
+              f"all-reduce {c['model']:.3f} ({n['model']} calls), all-gather {c['gather']:.3f} "
+              f"({n['gather']} calls); cache {r['cache_bytes'][0] / 1e6:.3f} MB a card of "
+              f"{r['cache_bytes_whole'] / 1e6:.3f}; peak GB a card "
+              f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; f32 logits within "
+              f"{f32}; greedy tokens equal to one card's "
+              f"{r['greedy_agree']} of {r['greedy_tokens']} (first divergence "
+              f"{r['first_divergence']}); restore {', '.join(f'{x:.2f}' for x in r['restore_s'])} "
+              f"s (launches {r['launches_restore'][0]} each) [{smi}]")
+    print(f"collectives serve_model_axis checkpoint: {m['bytes'] / 1e9:.2f} GB of params saved by "
+          f"rank 0 in {m['save_s']:.2f} s (launches {m['launches_save_rank0']}); world "
+          f"{m['wall_s']:.1f} s; part {m['seconds']:.1f} s [{smi}]")
+    sys.stdout.flush()
+
+
 def print_zero_axis(m: dict, smi: str) -> None:
     """The ZeRO part's lines."""
     def gb(xs):
@@ -3749,6 +4040,7 @@ def print_collectives(coll: dict, smi: str) -> None:
     print_expert_axis(coll["expert_axis"], smi)
     print_family_model_axis(coll["family_model_axis"], smi)
     print_zero_axis(coll["zero_axis"], smi)
+    print_serve_model_axis(coll["serve_model_axis"], smi)
     print("collectives " + json.dumps(coll))
 
 
@@ -3997,7 +4289,8 @@ def main() -> int:
     parser.add_argument("--phases", default="all",
                         help=f"comma-separated of {', '.join(PHASES)} (default: all)")
     parser.add_argument("--rank-worker",
-                        choices=("collectives", "train_dist", "family_dist", "tp_dist"),
+                        choices=("collectives", "train_dist", "family_dist", "tp_dist",
+                                 "serve_dist"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--config", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -4005,8 +4298,9 @@ def main() -> int:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
     if not phases or phases - set(PHASES) - set(COLL_PARTS):
-        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis, family_model_axis or "
-                     f"zero_axis (those parts of collectives alone) or all, not {args.phases!r}")
+        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis, family_model_axis, "
+                     f"zero_axis or serve_model_axis (those parts of collectives alone) or all, "
+                     f"not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -4060,6 +4354,8 @@ def main() -> int:
                 print_family_model_axis(coll["family_model_axis"], coll["card"])
             if "zero_axis" in parts:
                 print_zero_axis(coll["zero_axis"], coll["card"])
+            if "serve_model_axis" in parts:
+                print_serve_model_axis(coll["serve_model_axis"], coll["card"])
             print("collectives " + json.dumps(coll))
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     if kernels is not None:

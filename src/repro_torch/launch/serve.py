@@ -1,9 +1,18 @@
 """Batched greedy serving launcher (prefill via the decode loop + generation).
 
-Twin of ``repro.launch.serve`` on one device (the card unless ``--device
-cpu``), with ``--layers`` to cut depth as ``launch.train`` does:
+Twin of ``repro.launch.serve`` (the card unless ``--device cpu``), with
+``--layers`` to cut depth as ``launch.train`` does. Over a mesh of more
+than one device it runs as one rank of a world, as ``launch.train.main``
+does: every rank draws the one-device weights from the seed and keeps its
+blocks of them (``param_specs``, the reference's default layout), the
+cache is cut by ``cache_specs`` (the batch over pod x data, the time over
+``model``) and each rank decodes its batch rows; rank 0 prints. A family
+without ``cache_specs`` (the ssm, the hybrid, the encdec) keeps whole
+params and a whole cache on every rank.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke \\
       --device cpu --batch 4 --prompt-len 12 --gen 16
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+      -m repro_torch.launch.serve --arch gemma-2b --smoke --device cpu --mesh 1x1x4
 """
 from __future__ import annotations
 
@@ -12,24 +21,36 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import build_model
-from repro_torch.launch.train import parse_mesh, with_layers
+from repro_torch.distributed.mesh import P, is_primary, shard
+from repro_torch.launch.train import parse_mesh, shard_state, with_layers
 
 
 @torch.no_grad()
 def generate(model, params, prompts: torch.Tensor, gen: int, max_len: int) -> torch.Tensor:
     """Greedy decode: feed prompt tokens, then sample ``gen`` new ones. An
-    encdec serves through ``prefill_cross`` and the serve step instead."""
+    encdec serves through ``prefill_cross`` and the serve step instead.
+    Over a mesh of more than one rank (a model with ``cache_specs``),
+    ``params`` are this rank's blocks, the cache is cut by ``cache_specs``
+    and the rank decodes its rows of ``prompts``: it returns those rows."""
     if model.cfg.family == "encdec":
         raise NotImplementedError("use prefill_cross + decode for enc-dec")
+    mesh = model.mesh
     B, Lp = prompts.shape
     cache = model.init_cache(B, max_len, device=prompts.device)
+    kw = {}
+    if mesh is not None and mesh.size > 1 and hasattr(model, "cache_specs"):
+        specs = model.cache_specs(mesh, B, max_len)
+        cache = shard_state(mesh, cache, specs)
+        prompts = shard(mesh, prompts, P(specs["p0"][1], None))
+        B, kw = prompts.shape[0], {"cache_specs": specs}
     tok = prompts[:, :1]
     out = [tok]
     for t in range(Lp + gen - 1):
         pos = torch.full((B,), t, dtype=torch.int32, device=prompts.device)
-        logits, cache = model.decode_step(params, cache, tok, pos)
+        logits, cache = model.decode_step(params, cache, tok, pos, **kw)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         tok = prompts[:, t + 1 : t + 2] if t + 1 < Lp else nxt
         out.append(tok)
@@ -60,6 +81,8 @@ def main(argv=None):
     mesh = parse_mesh(args.mesh, args.device)
     model = with_layers(build_model(args.arch, mesh, smoke=args.smoke), args.layers)
     params = model.init_params(args.seed, mesh.device)
+    if mesh.size > 1 and hasattr(model, "cache_specs"):
+        params = shard_state(mesh, params, model.param_specs(mesh))
     prompts = prompts_for(args.seed, args.batch, args.prompt_len, model.cfg.vocab, mesh.device)
     t0 = time.perf_counter()
     seqs = generate(model, params, prompts, args.gen, args.prompt_len + args.gen)
@@ -67,11 +90,16 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_new = args.batch * args.gen
     steps = args.prompt_len + args.gen - 1
-    print(f"generated {n_new} tokens in {dt:.2f}s "
-          f"({n_new/dt:.1f} tok/s incl. prefill; {dt / steps * 1e3:.2f} ms per decode step)")
-    print("sample:", out[0].tolist())
+    log = print if is_primary() else (lambda *_a, **_k: None)
+    log(f"generated {n_new} tokens in {dt:.2f}s "
+        f"({n_new/dt:.1f} tok/s incl. prefill; {dt / steps * 1e3:.2f} ms per decode step)")
+    log("sample:", out[0].tolist())
     return np.asarray(out)
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -25,7 +25,14 @@ weights over the data group and the backward reduce-scatters their
 gradients, so such a leaf's block arrives summed over ``data`` and only
 its ``pod`` part of the mean remains ("auto": one ``dist.all_reduce``
 over the pod group; "chunked": ``cross_pod_mean``), then the division.
-Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6.
+Prefill and decode over a ``model`` axis run for the dense family and the
+vlm: prefill's last position is unembedded vocab-parallel
+(``ShardingMixin._unembed``), and the serve step decodes over this rank's
+blocks of the params (the train or the weight-stationary serve specs) and
+of the cache (``cache_specs``: batch over pod x data, time over
+``model``); ``StepBundle.specs`` names both, so a caller cuts whole trees
+with ``launch.train.shard_state``. The MoE's wait for ROADMAP Queue 1 item
+6b, the ssm's, the hybrid's and the encdec's for item 6c.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
@@ -57,6 +64,7 @@ class StepBundle:
     model: Any
     kind: str
     in_shapes: Any = None     # meta tensors matching fn's positional args
+    specs: Any = None         # decode: (param specs, cache specs) over the mesh
 
 
 def _meta(t: torch.Tensor) -> torch.Tensor:
@@ -227,11 +235,22 @@ def world_mean(tree, group, n: int):
 # ---------------------------------------------------------------------------
 # prefill (forward producing logits — the compute profile of ingest)
 # ---------------------------------------------------------------------------
+def refuse_serving(model, mesh, what: str) -> None:
+    """Prefill and decode over a ``model`` axis run for the dense family and
+    the vlm; the others raise, naming the ROADMAP Queue 1 item that ports
+    them."""
+    family = model.cfg.family
+    if family not in ("dense", "vlm"):
+        refuse_model_axis(mesh, what, "item 6b" if family == "moe" else "item 6c")
+
+
 def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> StepBundle:
     """Last-position logits of a batch: an encdec's decoder over its encoded
-    ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix.
+    ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix. Over a
+    ``model`` axis the params are this rank's blocks under the train specs
+    (as the reference's), and the logits are gathered whole.
     ``in_shapes`` is ``cell``'s (None without a cell)."""
-    refuse_model_axis(mesh, "prefill", "item 6")
+    refuse_serving(model, mesh, "prefill")
     family = model.cfg.family
     if family == "encdec":
         def hidden(params, batch):
@@ -246,8 +265,8 @@ def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> St
 
     @torch.no_grad()
     def prefill(params, batch):
-        h = hidden(params, batch)
-        return torch.einsum("bsd,dv->bsv", h[:, -1:], model._out_w(params))
+        params = model._zero_top(params)
+        return model._unembed(params, hidden(params, batch)[:, -1:])
 
     shapes = None if cell is None else (_param_shapes(model), _batch_shapes(model, cell))
     return StepBundle(prefill, model, "prefill", shapes)
@@ -260,14 +279,27 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
                      weight_stationary: bool = False) -> StepBundle:
     """One decode step over a cache of ``cell.seq_len`` positions for
     ``cell.global_batch`` sequences (``in_shapes``; None without a cell).
-    ``weight_stationary`` picks the reference's serve-time param shardings;
-    on one device it changes nothing, and over a ``model`` axis the step
-    raises (ROADMAP Queue 1 item 6)."""
-    refuse_model_axis(mesh, "decode", "item 6")
+    ``weight_stationary`` picks the reference's serve-time param specs
+    (a family whose ``param_specs`` takes no ``serve`` keeps its train
+    specs, as the reference's ``build_serve_step`` falls back to them).
+    Over a mesh of more than one rank, ``specs`` is (param specs, cache
+    specs): the step takes this rank's blocks of each, the tokens and
+    positions of its batch rows (a cache without a cell is whole on every
+    rank)."""
+    refuse_serving(model, mesh, "decode")
+    pspecs = cspecs = None
+    if mesh is not None and mesh.size > 1:
+        try:
+            pspecs = model.param_specs(mesh, serve=weight_stationary)
+        except TypeError:
+            pspecs = model.param_specs(mesh)
+        if cell is not None and hasattr(model, "cache_specs"):
+            cspecs = model.cache_specs(mesh, cell.global_batch, cell.seq_len)
+    kw = {} if cspecs is None else {"cache_specs": cspecs}
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        logits, cache = model.decode_step(params, cache, tokens, pos)
+        logits, cache = model.decode_step(params, cache, tokens, pos, **kw)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], cache, pos + 1
 
@@ -277,7 +309,7 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
         shapes = (_param_shapes(model), model.init_cache(B, T, device="meta"),
                   torch.empty((B, 1), dtype=torch.int32, device="meta"),
                   torch.empty((B,), dtype=torch.int32, device="meta"))
-    return StepBundle(serve_step, model, "decode", shapes)
+    return StepBundle(serve_step, model, "decode", shapes, (pspecs, cspecs))
 
 
 # ---------------------------------------------------------------------------

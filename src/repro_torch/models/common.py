@@ -28,8 +28,11 @@ every weight's ``d_model`` dim is cut, gathered over the data group just
 before its layer uses it (``_GatherFromData``, whose backward
 reduce-scatters). The residual stays whole on every
 model rank, where the reference may shard it by sequence (``constrain``,
-``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart); the
-decode caches' ``kv_cache_spec`` waits for ROADMAP Queue 1 item 6.
+``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart).
+A decode cache is laid out by the reference's ``kv_cache_spec`` (batch
+over pod x data, time over the other axes); the dense family's decode
+attends each rank's time block and combines the ranks' partial softmaxes
+over ``model`` (``partial_attention``, ``ShardingMixin._combine``).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.mesh import (
-    DATA, MODEL, POD, all_gather_into, axis_size, data_dims, reduce_scatter_into)
+    DATA, MODEL, POD, P, all_gather_into, axis_size, data_dims, reduce_scatter_into)
 
 Params = Any
 
@@ -426,6 +429,40 @@ class ShardingMixin:
         return chunked_xent(self._copy_in(h, vocab is not None), self._out_w(params),
                             labels, final_cap=final_cap, vocab=vocab)
 
+    def _gather_model(self, parts, dim: int) -> list:
+        """Each of ``parts`` whole along ``dim``: the model ranks' blocks
+        concatenated in rank order, every part in one ``dist.all_gather``
+        of their flat concatenation (decode; no backward)."""
+        tp = self._tp()
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        out = flat.new_empty((tp, flat.numel()))
+        dist.all_gather(list(out.unbind(0)), flat, group=self.mesh.group(MODEL))
+        whole, at = [], 0
+        for t in parts:
+            blocks = out[:, at:at + t.numel()].reshape(tp, *t.shape)
+            at += t.numel()
+            d = dim % t.dim()
+            whole.append(blocks.movedim(0, d).reshape(*t.shape[:d], tp * t.shape[d],
+                                                     *t.shape[d + 1:]))
+        return whole
+
+    def _combine(self, m, l, o, dtype):
+        """The softmax over every model rank's block of the keys from each
+        rank's ``partial_attention`` (m, l, o): the largest logit
+        all-reduced (max), each rank's sums rescaled to it (a rank with no
+        valid key scales by exp(-inf) = 0) and summed over ``model`` in one
+        all-reduce of l and o together, then normalised. (B, S, H, hd) in
+        ``dtype``."""
+        group = self.mesh.group(MODEL)
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        scale = torch.exp(m - top)
+        lo = torch.cat([(l * scale)[..., None], o * scale[..., None]], dim=-1).contiguous()
+        dist.all_reduce(lo, group=group)
+        out = lo[..., 1:] / lo[..., :1]
+        B, KVH, G, S, hd = o.shape
+        return out.permute(0, 3, 1, 2, 4).reshape(B, S, KVH * G, hd).to(dtype)
+
     def _local_kv(self, k, v):
         """The kv heads that this rank's query heads meet: all of ``k``
         where the kv heads are split with the heads (or nothing is split),
@@ -589,6 +626,37 @@ def attention(
     return out.to(q.dtype)
 
 
+def partial_attention(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, T, KVH, hd): one block of the keys
+    v: torch.Tensor,          # (B, T, KVH, hd)
+    *,
+    causal: bool,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    window: int | None = None,
+    logit_cap: float | None = None,
+):
+    """``attention``'s dense path over one block of the keys, not yet
+    normalised: (m, l, o), in f32, with m (B, KVH, G, S) the block's
+    largest valid logit (-inf where it holds no valid key), l the sum of
+    exp(logit - m) and o (B, KVH, G, S, hd) the sum of exp(logit - m) v.
+    Masked logits are -inf, so a block with no valid key gives l = 0 and
+    o = 0 exactly and adds nothing where blocks are combined
+    (``ShardingMixin._combine``); ``attention`` itself, which normalises
+    inside, would give such a block a uniform mix of its masked keys."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    qf = q.float().reshape(B, S, KVH, H // KVH, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qf, k.float()) / math.sqrt(hd)
+    logits = softcap(logits, logit_cap)
+    mask = _attn_mask(q_positions, kv_positions, causal, window)
+    logits = torch.where(mask[:, None, None, :, :], logits, -math.inf)
+    m = torch.amax(logits, dim=-1)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    return m, torch.sum(p, dim=-1), torch.einsum("bkgst,btkh->bkgsh", p, v.float())
+
+
 def kv_for_heads(k: torch.Tensor, v: torch.Tensor, h0: int, n: int, group: int):
     """The K/V heads (dim 2) that query heads ``h0 .. h0+n-1`` meet, where
     query head h meets kv head ``h // group`` (``attention``'s grouping):
@@ -707,6 +775,26 @@ def refuse_model_axis(mesh, what: str, items: str) -> None:
         raise NotImplementedError(
             f"{what} over a model axis of {axis_size(mesh, MODEL)} is not ported yet "
             f"(ROADMAP Queue 1 {items})")
+
+
+def kv_cache_spec(mesh, batch: int, time: int, extra: tuple = ()):
+    """Sharding for a (layers, B, T, ...) decode cache, the reference's:
+    the batch over (pod, data) where their product divides it, the time
+    dim over every other axis that divides what is left of it, in the
+    order model, data, pod (long-context decode, B = 1, ends up cut over
+    every axis)."""
+    b_axes = tuple(a for a in (POD, DATA) if a in mesh.axis_names)
+    if batch % max(1, math.prod(mesh.shape[a] for a in b_axes)) != 0:
+        b_axes = ()
+    b = b_axes if len(b_axes) > 1 else (b_axes[0] if b_axes else None)
+    t_axes = []
+    rem = time
+    for a in (MODEL, DATA, POD):
+        if a in mesh.axis_names and a not in b_axes and rem % mesh.shape[a] == 0:
+            t_axes.append(a)
+            rem //= mesh.shape[a]
+    t = tuple(t_axes) if len(t_axes) > 1 else (t_axes[0] if t_axes else None)
+    return P(None, b, t, *extra)
 
 
 def batch_axes(mesh, exclude_pod: bool = False):

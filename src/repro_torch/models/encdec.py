@@ -33,7 +33,7 @@ a ``data`` axis (ZeRO-3) both stacks' weights and ``embed`` are cut by
 ``_zero_top``). The
 reference's ``_qspec`` (context-parallel queries where a 16-wide axis
 does not divide 20 heads) is a layout hint of GSPMD with no counterpart.
-Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6.
+Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6c.
 """
 from __future__ import annotations
 
@@ -257,7 +257,7 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
 
     def prefill_cross(self, params, cache, audio_embed):
         """Compute the encoder output and fill per-layer cross-attn K/V."""
-        cm.refuse_model_axis(self.mesh, "prefill", "item 6")
+        cm.refuse_model_axis(self.mesh, "prefill", "item 6c")
         enc = self.encode(params, audio_embed)
         ek = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wk"])
         ev = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wv"])
@@ -269,7 +269,7 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
 
         Returns (logits (B,1,V), cache) — the cache updated in place."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6")
+        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
         B = tokens.shape[0]
         x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
         pos_emb = params["pos_dec"][torch.clamp(pos, max=self.max_target - 1).long()]

@@ -25,7 +25,7 @@ the RG-LRU elementwise and ``wo`` row-parallel. The MLPs are column / row
 pairs over ``d_ff``; the attention splits by heads where ``model`` divides
 them (the one kv head whole) and runs whole on every rank where it does
 not; the tied embedding is vocab-parallel. Decode over a ``model`` axis
-waits for ROADMAP Queue 1 item 6.
+waits for ROADMAP Queue 1 item 6c.
 """
 from __future__ import annotations
 
@@ -340,7 +340,7 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
         """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
         the cache updated in place."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6")
+        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
         x = self._embed(params, tokens)
         q_pos = pos[:, None]
         for b in range(self.n_blocks):

@@ -191,8 +191,10 @@ class MoELM(DenseLM):
 
     def param_specs(self, mesh, *, serve: bool = False) -> Any:
         """The reference's: the experts' column dim over ``model``, the
-        router whole."""
-        specs = super().param_specs(mesh, serve=serve)
+        router whole. ``serve`` changes nothing: the reference's
+        ``param_specs`` takes no ``serve``, so its ``build_serve_step``
+        falls back to these train specs."""
+        specs = super().param_specs(mesh)
         d_dat = cm.shardable(self.cfg.d_model, DATA, mesh)
         for i in range(len(self.pattern)):
             lp = specs["blocks"][str(i)]
@@ -203,6 +205,12 @@ class MoELM(DenseLM):
             lp["we_i"] = P(None, MODEL, None, d_dat, None)
             lp["we_o"] = P(None, MODEL, None, None, d_dat)
         return specs
+
+    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
+        """``DenseLM.decode_step``; over a ``model`` axis the experts' decode
+        waits for ROADMAP Queue 1 item 6b."""
+        cm.refuse_model_axis(self.mesh, "decode", "item 6b")
+        return super().decode_step(params, cache, tokens, pos, cache_specs)
 
     # -- the MoE FFN replaces the dense MLP ----------------------------------
     def _mlp(self, x, lp):

@@ -17,7 +17,7 @@ B and C, runs the conv on its channels and the SSD on its heads, sums the
 gated norm's squares over ``model`` and ends in a row-parallel ``w_out``.
 Each whole leaf then feeds this rank's heads only, so its gradient is
 summed over ``model`` (``ShardingMixin._copy_in``). Decode over a
-``model`` axis waits for ROADMAP Queue 1 item 6.
+``model`` axis waits for ROADMAP Queue 1 item 6c.
 """
 from __future__ import annotations
 
@@ -317,7 +317,7 @@ class Mamba2LM(cm.ShardingMixin, torch.nn.Module):
         """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
         the cache updated in place."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6")
+        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
         B = tokens.shape[0]
         x = self._embed(params, tokens)                                # (B,1,D)
         nh, hd = self.nheads, cfg.ssm_head_dim

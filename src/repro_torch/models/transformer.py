@@ -25,9 +25,25 @@ rank's blocks of the weights (``param_specs``, then
 operators. The residual stays whole on every model rank. Over a ``data``
 axis (ZeRO-3) every weight's ``d_model`` dim is cut too: a block's leaves
 are gathered inside its remat region, ``embed`` / ``unembed`` once a
-forward (``_zero_top``), and their gradients reduce-scattered. Decode
-takes whole params; over a ``model`` axis it waits for ROADMAP Queue 1
-item 6.
+forward (``_zero_top``), and their gradients reduce-scattered.
+
+Decode over a ``model`` axis takes the params in either of the
+reference's layouts: the train specs (``param_specs``: heads, ffn, vocab,
+and ``d_model`` over ``data``, gathered a layer at a time as the forward
+gathers it) or the weight-stationary serve specs
+(``param_specs(serve=True)``: head_dim, ffn and vocab, nothing over
+``data``, so no weight moves). The cache is laid out by ``cache_specs``
+(the reference's ``kv_cache_spec``): the batch over pod x data, the time
+dim over ``model``. A layer computes this rank's block of the new
+token's q, k and v and gathers them whole over ``model`` in one
+all-gather, then rotates them (RoPE pairs element i of head_dim with
+element i + hd/2, which the serve layout puts on different ranks); the
+rank that owns slot ``pos % T`` writes it; each rank attends its own time
+block (``common.partial_attention``) and the ranks' partial softmaxes are
+combined by log-sum-exp (``ShardingMixin._combine``); each rank then
+feeds its block of the output to its rows of ``wo`` and the partial sums
+are all-reduced. Time cut over ``data`` or ``pod`` (a batch that pod x
+data does not divide) waits for ROADMAP Queue 1 item 6d.
 """
 from __future__ import annotations
 
@@ -36,7 +52,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.mesh import DATA, MODEL, P
+from repro_torch.distributed.mesh import DATA, MODEL, P, cut_axes
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 
@@ -87,10 +103,10 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         """The reference's train-time PartitionSpecs, entry for entry: the
         ``model`` entries cut a leaf for tensor parallelism and the ``data``
         ones (every weight's ``d_model`` dim) for ZeRO-3
-        (``distributed.mesh.shard``)."""
+        (``distributed.mesh.shard``). ``serve``: the weight-stationary
+        decode specs (``_serve_param_specs``)."""
         if serve:
-            raise NotImplementedError(
-                "weight-stationary serve specs are not ported (ROADMAP Queue 1 item 6)")
+            return self._serve_param_specs(mesh)
         cfg = self.cfg
         sh = lambda n, ax: cm.shardable(n, ax, mesh)  # noqa: E731
         m_head = sh(cfg.n_heads, MODEL)
@@ -121,6 +137,38 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
             specs["unembed"] = P(d_dat, m_voc)
         return specs
 
+    def _serve_param_specs(self, mesh) -> Any:
+        """The reference's weight-stationary decode specs, entry for entry:
+        every weight cut over ``model`` along a dim that is not contracted
+        (head_dim of ``wq``/``wk``/``wv`` and of ``wo``'s rows, ffn, vocab),
+        nothing over ``data``, so decode gathers no weight; its collectives
+        are activation-sized."""
+        cfg = self.cfg
+        hd_m = cm.shardable(cfg.hd, MODEL, mesh)
+        m_ff = cm.shardable(cfg.d_ff, MODEL, mesh)
+        m_voc = cm.shardable(cfg.vocab, MODEL, mesh)
+        lp = {
+            "ln1": P(None, None), "ln2": P(None, None),
+            "wq": P(None, None, None, hd_m),
+            "wk": P(None, None, None, hd_m),
+            "wv": P(None, None, None, hd_m),
+            "wo": P(None, None, hd_m, None),
+            "wi": P(None, None, m_ff),
+            "wg": P(None, None, m_ff),
+            "wmo": P(None, m_ff, None),
+        }
+        if cfg.post_norms:
+            lp["post_ln1"] = P(None, None)
+            lp["post_ln2"] = P(None, None)
+        specs = {
+            "embed": P(m_voc, None),
+            "final_norm": P(None),
+            "blocks": {str(i): dict(lp) for i in range(len(self.pattern))},
+        }
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(None, m_voc)
+        return specs
+
     # -- shared layer application -------------------------------------------
     def _qkv(self, x, lp, q_pos):
         """Rotated q, k, v of this rank's heads: ``wq`` by heads, and
@@ -138,9 +186,11 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         k_new = cm.rope(k_new, q_pos, cfg.rope_theta)
         return q, k_new, v_new
 
-    def _attn_out(self, o, lp):
+    def _attn_out(self, o, lp, split: bool):
+        """The row-parallel output projection of ``o`` (this rank's block of
+        it where ``wo`` is ``split``), summed over ``model``."""
         o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
-        o = self._reduce_out(o, self._split(self.cfg.n_heads))
+        o = self._reduce_out(o, split)
         if self.cfg.post_norms:
             o = cm.rms_norm(o, lp["post_ln1"])
         return o
@@ -155,7 +205,7 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
             window=cfg.window if kind == "l" else None,
             logit_cap=cfg.attn_softcap,
         )
-        return x + self._attn_out(o, lp)
+        return x + self._attn_out(o, lp, self._split(cfg.n_heads))
 
     def _mlp(self, x, lp):
         cfg = self.cfg
@@ -167,11 +217,6 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         if cfg.post_norms:
             m = cm.rms_norm(m, lp["post_ln2"])
         return x + m
-
-    def _block(self, params, b: int) -> dict:
-        """Block ``b``'s params: a view of each stacked leaf."""
-        return {str(i): {k: t[b] for k, t in params["blocks"][str(i)].items()}
-                for i in range(len(self.pattern))}
 
     def _embed(self, params, tokens):
         cfg = self.cfg
@@ -245,40 +290,121 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
             cache[f"p{i}"] = torch.full((nb, batch, T), -1, dtype=torch.int32, device=device)
         return cache
 
+    def cache_specs(self, mesh, batch: int, max_len: int) -> Any:
+        """The reference's: each kind's cache by ``kv_cache_spec``."""
+        specs = {}
+        for i, kind in enumerate(self.pattern):
+            T = self.cache_len(kind, max_len)
+            kv = cm.kv_cache_spec(mesh, batch, T, extra=(None, None))
+            specs[f"k{i}"] = kv
+            specs[f"v{i}"] = kv
+            specs[f"p{i}"] = cm.kv_cache_spec(mesh, batch, T)
+        return specs
+
     @staticmethod
-    def _cache_write(cache_k, cache_v, cache_p, k_new, v_new, pos, slot):
-        """Write one token's K/V at per-batch ``slot``, in place.
+    def _cache_write(cache_k, cache_v, cache_p, k_new, v_new, pos, slot, own=None):
+        """Write one token's K/V at per-batch ``slot``, in place; with
+        ``own`` (B,) bool, only the rows it marks (the others write back
+        what the slot held, so no row is picked on the host).
         shapes: cache (B, T, KVH, hd), k_new/v_new (B, 1, KVH, hd), pos (B,)."""
         rows = torch.arange(cache_k.shape[0], device=cache_k.device)
         slot = slot.long()
-        cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
-        cache_p[rows, slot] = pos.to(cache_p.dtype)
+        new = (k_new[:, 0].to(cache_k.dtype), v_new[:, 0].to(cache_v.dtype),
+               pos.to(cache_p.dtype))
+        for c, n in zip((cache_k, cache_v, cache_p), new):
+            if own is not None:
+                n = torch.where(own.view(-1, *[1] * (n.dim() - 1)), n, c[rows, slot])
+            c[rows, slot] = n
         return cache_k, cache_v, cache_p
 
-    def decode_step(self, params, cache, tokens, pos):
+    def _time_cut(self, cache_specs) -> list[bool]:
+        """For each kind, whether its cache's time dim is cut over
+        ``model``, from the specs the cache was cut by (None: whole). Time
+        cut over ``data`` or ``pod`` raises."""
+        if cache_specs is None:
+            return [False] * len(self.pattern)
+        out = []
+        for i in range(len(self.pattern)):
+            axes = cut_axes(self.mesh, P(cache_specs[f"p{i}"][2]))
+            if set(axes) - {MODEL}:
+                raise NotImplementedError(
+                    f"decode over a cache whose time dim is cut over {axes} (a batch that pod x "
+                    "data does not divide) is not ported yet (ROADMAP Queue 1 item 6d)")
+            out.append(MODEL in axes)
+        return out
+
+    def _decode_attn(self, x, lp, kind, ck, cv, cp, pos, time_cut: bool):
+        """One decode attention sub-layer on this rank's blocks of the
+        weights and the cache: q, k and v gathered whole over ``model`` in
+        one all-gather along the dim the layout cuts (heads for the train
+        specs, head_dim for the serve specs; none where the block is
+        whole), then rotated; the new slot written by the rank that holds
+        it; over a time-cut cache each rank's partial softmax, combined.
+        Returns the sub-layer's output (B, 1, D), summed over ``model``."""
+        cfg = self.cfg
+        q_pos = pos[:, None]
+        h = cm.rms_norm(x, lp["ln1"])
+        q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
+        k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
+        v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+        whole = (cfg.n_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd)
+        parts = [t for t, w in zip((q, k, v), whole) if tuple(t.shape[-2:]) != w]
+        if parts:
+            dim = -2 if q.shape[-2] != cfg.n_heads else -1
+            it = iter(self._gather_model(parts, dim))
+            q, k, v = (next(it) if tuple(t.shape[-2:]) != w else t
+                       for t, w in zip((q, k, v), whole))
+        q = cm.rope(q, q_pos, cfg.rope_theta)
+        k = cm.rope(k, q_pos, cfg.rope_theta)
+        T = ck.shape[1]
+        window = cfg.window if kind == "l" else None
+        if time_cut:       # slot pos % (tp T) lives on rank slot // T, at slot % T
+            slot = pos % (T * self._tp())
+            self._cache_write(ck, cv, cp, k, v, pos, slot % T, own=slot // T == self._mrank())
+            m, l, o = cm.partial_attention(q, ck, cv, causal=True, q_positions=q_pos,
+                                           kv_positions=cp, window=window,
+                                           logit_cap=cfg.attn_softcap)
+            o = self._combine(m, l, o, q.dtype)
+        else:
+            self._cache_write(ck, cv, cp, k, v, pos, pos % T)
+            o = cm.attention(q, ck, cv, causal=True, q_positions=q_pos, kv_positions=cp,
+                             window=window, logit_cap=cfg.attn_softcap)
+        wo = lp["wo"]                       # (H, hd, D) or this rank's rows of it
+        cut = [d for d in (0, 1) if wo.shape[d] != o.shape[2 + d]]
+        for d in cut:
+            o = o.narrow(2 + d, self._mrank() * wo.shape[d], wo.shape[d])
+        return self._attn_out(o, lp, bool(cut))
+
+    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
         """tokens: (B, 1) int, pos: (B,) current absolute position.
 
-        Returns (logits (B,1,V), cache) — the cache updated in place."""
+        Returns (logits (B,1,V), cache) — the cache updated in place.
+
+        Over a mesh, ``params`` are this rank's blocks under the train or
+        the serve specs (told apart by each block's shape), and ``cache``,
+        ``tokens`` and ``pos`` this rank's blocks under ``cache_specs``,
+        the specs the cache was cut by (None: the cache whole on every
+        rank). Train-spec blocks cut over ``data`` (ZeRO-3) are gathered a
+        layer at a time, as the forward gathers them."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6")
+        time_cut = self._time_cut(cache_specs)
+        keys = [(str(i), k) for i in range(len(self.pattern)) for k in params["blocks"][str(i)]]
+        zero = self._dp() > 1 and params["blocks"]["0"]["wq"].shape[1] != cfg.d_model
+        lspecs = None
+        if zero:
+            params = self._zero_top(params)
+            specs = self.param_specs(self.mesh)["blocks"]
+            lspecs = [specs[i][k] for i, k in keys]
         x = self._embed(params, tokens)
-        q_pos = pos[:, None]
-        for b in range(self.n_blocks):
-            blk = self._block(params, b)
+        stacked = [params["blocks"][i][k] for i, k in keys]
+        for b, leaves in enumerate(cm.layer_slices(stacked)):
+            blk: dict = {}
+            for (i, k), t in zip(keys, self._zero_layer(leaves, lspecs) if zero else leaves):
+                blk.setdefault(i, {})[k] = t
             for i, kind in enumerate(self.pattern):
-                ck, cv, cp = cache[f"k{i}"][b], cache[f"v{i}"][b], cache[f"p{i}"][b]
-                slot = pos % ck.shape[1]   # ring slot for local windows; == pos for global
                 lp = blk[str(i)]
-                q, k_new, v_new = self._qkv(x, lp, q_pos)
-                self._cache_write(ck, cv, cp, k_new, v_new, pos, slot)
-                o = cm.attention(
-                    q, ck, cv, causal=True, q_positions=q_pos, kv_positions=cp,
-                    window=cfg.window if kind == "l" else None,
-                    logit_cap=cfg.attn_softcap,
-                )
-                x = x + self._attn_out(o, lp)
+                x = x + self._decode_attn(x, lp, kind, cache[f"k{i}"][b], cache[f"v{i}"][b],
+                                          cache[f"p{i}"][b], pos, time_cut[i])
                 x = self._mlp(x, lp)
         x = cm.rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bsd,dv->bsv", x, self._out_w(params))
-        return cm.softcap(logits, cfg.final_softcap), cache
+        return cm.softcap(self._unembed(params, x), cfg.final_softcap), cache

@@ -16,7 +16,8 @@ overlap. Held, case by case:
 
   * ``DenseLM.param_specs`` equal to the reference's, entry for entry, for
     the smoke configs of gemma-2b, internvl2-2b, mistral-nemo-12b and
-    yi-34b (whose six heads stay whole on four ranks);
+    yi-34b (whose six heads stay whole on four ranks), the train specs and
+    the weight-stationary serve specs (``serve=True``);
   * the logits (``logits``; ``logits_mm`` for the vlm), gathered over
     ``model``, within ``LOGITS_RTOL`` of the largest logit;
   * step 1's gradients, gathered, within ``GRAD_RTOL`` (1e-4) of each
@@ -354,8 +355,11 @@ def test_param_specs_equal_the_reference(arch, shape):
     for key in want:
         assert tuple(got[key]) == tuple(want[key]), key
     assert adamw.state_specs(got).m is got and tuple(adamw.state_specs(got).step) == ()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        treg.build_model(arch, smoke=True).param_specs(port_mesh, serve=True)
+    got = _flat(treg.build_model(arch, smoke=True).param_specs(port_mesh, serve=True))
+    want = _flat(jreg.build_model(arch, smoke=True).param_specs(ref_mesh, serve=True))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert tuple(got[key]) == tuple(want[key]), ("serve", key)
 
 
 def test_the_mesh_lays_ranks_out_row_major(port):
