@@ -1990,13 +1990,14 @@ FAMILY_TP_TIMEOUT_S = 480        # each world of the family part
 ENCDEC_TP_F32_TOL = F32_TOL
 
 
-# ZeRO-3 over data: gemma-2b (TRAIN_DIST_ARGS) on 1x4x1, 2x2x1 and 1x2x2, 6 steps each, the
-# roots saved at step 4 on 1x4x1 and 1x2x2 resumed there and on 1x2x1 / 1x1x2 (the same
-# sequences a pass as on the saving mesh); then mistral-nemo-12b at its full 40 layers on
-# 1x4x1, whose training state (147 GB whole) fits only cut over the four cards: 3 steps of
-# 16 sequences, 4 a card a pass, halved while the steps' peak passes ZERO_PEAK_MAX
-ZERO_MESHES = ("1x4x1", "2x2x1", "1x2x2")
-ZERO_ELASTIC = {"1x4x1": ("1x2x1", ELASTIC_MICROBATCHES), "1x2x2": ("1x1x2", ONE_CARD_MICROBATCHES)}
+# ZeRO-3 over data: gemma-2b (TRAIN_DIST_ARGS) on 1x4x1, 6 steps, its root saved at step 4
+# resumed there and on 1x2x1 (the same sequences a pass as on the saving mesh); ZeRO on
+# 2x2x1 and 1x2x2 runs in the train_dist and model-axis parts (the same worlds this part
+# ran there until the serving parts needed its time); then mistral-nemo-12b at its full 40
+# layers on 1x4x1, whose training state (147 GB whole) fits only cut over the four cards: 3
+# steps of 16 sequences, 4 a card a pass, halved while the steps' peak passes ZERO_PEAK_MAX
+ZERO_MESHES = ("1x4x1",)
+ZERO_ELASTIC = {"1x4x1": ("1x2x1", ELASTIC_MICROBATCHES)}
 ZERO_NEMO_ARGS = ["--arch", "mistral-nemo-12b", "--seq-len", "2048", "--global-batch", "16",
                   "--lr", "3e-3", "--log-every", "0"]
 ZERO_NEMO_MESH, ZERO_NEMO_STEPS = "1x4x1", 3
@@ -2005,9 +2006,22 @@ CARD_BYTES = 80e9                # an H100's memory: every peak below it
 ZERO_TIMEOUT_S = 480             # each world of the ZeRO part
 
 # serving over the model axis: gemma-2b (SERVE_ARGS) from a params-only root, each
-# (mesh, weight-stationary) run in one world of four
-SERVE_TP_RUNS = (("1x1x4", False), ("1x1x4", True), ("1x2x2", True))
+# (mesh, weight-stationary) run in one world of four: the train specs on 1x1x4, the serve
+# specs on 1x2x2 (the serve specs on 1x1x4 left out to keep the whole four-card phase
+# inside its time with serve_families beside it)
+SERVE_TP_RUNS = (("1x1x4", False), ("1x2x2", True))
 SERVE_TP_TIMEOUT_S = 480
+
+# serving over the model axis for the moe, ssm, hybrid and encdec families, each at full width
+# at the depth the four-card train parts use, from a params-only root, under its train specs
+# (the reference serves them with those): one world of four serves them in turn on 1x1x4,
+# qwen3-moe also on 1x2x2 (its experts over two columns, the batch over data, the weights
+# gathered over data a layer at a time); SERVE_BATCH sequences, SERVE_PROMPT + SERVE_GEN
+SERVE_FAMILY_RUNS = ((["--arch", "qwen3-moe-30b-a3b", "--layers", "2"], ("1x1x4", "1x2x2")),
+                     (["--arch", "mamba2-370m", "--layers", "8"], ("1x1x4",)),
+                     (["--arch", "recurrentgemma-2b", "--layers", "3"], ("1x1x4",)),
+                     (["--arch", "whisper-large-v3", "--layers", "1"], ("1x1x4",)))
+SERVE_FAMILIES_TIMEOUT_S = 900
 
 
 def launch_counters():
@@ -2768,22 +2782,29 @@ def tp_dist_worker(cfg: dict) -> dict:
     return out
 
 
-def teacher_forced(model, params, prompts, cache_specs=None):
+def teacher_forced(model, params, prompts, cache_specs=None, audio=None):
     """Each step's logits (B, S, V) in f32 of decoding ``prompts`` token by
-    token; under ``cache_specs`` (over the model's mesh), this rank's rows
-    of them, over its blocks of the cache."""
+    token (an encdec's after ``prefill_cross`` of the frames ``audio``);
+    under ``cache_specs`` (over the model's mesh), this rank's rows of
+    them, over its blocks of the cache."""
     from repro_torch.distributed.mesh import P, shard
     from repro_torch.launch.train import shard_state
+    from repro_torch.models.common import cache_batch_spec
 
     B, S = prompts.shape
     cache = model.init_cache(B, S, device=prompts.device)
     kw = {}
     if cache_specs is not None:
+        rows = cache_batch_spec(model.mesh, B)
         cache = shard_state(model.mesh, cache, cache_specs)
-        prompts = shard(model.mesh, prompts, P(cache_specs["p0"][1], None))
+        prompts = shard(model.mesh, prompts, P(rows, None))
+        if audio is not None:
+            audio = shard(model.mesh, audio, P(rows, None, None))
         kw = {"cache_specs": cache_specs}
     out = []
     with torch.no_grad():
+        if audio is not None:
+            cache = model.prefill_cross(params, cache, audio, **kw)
         for t in range(S):
             pos = torch.full((prompts.shape[0],), t, dtype=torch.int32, device=prompts.device)
             lg, cache = model.decode_step(params, cache, prompts[:, t:t + 1], pos, **kw)
@@ -2928,6 +2949,242 @@ def serve_dist_worker(cfg: dict) -> dict:
     return out
 
 
+def on_mesh(model, mesh):
+    """``model`` (its config and its own arguments) over ``mesh``."""
+    kw = {"max_target": model.max_target} if model.cfg.family == "encdec" else {}
+    if model.cfg.family == "moe":
+        kw["cf"] = model.cf
+    return type(model)(model.cfg, mesh, **kw)
+
+
+def column_leaf(key: str, t: torch.Tensor, cfg, tp: int) -> torch.Tensor:
+    """A leaf (its key ends in its name) of a MoE's one-device params laid
+    out for ``tp`` columns: an expert leaf ``(nb, 1, E, ...)`` becomes
+    ``(nb, tp, E / tp, ...)``, expert g·E_loc + el in column g (SPLIT 1:
+    ``one_column``'s inverse, a view of the same bytes); every other leaf
+    is returned as it is."""
+    from repro_torch.models.moe import expert_layout
+
+    if key.rsplit("/", 1)[-1] not in ("we_g", "we_i", "we_o") or tp == 1:
+        return t
+    e_loc, split, _ = expert_layout(cfg, tp)
+    if split != 1:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts on {tp} columns split them")
+    return t.reshape(t.shape[0], tp, e_loc, *t.shape[3:])
+
+
+def to_columns(params: dict, cfg, tp: int) -> dict:
+    """``column_leaf`` of every leaf of a MoE's one-device params."""
+    return {k: to_columns(v, cfg, tp) if isinstance(v, dict) else column_leaf(k, v, cfg, tp)
+            for k, v in params.items()}
+
+
+def encdec_generate(model, params, prompts, audio, gen: int, timer=None):
+    """An encdec's serve protocol, the reference's (``generate`` refuses
+    one): ``prefill_cross`` of the frames ``audio``, then
+    ``build_serve_step``'s step over the prompt and ``gen`` greedy tokens,
+    over the model's mesh on this rank's rows and blocks of the cache (cut
+    by the bundle's ``cache_specs``), with ``timer`` entered around the
+    loop only. (rows, ``prefill_cross`` seconds, the loop's seconds)."""
+    import contextlib
+
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.distributed.mesh import P, shard
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.launch.train import shard_state
+    from repro_torch.models.common import cache_batch_spec
+
+    B, Lp = prompts.shape
+    mesh, dev = model.mesh, prompts.device
+    bundle = build_serve_step(model, mesh, cell=ShapeCell("d", Lp + gen, B, "decode"))
+    cache, cspecs, kw = model.init_cache(B, Lp + gen, device=dev), bundle.specs[1], {}
+    if cspecs is not None:
+        rows = cache_batch_spec(mesh, B)
+        cache = shard_state(mesh, cache, cspecs)
+        prompts = shard(mesh, prompts, P(rows, None))
+        audio = shard(mesh, audio, P(rows, None, None))
+        kw = {"cache_specs": cspecs}
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = model.prefill_cross(params, cache, audio, **kw)
+    sync(dev)
+    t1 = time.perf_counter()
+    tok, out = prompts[:, :1], [prompts[:, :1]]
+    pos = torch.zeros(prompts.shape[0], dtype=torch.int32, device=dev)
+    with timer if timer is not None else contextlib.nullcontext():
+        for t in range(Lp + gen - 1):
+            tok, cache, pos = bundle.fn(params, cache, tok, pos)
+            if t + 1 < Lp:
+                tok = prompts[:, t + 1:t + 2]
+            out.append(tok)
+        sync(dev)
+    return torch.cat(out, dim=1), t1 - t0, time.perf_counter() - t1
+
+
+def timed_greedy(model, params, prompts, gen: int, dev, timer=None, audio=None):
+    """(rows, ms a decode step, ``prefill_cross`` ms or None): ``timed_generate``,
+    and for an encdec (``audio`` given) ``encdec_generate`` after a
+    two-token warm-up."""
+    if audio is None:
+        rows, ms = timed_generate(model, params, prompts, gen, dev, timer)
+        return rows, ms, None
+    encdec_generate(model, params, prompts, audio, 2)
+    rows, pre_s, loop_s = encdec_generate(model, params, prompts, audio, gen, timer)
+    return rows, 1e3 * loop_s / (prompts.shape[1] + gen - 1), 1e3 * pre_s
+
+
+def serve_families_worker(cfg: dict) -> dict:
+    """One rank of the families' serving world. For each of
+    ``cfg["families"]`` (launcher args, meshes): rank 0 draws the one-device
+    params (full width, bf16), saves them as a params-only root and decodes
+    on its card alone: the f32 teacher-forced logits of the prompt at
+    ``TP_F32_LAYERS`` and at the family's depth (each from its own f32
+    draw, which every rank also makes), a MoE's top-k choices at every
+    step, and the bf16 greedy tokens with their ms a step (an encdec's
+    after ``prefill_cross``, timed). Then on each mesh every rank restores
+    its blocks of the root under the train specs (a MoE's expert leaves laid
+    out for the mesh's columns, ``to_columns``; every host digest patched to
+    raise; compared, gathered, with rank 0's saved tree), decodes the
+    prompt in f32 at both depths over a cache cut by ``cache_specs`` (rank 0
+    holds the gathered logits to its one-card ones, leaving out each row's
+    steps where a MoE layer chose other experts, which it counts) and
+    then ``cfg["gen"]`` greedy tokens in bf16 with every model-axis
+    collective timed, and checks its blocks bit-equal on the ranks that
+    hold them."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import P, axis_size, cut_axes, gather, shard
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models.common import cache_batch_spec
+
+    device = cfg["device"]
+    dev = rank_device(device)
+    rank = dist.get_rank()
+    B, Lp, gen = cfg["batch"], cfg["prompt"], cfg["gen"]
+    reset, counts = launch_counters()
+    out: dict = {"rank": rank, "world": dist.get_world_size(), "families": []}
+    for args, meshes in cfg["families"]:
+        release(dev)
+        one = smoke_model(args)
+        moe, encdec = one.cfg.family == "moe", one.cfg.family == "encdec"
+        records: dict = {}
+        root = os.path.join(cfg["root"], _arg(args, "--arch"))
+        mgr = recording_manager(records, dev, reset, counts)(root, device=dev)
+        prompts = serve.prompts_for(cfg["seed"], B, Lp, one.cfg.vocab, dev)
+        audio = seeded_embeddings(cfg["seed"] + 6, B, one.cfg.enc_positions, one, dev) \
+            if encdec else None
+        depths = sorted({TP_F32_LAYERS, one.cfg.n_layers})
+        fam: dict = {"arch": _arg(args, "--arch"), "layers": one.cfg.n_layers, "runs": [],
+                     "f32_tolerance": {str(n): ENCDEC_TP_F32_TOL if encdec else
+                                       (TP_F32_TOL if n == TP_F32_LAYERS else F32_TOL)
+                                       for n in depths}}
+
+        def f32_model(n, mesh=None):
+            m = smoke_model(with_arg(args, "--layers", n), dtype=torch.float32)
+            return m if mesh is None else on_mesh(m, mesh)
+
+        want_f32, want_top = {}, {}
+        if rank == 0:
+            params = one.init_params(cfg["seed"], dev)
+            with host_digests_raise():
+                mgr.save(0, {"params": params})
+            fam["one_card"] = {}
+            for n in depths:
+                m32 = f32_model(n)
+                if moe:
+                    m32.route_log = []
+                want_f32[n] = teacher_forced(m32, m32.init_params(cfg["seed"], dev), prompts,
+                                             audio=None if audio is None else audio.float())
+                if moe:
+                    want_top[n] = topk_sets(m32.route_log, one.cfg.top_k)
+                fam["one_card"][str(n)] = {"max_logit": float(want_f32[n].abs().max())}
+                del m32
+            want_rows, one_ms, one_pre = timed_greedy(one, params, prompts, gen, dev,
+                                                      audio=audio)
+            fam["one_card"].update(ms_per_decode_step=one_ms, prefill_cross_ms=one_pre)
+            del params
+        dist.barrier()
+        for mesh_spec in meshes:
+            release(dev)
+            mesh = parse_mesh(mesh_spec, device)
+            model = on_mesh(one, mesh)
+            tp = model._tp()
+            pspecs = model.param_specs(mesh)
+            flat = flat_tree({"params": pspecs})
+
+            def keep(key, t):
+                t = column_leaf(key, t, one.cfg, tp) if moe else t
+                s = flat[key]
+                return shard(mesh, t, s).clone() if cut_axes(mesh, s) else t
+
+            with host_digests_raise():
+                params = mgr.restore(keep=keep)[0]["params"]
+            run = {"mesh": mesh_spec}
+            # gathered, a MoE's expert leaf holds the saved leaf's bytes (a view of them)
+            checkpoint_records(records, run, mesh, {"params": pspecs})
+            if "manifest" in run:
+                fam["manifest"] = run.pop("manifest")
+            run["blocks_equal"] = blocks_agree(params, pspecs, mesh)
+            run["f32_max_abs_err"], run["route_flips"] = {}, {}
+            rows = cache_batch_spec(mesh, B)
+            b_loc = B if rows is None else B // (axis_size(mesh, "pod") * axis_size(mesh, "data"))
+            for n in depths:
+                m32 = f32_model(n, mesh)
+                if moe:
+                    m32.route_log = []
+                p32 = f32_model(n).init_params(cfg["seed"], dev)
+                p32 = train.shard_state(mesh, to_columns(p32, one.cfg, tp) if moe else p32,
+                                        m32.param_specs(mesh))
+                specs = m32.cache_specs(mesh, B, Lp)
+                got = gather(mesh, teacher_forced(m32, p32, prompts, specs,
+                                                  None if audio is None else audio.float()),
+                             P(rows, None, None))
+                flipped = torch.zeros((B, Lp), dtype=torch.bool)
+                if moe:     # each logged layer's choices at each step, over the whole batch
+                    mine = [gather(mesh, g, P(rows, None))
+                            for g in gathered_routes(m32.route_log, mesh, b_loc)]
+                    if rank == 0:
+                        layers = len(mine) // Lp
+                        for i, (a, b) in enumerate(zip(want_top[n],
+                                                       topk_sets(mine, one.cfg.top_k))):
+                            flipped[:, i // layers] |= (a != b).any(-1)
+                        run["route_flips"][str(n)] = [int(flipped.sum()), B * Lp]
+                if rank == 0:
+                    err = (got - want_f32[n]).abs()[~flipped.to(got.device)]
+                    run["f32_max_abs_err"][str(n)] = float(err.max())
+                del got, p32, m32
+            reset_peak(dev)
+            timer = collective_timer(dev)
+            mine_rows, ms, pre_ms = timed_greedy(model, params, prompts, gen, dev, timer, audio)
+            cache = model.init_cache(B, Lp + gen, device=dev)
+            cspecs = model.cache_specs(mesh, B, Lp + gen)
+            run["cache_bytes"] = sum(t.numel() * t.element_size() for t in
+                                     train.shard_state(mesh, cache, cspecs).values())
+            run["cache_bytes_whole"] = sum(t.numel() * t.element_size() for t in cache.values())
+            del cache
+            steps = Lp + gen - 1
+            run.update(ms_per_decode_step=ms, prefill_cross_ms=pre_ms, peak_bytes=peak_bytes(dev),
+                       collective_ms=timer.per_step(steps),
+                       collective_calls={k: len(v) // steps for k, v in timer.calls.items()})
+            whole = gather(mesh, mine_rows, P(rows, None))
+            if rank == 0:
+                new, ref = whole[:, Lp:], want_rows[:, Lp:]
+                run["prompt_equal"] = bool(torch.equal(whole[:, :Lp], want_rows[:, :Lp]))
+                run["greedy_agree"] = int((new == ref).sum())
+                run["greedy_tokens"] = int(new.numel())
+            del params
+            fam["runs"].append(run)
+        out["families"].append(fam)
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def run_ranks(name: str, n: int, cfg: dict, timeout: float = RANKS_TIMEOUT_S) -> list[dict]:
     """Run ``name``'s worker on ``n`` ranks under ``python -m
     torch.distributed.run`` (this file in its rank-worker mode, the port on
@@ -2992,7 +3249,7 @@ def rank_worker(name: str, cfg_path: str) -> int:
     try:
         res = {"collectives": collectives_worker, "train_dist": train_dist_worker,
                "family_dist": family_dist_worker, "tp_dist": tp_dist_worker,
-               "serve_dist": serve_dist_worker}[name](cfg)
+               "serve_dist": serve_dist_worker, "serve_families": serve_families_worker}[name](cfg)
     except BaseException:
         # leave at once, before any teardown: NCCL's would wait for the
         # peers' collectives, and this rank's error would never be printed
@@ -3020,7 +3277,8 @@ def four_cards(device, smi: str) -> dict | None:
     return {"card": smi, "cards": cards}
 
 
-COLL_PARTS = ("collectives", "expert_axis", "family_model_axis", "zero_axis", "serve_model_axis")
+COLL_PARTS = ("collectives", "expert_axis", "family_model_axis", "zero_axis", "serve_model_axis",
+              "serve_families")
 
 
 def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | None:
@@ -3032,10 +3290,11 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
     families (``model_axis_path``); (d) the expert axis
     (``expert_axis_path``); (e) the model axis of the ssm, hybrid and
     encdec families (``family_model_axis_path``); (f) serving over the
-    model axis (``serve_model_axis_path``); first of all, ZeRO-3 over
-    ``data`` (``zero_axis_path``). ``parts`` without "collectives" runs
-    those of (d), (e), (f) and ZeRO it names alone. Every check fails the
-    phase."""
+    model axis (``serve_model_axis_path``); (g) serving the moe, ssm,
+    hybrid and encdec families over it (``serve_families_path``); first of
+    all, ZeRO-3 over ``data`` (``zero_axis_path``). ``parts`` without
+    "collectives" runs those of (d)-(g) and ZeRO it names alone. Every
+    check fails the phase."""
     import shutil
     import tempfile
 
@@ -3055,6 +3314,8 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
             out.update(zero_axis_path(seed, device, dev))
         if "serve_model_axis" in parts:
             out.update(serve_model_axis_path(seed, device, dev))
+        if "serve_families" in parts:
+            out.update(serve_families_path(seed, device, dev))
         out["seconds"] = time.perf_counter() - t0
         return out
     if "zero_axis" in parts:      # first: its mistral-nemo-12b run is the heaviest
@@ -3182,6 +3443,8 @@ def collectives_path(seed: int, device, smi: str, parts=COLL_PARTS) -> dict | No
         out.update(family_model_axis_path(seed, device, dev, out["families"]))
     if "serve_model_axis" in parts:
         out.update(serve_model_axis_path(seed, device, dev))
+    if "serve_families" in parts:
+        out.update(serve_families_path(seed, device, dev))
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3869,6 +4132,122 @@ def print_serve_model_axis(m: dict, smi: str) -> None:
     sys.stdout.flush()
 
 
+def serve_families_path(seed: int, device, dev: str) -> dict:
+    """The collectives phase's part that serves the moe, ssm, hybrid and
+    encdec families over the model axis: ``serve_families_worker`` on four
+    ranks over ``SERVE_FAMILY_RUNS``. Every check fails the phase: rank 0's
+    save and each restore launch the chunk plan's digests, each rank's
+    restored blocks equal rank 0's saved tree (gathered) and agree on the
+    ranks that hold them, the f32 logits lie within ``TP_F32_TOL`` of one
+    card's largest at ``TP_F32_LAYERS`` layer and within ``F32_TOL`` at the
+    family's depth (whisper within ``ENCDEC_TP_F32_TOL``), a MoE's steps
+    whose routing flipped left out and counted, and the teacher-forced
+    prompt is echoed. The greedy tokens are counted against one card's, not
+    bounded."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    release(device)
+    root = tempfile.mkdtemp(prefix="chip-smoke-serve-families-")
+    try:
+        ranks = run_ranks("serve_families", COLL_CARDS, {
+            "device": dev, "seed": seed, "root": root, "batch": SERVE_BATCH,
+            "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+            "families": [[list(a), list(m)] for a, m in SERVE_FAMILY_RUNS]},
+            SERVE_FAMILIES_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    steps = SERVE_PROMPT + SERVE_GEN - 1
+    fams = []
+    for i, (_args, meshes) in enumerate(SERVE_FAMILY_RUNS):
+        f0 = r0["families"][i]
+        want = ckpt_launches(f0["manifest"])
+        save = f0["runs"][0]["save"]
+        check(save["launches"] == {**save["launches"], **want["save"]}
+              and save["launches"]["checksum_copy_words"] == 0,
+              f"serve_families {f0['arch']}: rank 0's save launched exactly {want['save']}: "
+              f"{save['launches']}")
+        one, tol = f0["one_card"], f0["f32_tolerance"]
+        runs = []
+        for j, mesh in enumerate(meshes):
+            rs = [r["families"][i]["runs"][j] for r in ranks]
+            a = rs[0]
+            what = f"serve_families {f0['arch']} {f0['layers']} layers on {mesh}"
+            check(a["saved_equal_restored"], f"{what}: rank 0 restored the saved tree bit for bit")
+            for r, x in zip(ranks, rs):
+                check(x["restored_equal_rank0"] and x["blocks_equal"],
+                      f"{what} rank {r['rank']}: its restored blocks are rank 0's saved tree's, "
+                      "bit-equal on the ranks that hold them")
+                got = x["restore"]["launches"]
+                check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+                      f"{what} rank {r['rank']}'s restore launched exactly {want['restore']}: "
+                      f"{got}")
+            for n, err in a["f32_max_abs_err"].items():
+                check(err <= tol[n] * one[n]["max_logit"],
+                      f"{what}: f32 logits at {n} layer(s) within {tol[n]} of one card's largest "
+                      f"({err} of {one[n]['max_logit']}; route flips {a['route_flips']})")
+            check(a["prompt_equal"], f"{what}: the teacher-forced prompt echoed")
+            kinds = [k for k in ("model", "gather", "a2a", "gather_data")
+                     if a["collective_calls"][k]]
+            runs.append({
+                "mesh": mesh, "ms_per_decode_step": max(x["ms_per_decode_step"] for x in rs),
+                "prefill_cross_ms": (max(x["prefill_cross_ms"] for x in rs)
+                                     if a["prefill_cross_ms"] is not None else None),
+                "collective_ms_per_step": {k: sum(max(x["collective_ms"][k][s] for x in rs)
+                                                  for s in range(steps)) / steps for k in kinds},
+                "collective_calls_per_step": {k: a["collective_calls"][k] for k in kinds},
+                "cache_bytes": [x["cache_bytes"] for x in rs],
+                "cache_bytes_whole": a["cache_bytes_whole"],
+                "peak_bytes": [x["peak_bytes"] for x in rs],
+                "restore_s": [x["restore"]["seconds"] for x in rs],
+                "launches_restore": [x["restore"]["launches"] for x in rs],
+                "f32_max_abs_err": a["f32_max_abs_err"],
+                "f32_rel": {n: e / one[n]["max_logit"] for n, e in a["f32_max_abs_err"].items()},
+                "route_flips": a["route_flips"],
+                "greedy_agree": a["greedy_agree"], "greedy_tokens": a["greedy_tokens"]})
+        fams.append({"arch": f0["arch"], "layers": f0["layers"],
+                     "one_card_ms_per_decode_step": one["ms_per_decode_step"],
+                     "one_card_prefill_cross_ms": one["prefill_cross_ms"],
+                     "f32_tolerance": tol, "save_s": save["seconds"], "bytes": save["bytes"],
+                     "launches_save_rank0": save["launches"], "expected_launches": want,
+                     "runs": runs})
+    return {"serve_families": {
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
+        "families": fams, "wall_s": r0["wall_s"], "seconds": time.perf_counter() - t0}}
+
+
+def print_serve_families(m: dict, smi: str) -> None:
+    """The families' serving part's lines."""
+    for f in m["families"]:
+        for r in f["runs"]:
+            c, n = r["collective_ms_per_step"], r["collective_calls_per_step"]
+            coll = ", ".join(f"{k} {c[k]:.3f} ({n[k]} calls)" for k in c)
+            pre = ("" if r["prefill_cross_ms"] is None else
+                   f"; prefill_cross {r['prefill_cross_ms']:.2f} ms "
+                   f"(one card {f['one_card_prefill_cross_ms']:.2f})")
+            f32 = ", ".join(f"{rel:.3g} of one card's largest at {d} layer(s) (bound "
+                            f"{f['f32_tolerance'][d]:.3g})" for d, rel in r["f32_rel"].items())
+            flips = f"; route flips {r['route_flips']}" if r["route_flips"] else ""
+            print(f"collectives serve_families {f['arch']} {f['layers']} layers on {r['mesh']}, "
+                  f"batch {m['batch']}, {m['prompt']}-token prompt + {m['generated']}: "
+                  f"{r['ms_per_decode_step']:.2f} ms a decode step (one card "
+                  f"{f['one_card_ms_per_decode_step']:.2f}){pre}; ms a step: {coll}; cache "
+                  f"{r['cache_bytes'][0] / 1e6:.3f} MB a card of "
+                  f"{r['cache_bytes_whole'] / 1e6:.3f}; peak GB a card "
+                  f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; f32 logits within {f32}"
+                  f"{flips}; greedy tokens equal to one card's {r['greedy_agree']} of "
+                  f"{r['greedy_tokens']}; restore {', '.join(f'{x:.2f}' for x in r['restore_s'])}"
+                  f" s (launches {r['launches_restore'][0]} each) [{smi}]")
+        print(f"collectives serve_families {f['arch']} checkpoint: {f['bytes'] / 1e9:.2f} GB of "
+              f"params saved by rank 0 in {f['save_s']:.2f} s (launches "
+              f"{f['launches_save_rank0']}) [{smi}]")
+    print(f"collectives serve_families: world {m['wall_s']:.1f} s; part {m['seconds']:.1f} s "
+          f"[{smi}]")
+    sys.stdout.flush()
+
+
 def print_zero_axis(m: dict, smi: str) -> None:
     """The ZeRO part's lines."""
     def gb(xs):
@@ -4041,6 +4420,7 @@ def print_collectives(coll: dict, smi: str) -> None:
     print_family_model_axis(coll["family_model_axis"], smi)
     print_zero_axis(coll["zero_axis"], smi)
     print_serve_model_axis(coll["serve_model_axis"], smi)
+    print_serve_families(coll["serve_families"], smi)
     print("collectives " + json.dumps(coll))
 
 
@@ -4290,7 +4670,7 @@ def main() -> int:
                         help=f"comma-separated of {', '.join(PHASES)} (default: all)")
     parser.add_argument("--rank-worker",
                         choices=("collectives", "train_dist", "family_dist", "tp_dist",
-                                 "serve_dist"),
+                                 "serve_dist", "serve_families"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--config", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -4298,9 +4678,8 @@ def main() -> int:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
     if not phases or phases - set(PHASES) - set(COLL_PARTS):
-        parser.error(f"--phases takes {', '.join(PHASES)}, expert_axis, family_model_axis, "
-                     f"zero_axis or serve_model_axis (those parts of collectives alone) or all, "
-                     f"not {args.phases!r}")
+        parser.error(f"--phases takes {', '.join(PHASES)}, {', '.join(COLL_PARTS[1:])} (those "
+                     f"parts of collectives alone) or all, not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -4356,6 +4735,8 @@ def main() -> int:
                 print_zero_axis(coll["zero_axis"], coll["card"])
             if "serve_model_axis" in parts:
                 print_serve_model_axis(coll["serve_model_axis"], coll["card"])
+            if "serve_families" in parts:
+                print_serve_families(coll["serve_families"], coll["card"])
             print("collectives " + json.dumps(coll))
     print(f"total: {time.perf_counter() - t_all:.1f} s on {smi}")
     if kernels is not None:

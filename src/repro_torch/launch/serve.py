@@ -5,10 +5,9 @@ Twin of ``repro.launch.serve`` (the card unless ``--device cpu``), with
 than one device it runs as one rank of a world, as ``launch.train.main``
 does: every rank draws the one-device weights from the seed and keeps its
 blocks of them (``param_specs``, the reference's default layout), the
-cache is cut by ``cache_specs`` (the batch over pod x data, the time over
-``model``) and each rank decodes its batch rows; rank 0 prints. A family
-without ``cache_specs`` (the ssm, the hybrid, the encdec) keeps whole
-params and a whole cache on every rank.
+cache is cut by ``cache_specs`` (the batch over pod x data; time, heads or
+channels over ``model``) and each rank decodes its batch rows; rank 0
+prints. An encdec raises in ``generate`` here, as the reference's does.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke \\
       --device cpu --batch 4 --prompt-len 12 --gen 16
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
@@ -26,25 +25,26 @@ import torch.distributed as dist
 from repro_torch.configs.registry import build_model
 from repro_torch.distributed.mesh import P, is_primary, shard
 from repro_torch.launch.train import parse_mesh, shard_state, with_layers
+from repro_torch.models.common import cache_batch_spec
 
 
 @torch.no_grad()
 def generate(model, params, prompts: torch.Tensor, gen: int, max_len: int) -> torch.Tensor:
     """Greedy decode: feed prompt tokens, then sample ``gen`` new ones. An
     encdec serves through ``prefill_cross`` and the serve step instead.
-    Over a mesh of more than one rank (a model with ``cache_specs``),
-    ``params`` are this rank's blocks, the cache is cut by ``cache_specs``
-    and the rank decodes its rows of ``prompts``: it returns those rows."""
+    Over a mesh of more than one rank, ``params`` are this rank's blocks,
+    the cache is cut by ``cache_specs`` and the rank decodes its rows of
+    ``prompts``: it returns those rows."""
     if model.cfg.family == "encdec":
         raise NotImplementedError("use prefill_cross + decode for enc-dec")
     mesh = model.mesh
     B, Lp = prompts.shape
     cache = model.init_cache(B, max_len, device=prompts.device)
     kw = {}
-    if mesh is not None and mesh.size > 1 and hasattr(model, "cache_specs"):
+    if mesh is not None and mesh.size > 1:
         specs = model.cache_specs(mesh, B, max_len)
         cache = shard_state(mesh, cache, specs)
-        prompts = shard(mesh, prompts, P(specs["p0"][1], None))
+        prompts = shard(mesh, prompts, P(cache_batch_spec(mesh, B), None))
         B, kw = prompts.shape[0], {"cache_specs": specs}
     tok = prompts[:, :1]
     out = [tok]
@@ -81,7 +81,7 @@ def main(argv=None):
     mesh = parse_mesh(args.mesh, args.device)
     model = with_layers(build_model(args.arch, mesh, smoke=args.smoke), args.layers)
     params = model.init_params(args.seed, mesh.device)
-    if mesh.size > 1 and hasattr(model, "cache_specs"):
+    if mesh.size > 1:
         params = shard_state(mesh, params, model.param_specs(mesh))
     prompts = prompts_for(args.seed, args.batch, args.prompt_len, model.cfg.vocab, mesh.device)
     t0 = time.perf_counter()

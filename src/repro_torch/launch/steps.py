@@ -25,14 +25,14 @@ weights over the data group and the backward reduce-scatters their
 gradients, so such a leaf's block arrives summed over ``data`` and only
 its ``pod`` part of the mean remains ("auto": one ``dist.all_reduce``
 over the pod group; "chunked": ``cross_pod_mean``), then the division.
-Prefill and decode over a ``model`` axis run for the dense family and the
-vlm: prefill's last position is unembedded vocab-parallel
+Prefill and decode run over a ``model`` axis for every family: prefill is
+the training forward with its last position unembedded vocab-parallel
 (``ShardingMixin._unembed``), and the serve step decodes over this rank's
-blocks of the params (the train or the weight-stationary serve specs) and
-of the cache (``cache_specs``: batch over pod x data, time over
-``model``); ``StepBundle.specs`` names both, so a caller cuts whole trees
-with ``launch.train.shard_state``. The MoE's wait for ROADMAP Queue 1 item
-6b, the ssm's, the hybrid's and the encdec's for item 6c.
+blocks of the params (the train specs, or the dense family's and the vlm's
+weight-stationary serve specs) and of the cache (``cache_specs``: batch
+over pod x data; time, heads or channels over ``model``);
+``StepBundle.specs`` names both, so a caller cuts whole trees with
+``launch.train.shard_state``.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
 and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
@@ -51,7 +51,6 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
 from repro_torch.distributed.fsdp import cross_pod_mean
 from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size, cut_axes, shard
-from repro_torch.models.common import refuse_model_axis
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -235,22 +234,12 @@ def world_mean(tree, group, n: int):
 # ---------------------------------------------------------------------------
 # prefill (forward producing logits — the compute profile of ingest)
 # ---------------------------------------------------------------------------
-def refuse_serving(model, mesh, what: str) -> None:
-    """Prefill and decode over a ``model`` axis run for the dense family and
-    the vlm; the others raise, naming the ROADMAP Queue 1 item that ports
-    them."""
-    family = model.cfg.family
-    if family not in ("dense", "vlm"):
-        refuse_model_axis(mesh, what, "item 6b" if family == "moe" else "item 6c")
-
-
 def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> StepBundle:
     """Last-position logits of a batch: an encdec's decoder over its encoded
     ``audio_embed``, a vlm's tokens after their ``vis_embed`` prefix. Over a
     ``model`` axis the params are this rank's blocks under the train specs
     (as the reference's), and the logits are gathered whole.
     ``in_shapes`` is ``cell``'s (None without a cell)."""
-    refuse_serving(model, mesh, "prefill")
     family = model.cfg.family
     if family == "encdec":
         def hidden(params, batch):
@@ -286,14 +275,13 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
     specs): the step takes this rank's blocks of each, the tokens and
     positions of its batch rows (a cache without a cell is whole on every
     rank)."""
-    refuse_serving(model, mesh, "decode")
     pspecs = cspecs = None
     if mesh is not None and mesh.size > 1:
         try:
             pspecs = model.param_specs(mesh, serve=weight_stationary)
         except TypeError:
             pspecs = model.param_specs(mesh)
-        if cell is not None and hasattr(model, "cache_specs"):
+        if cell is not None:
             cspecs = model.cache_specs(mesh, cell.global_batch, cell.seq_len)
     kw = {} if cspecs is None else {"cache_specs": cspecs}
 

@@ -30,9 +30,10 @@ reduce-scatters). The residual stays whole on every
 model rank, where the reference may shard it by sequence (``constrain``,
 ``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart).
 A decode cache is laid out by the reference's ``kv_cache_spec`` (batch
-over pod x data, time over the other axes); the dense family's decode
-attends each rank's time block and combines the ranks' partial softmaxes
-over ``model`` (``partial_attention``, ``ShardingMixin._combine``).
+over pod x data, time over the other axes); a decode layer of any family
+writes the new slot on the rank that holds it, attends each rank's time
+block and combines the ranks' partial softmaxes over ``model``
+(``ShardingMixin._cached_attention``: ``partial_attention``, ``_combine``).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.mesh import (
-    DATA, MODEL, POD, P, all_gather_into, axis_size, data_dims, reduce_scatter_into)
+    DATA, MODEL, POD, P, all_gather_into, axis_size, cut_axes, data_dims, reduce_scatter_into)
 
 Params = Any
 
@@ -463,6 +464,92 @@ class ShardingMixin:
         B, KVH, G, S, hd = o.shape
         return out.permute(0, 3, 1, 2, 4).reshape(B, S, KVH * G, hd).to(dtype)
 
+    # -- decode over a time-cut cache ---------------------------------------------
+    @staticmethod
+    def _cache_write(cache_k, cache_v, cache_p, k_new, v_new, pos, slot, own=None):
+        """Write one token's K/V at per-batch ``slot``, in place; with
+        ``own`` (B,) bool, only the rows it marks (the others write back
+        what the slot held, so no row is picked on the host).
+        shapes: cache (B, T, KVH, hd), k_new/v_new (B, 1, KVH, hd), pos (B,)."""
+        rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+        slot = slot.long()
+        new = (k_new[:, 0].to(cache_k.dtype), v_new[:, 0].to(cache_v.dtype),
+               pos.to(cache_p.dtype))
+        for c, n in zip((cache_k, cache_v, cache_p), new):
+            if own is not None:
+                n = torch.where(own.view(-1, *[1] * (n.dim() - 1)), n, c[rows, slot])
+            c[rows, slot] = n
+        return cache_k, cache_v, cache_p
+
+    def _time_cut(self, spec) -> bool:
+        """Whether a decode cache laid out by ``spec`` (its time on dim 2;
+        None: whole on every rank) has its time dim cut over ``model``.
+        Time cut over ``data`` or ``pod`` raises."""
+        if spec is None:
+            return False
+        axes = cut_axes(self.mesh, P(spec[2]))
+        if set(axes) - {MODEL}:
+            raise NotImplementedError(
+                f"decode over a cache whose time dim is cut over {axes} (a batch that pod x "
+                "data does not divide) is not ported yet (ROADMAP Queue 1 item 6d)")
+        return MODEL in axes
+
+    def _whole_heads(self, parts, whole) -> list:
+        """Each of ``parts`` (B, S, heads, hd) whole: those whose last two
+        dims are not ``whole``'s entry gathered over ``model`` in one
+        all-gather, along the dim the layout cuts (heads under the train
+        specs, head_dim under the dense family's serve specs)."""
+        cut = [t for t, w in zip(parts, whole) if tuple(t.shape[-2:]) != w]
+        if not cut:
+            return list(parts)
+        # a cut of the kv heads cuts the heads too (they are its multiple), so
+        # the first part's heads tell the dim
+        dim = -2 if parts[0].shape[-2] != whole[0][0] else -1
+        it = iter(self._gather_model(cut, dim))
+        return [next(it) if tuple(t.shape[-2:]) != w else t for t, w in zip(parts, whole)]
+
+    def _cached_attention(self, q, ck, cv, cp, pos, time_cut: bool, *, new=None,
+                          causal: bool = True, window=None, logit_cap=None):
+        """Decode attention of the whole ``q`` (B, 1, H, hd) over this
+        rank's block of a cache (``ck``, ``cv`` (B, T, KVH, hd), positions
+        ``cp`` (B, T), -1 where empty). ``new`` = (k, v) of the token at
+        ``pos``, whole, is first written at slot ``pos % T`` of the whole
+        cache: over a time cut (``time_cut``) slot ``pos % (tp T)`` lives on
+        rank ``slot // T`` at ``slot % T`` and only that rank writes it. Over
+        a time cut each rank attends its block (``partial_attention``) and
+        the ranks' partial softmaxes are combined (``_combine``); else the
+        whole cache is attended. (B, 1, H, hd) in ``q``'s dtype."""
+        q_pos = pos[:, None]
+        if new is not None:
+            T = ck.shape[1]
+            if time_cut:
+                slot = pos % (T * self._tp())
+                self._cache_write(ck, cv, cp, *new, pos, slot % T, own=slot // T == self._mrank())
+            else:
+                self._cache_write(ck, cv, cp, *new, pos, pos % T)
+        if not time_cut:
+            return attention(q, ck, cv, causal=causal, q_positions=q_pos, kv_positions=cp,
+                             window=window, logit_cap=logit_cap)
+        m, l, o = partial_attention(q, ck, cv, causal=causal, q_positions=q_pos,
+                                    kv_positions=cp, window=window, logit_cap=logit_cap)
+        return self._combine(m, l, o, q.dtype)
+
+    def _own_rows(self, o, wo):
+        """(``o`` (B, S, H, hd) narrowed to this rank's rows of ``wo`` (H,
+        hd, D) or its block of them, whether ``wo`` is cut): the input of
+        the row-parallel output projection."""
+        cut = [d for d in (0, 1) if wo.shape[d] != o.shape[2 + d]]
+        for d in cut:
+            o = o.narrow(2 + d, self._mrank() * wo.shape[d], wo.shape[d])
+        return o, bool(cut)
+
+    def _heads_out(self, o, wo):
+        """The row-parallel output projection of the whole ``o`` (B, S, H,
+        hd): this rank's heads of it into its rows of ``wo``, summed over
+        ``model`` where ``wo`` is cut."""
+        o, cut = self._own_rows(o, wo)
+        return self._reduce_out(torch.einsum("bsnh,nhd->bsd", o, wo), cut)
+
     def _local_kv(self, k, v):
         """The kv heads that this rank's query heads meet: all of ``k``
         where the kv heads are split with the heads (or nothing is split),
@@ -768,25 +855,14 @@ def shardable(size: int, axis: str, mesh) -> str | None:
     return None
 
 
-def refuse_model_axis(mesh, what: str, items: str) -> None:
-    """``what`` runs over pod x data only: a ``model`` axis over 1 raises,
-    naming the ROADMAP Queue 1 ``items`` that port it."""
-    if mesh is not None and axis_size(mesh, MODEL) > 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of {axis_size(mesh, MODEL)} is not ported yet "
-            f"(ROADMAP Queue 1 {items})")
-
-
 def kv_cache_spec(mesh, batch: int, time: int, extra: tuple = ()):
     """Sharding for a (layers, B, T, ...) decode cache, the reference's:
     the batch over (pod, data) where their product divides it, the time
     dim over every other axis that divides what is left of it, in the
     order model, data, pod (long-context decode, B = 1, ends up cut over
     every axis)."""
-    b_axes = tuple(a for a in (POD, DATA) if a in mesh.axis_names)
-    if batch % max(1, math.prod(mesh.shape[a] for a in b_axes)) != 0:
-        b_axes = ()
-    b = b_axes if len(b_axes) > 1 else (b_axes[0] if b_axes else None)
+    b = cache_batch_spec(mesh, batch)
+    b_axes = b if isinstance(b, tuple) else ((b,) if b else ())
     t_axes = []
     rem = time
     for a in (MODEL, DATA, POD):
@@ -795,6 +871,15 @@ def kv_cache_spec(mesh, batch: int, time: int, extra: tuple = ()):
             rem //= mesh.shape[a]
     t = tuple(t_axes) if len(t_axes) > 1 else (t_axes[0] if t_axes else None)
     return P(None, b, t, *extra)
+
+
+def cache_batch_spec(mesh, batch: int):
+    """The batch dim's entry of a decode cache's spec, the reference's:
+    ``batch_axes`` where their product divides ``batch``, else None (every
+    rank holds every row)."""
+    b = batch_axes(mesh)
+    axes = b if isinstance(b, tuple) else ((b,) if b else ())
+    return b if batch % max(1, math.prod(mesh.shape[a] for a in axes)) == 0 else None
 
 
 def batch_axes(mesh, exclude_pod: bool = False):

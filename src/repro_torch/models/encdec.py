@@ -33,7 +33,12 @@ a ``data`` axis (ZeRO-3) both stacks' weights and ``embed`` are cut by
 ``_zero_top``). The
 reference's ``_qspec`` (context-parallel queries where a 16-wide axis
 does not divide 20 heads) is a layout hint of GSPMD with no counterpart.
-Prefill and decode over a ``model`` axis wait for ROADMAP Queue 1 item 6c.
+Over a ``model`` axis the decode cache is laid out by the reference's
+``cache_specs``: the self-attention cache and the cross K/V both cut by
+time, every head on every rank. ``prefill_cross`` re-cuts the cross K/V of
+this rank's heads into its block of positions with one all-to-all, and
+``decode_step`` attends each rank's blocks and combines them by
+log-sum-exp.
 """
 from __future__ import annotations
 
@@ -41,12 +46,10 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import DenseLM
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
@@ -255,40 +258,97 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
                 "p": torch.full((nd, batch, max_len), -1, dtype=torch.int32, device=device),
                 "ek": zeros(Te), "ev": zeros(Te)}
 
-    def prefill_cross(self, params, cache, audio_embed):
-        """Compute the encoder output and fill per-layer cross-attn K/V."""
-        cm.refuse_model_axis(self.mesh, "prefill", "item 6c")
-        enc = self.encode(params, audio_embed)
-        ek = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wk"])
-        ev = torch.einsum("btd,ldnh->lbtnh", enc, params["dec"]["cross"]["wv"])
-        return {**cache, "ek": ek, "ev": ev}
+    def cache_specs(self, mesh, batch: int, max_len: int) -> Any:
+        """The reference's: the self-attention cache by ``kv_cache_spec`` on
+        ``max_len``, the cross K/V by ``kv_cache_spec`` on the encoder's
+        positions (time over ``model``, every head on every rank)."""
+        kv = cm.kv_cache_spec(mesh, batch, max_len, extra=(None, None))
+        ekv = cm.kv_cache_spec(mesh, batch, self.cfg.enc_positions, extra=(None, None))
+        return {"k": kv, "v": kv, "p": cm.kv_cache_spec(mesh, batch, max_len),
+                "ek": ekv, "ev": ekv}
 
-    def decode_step(self, params, cache, tokens, pos):
+    def prefill_cross(self, params, cache, audio_embed, cache_specs=None):
+        """Compute the encoder output and fill per-layer cross-attn K/V.
+
+        Over a mesh, ``params`` are this rank's blocks under the train
+        specs, ``audio_embed`` its rows and ``cache_specs`` the specs the
+        cache is cut by (None: whole on every rank). The encoder runs
+        head-parallel, as in training, and this rank's cross ``wk`` /
+        ``wv`` heads take every encoder position; the cache wants every
+        head of this rank's block of positions, so one all-to-all over
+        ``model`` turns the heads' cut into the time's (where the time is
+        whole, the heads are gathered)."""
+        cfg = self.cfg
+        enc = self.encode(params, audio_embed)
+        specs = self.param_specs(self.mesh)["dec"]["cross"] if self._dp() > 1 else None
+        wk, wv = (params["dec"]["cross"][k] if specs is None else self._zero(
+            params["dec"]["cross"][k], specs[k]) for k in ("wk", "wv"))
+        kv = torch.stack([torch.einsum("btd,ldnh->lbtnh", enc, w) for w in (wk, wv)])
+        time_cut = self._time_cut(None if cache_specs is None else cache_specs["ek"])
+        heads_cut = kv.shape[-2] != cfg.n_heads
+        if time_cut and heads_cut:    # (2, L, B, Te, H/tp, hd) -> (2, L, B, Te/tp, H, hd)
+            tp = self._tp()
+            two, L, B, Te, h, hd = kv.shape
+            blocks = kv.reshape(two, L, B, tp, Te // tp, h, hd).movedim(3, 0)
+            got = cm.all_to_all(blocks, self.mesh.group(MODEL))      # [j]: rank j's heads
+            kv = got.permute(1, 2, 3, 4, 0, 5, 6).reshape(two, L, B, Te // tp, tp * h, hd)
+        elif time_cut:
+            n = kv.shape[3] // self._tp()
+            kv = kv.narrow(3, self._mrank() * n, n)
+        elif heads_cut:
+            kv = self._gather_model([kv], -2)[0]
+        return {**cache, "ek": kv[0].contiguous(), "ev": kv[1].contiguous()}
+
+    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
         """tokens: (B, 1) int, pos: (B,) current absolute position (the
         position embedding clamps at ``max_target - 1``).
 
-        Returns (logits (B,1,V), cache) — the cache updated in place."""
+        Returns (logits (B,1,V), cache) — the cache updated in place.
+
+        Over a mesh, ``params`` are this rank's blocks under the train
+        specs (ZeRO blocks gathered a layer at a time) and ``cache`` its
+        blocks under ``cache_specs`` (None: whole on every rank). The
+        self-attention gathers q, k and v over heads, writes the new slot
+        on the rank that holds it and attends each rank's time block; the
+        cross-attention gathers q and attends each rank's block of the
+        encoder positions, unmasked; each combines the ranks' partial
+        softmaxes by log-sum-exp (``ShardingMixin._cached_attention``).
+        Each rank then feeds its heads of o to its rows of ``wo``."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
         B = tokens.shape[0]
-        x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+        self_cut, cross_cut = (self._time_cut(None if cache_specs is None else cache_specs[k])
+                               for k in ("p", "ek"))
+        keys = [(sub, k) for sub in params["dec"] for k in params["dec"][sub]]
+        zero = self._dp() > 1 and params["dec"]["self"]["wq"].shape[1] != cfg.d_model
+        lspecs = None
+        if zero:
+            params = self._zero_top(params)
+            specs = self.param_specs(self.mesh)["dec"]
+            lspecs = [specs[sub][k] for sub, k in keys]
+        x = self._lookup(params["embed"], tokens).to(cfg.dtype)
         pos_emb = params["pos_dec"][torch.clamp(pos, max=self.max_target - 1).long()]
         x = x + pos_emb[:, None].to(cfg.dtype)
-        q_pos = pos[:, None]
-        enc_pos = self._positions(B, cache["ek"].shape[2], x.device)
-        for i in range(cfg.n_layers):
-            sa = {k: t[i] for k, t in params["dec"]["self"].items()}
-            ck, cv, cp = cache["k"][i], cache["v"][i], cache["p"][i]
+        te = cache["ek"].shape[2]                          # this rank's encoder positions
+        e0 = self._mrank() * te if cross_cut else 0
+        enc_pos = self._positions(B, te, x.device) + e0
+        heads = ((cfg.n_heads, cfg.hd),) * 3
+        stacked = [params["dec"][sub][k] for sub, k in keys]
+        for i, leaves in enumerate(cm.layer_slices(stacked)):
+            lp: dict = {}
+            for (sub, k), t in zip(keys, self._zero_layer(leaves, lspecs) if zero else leaves):
+                lp.setdefault(sub, {})[k] = t
+            sa, ca = lp["self"], lp["cross"]
             h = layer_norm(x, sa["ln_s"], sa["ln_b"])
-            q = torch.einsum("bsd,dnh->bsnh", h, sa["wq"])
-            k = torch.einsum("bsd,dnh->bsnh", h, sa["wk"])
-            v = torch.einsum("bsd,dnh->bsnh", h, sa["wv"])
-            DenseLM._cache_write(ck, cv, cp, k, v, pos, pos % ck.shape[1])
-            o = cm.attention(q, ck, cv, causal=True, q_positions=q_pos, kv_positions=cp)
-            x = x + torch.einsum("bsnh,nhd->bsd", o, sa["wo"])
-            x = self._cross(x, {k: t[i] for k, t in params["dec"]["cross"].items()},
-                            cache["ek"][i], cache["ev"][i], enc_pos, q_pos)
-            x = self._mlp(x, {k: t[i] for k, t in params["dec"]["mlp"].items()})
+            q, k, v = self._whole_heads([torch.einsum("bsd,dnh->bsnh", h, sa[w])
+                                         for w in ("wq", "wk", "wv")], heads)
+            o = self._cached_attention(q, cache["k"][i], cache["v"][i], cache["p"][i], pos,
+                                       self_cut, new=(k, v))
+            x = x + self._heads_out(o, sa["wo"])
+            h = layer_norm(x, ca["ln_s"], ca["ln_b"])
+            [q] = self._whole_heads([torch.einsum("bsd,dnh->bsnh", h, ca["wq"])], heads[:1])
+            o = self._cached_attention(q, cache["ek"][i], cache["ev"][i], enc_pos, pos,
+                                       cross_cut, causal=False)
+            x = x + self._heads_out(o, ca["wo"])
+            x = self._mlp(x, lp["mlp"])
         x = layer_norm(x, params["dec_norm_s"], params["dec_norm_b"])
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(cfg.dtype))
-        return logits, cache
+        return self._unembed(params, x), cache

@@ -25,7 +25,12 @@ the RG-LRU elementwise and ``wo`` row-parallel. The MLPs are column / row
 pairs over ``d_ff``; the attention splits by heads where ``model`` divides
 them (the one kv head whole) and runs whole on every rank where it does
 not; the tied embedding is vocab-parallel. Decode over a ``model`` axis
-waits for ROADMAP Queue 1 item 6c.
+runs the same layers on this rank's blocks of a cache laid out by the
+reference's ``cache_specs``: the recurrent states and conv windows by
+channels, the local-attention ring by time, attended by each rank over its
+slots and combined by log-sum-exp (``ShardingMixin._cached_attention``);
+where the heads stay whole, the whole q meets each rank's slots and ``wo``
+needs no sum.
 """
 from __future__ import annotations
 
@@ -39,7 +44,6 @@ from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.ssm import _causal_conv
-from repro_torch.models.transformer import DenseLM
 
 _C = 8.0  # RG-LRU gate sharpness constant
 
@@ -250,10 +254,6 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
         x = self._lookup(params["embed"], tokens).to(self.cfg.dtype)
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
 
-    @staticmethod
-    def _layer(tree, i):
-        return {k: t[i] for k, t in tree.items()}
-
     # -- train ------------------------------------------------------------------
     def hidden(self, params, tokens):
         cfg = self.cfg
@@ -326,36 +326,87 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
             cache["ct"] = zeros((self.n_tail, batch, k - 1, w), cfg.dtype)
         return cache
 
+    def cache_specs(self, mesh, batch: int, max_len: int) -> Any:
+        """The reference's: the batch over pod x data where their product
+        divides it; the recurrent states and conv windows by ``lru_width``
+        over ``model``, the local attention's ring by ``kv_cache_spec`` on
+        its ``min(window, max_len)`` slots."""
+        b = cm.cache_batch_spec(mesh, batch)
+        w_m = cm.shardable(self.w, MODEL, mesh)
+        T = min(self.cfg.window, max_len)
+        kv = cm.kv_cache_spec(mesh, batch, T, extra=(None, None))
+        specs = {"h0": P(None, b, w_m), "c0": P(None, b, None, w_m),
+                 "h1": P(None, b, w_m), "c1": P(None, b, None, w_m),
+                 "ak": kv, "av": kv, "ap": cm.kv_cache_spec(mesh, batch, T)}
+        if self.n_tail:
+            specs["ht"] = P(None, b, w_m)
+            specs["ct"] = P(None, b, None, w_m)
+        return specs
+
     def _rec_step(self, x, lp, h_cache, c_cache):
         """x: (B,1,D). Updates this layer's state ``h_cache`` (B, w) and conv
-        window ``c_cache`` in place; returns x_out."""
+        window ``c_cache`` in place (this rank's channels of each over a
+        split ``lru_width``, as ``_rec_in`` computes them); returns x_out,
+        ``wo`` row-parallel."""
         xb, yb, ga, gx, new_conv = self._rec_in(x, lp, c_cache)
         h_new, hs = rg_lru_step(h_cache, xb[:, 0], ga[:, 0], gx[:, 0], lp["lam"])
         h_cache.copy_(h_new)
         c_cache.copy_(new_conv)
         out = torch.einsum("blw,wd->bld", hs[:, None].to(x.dtype) * yb, lp["wo"])
-        return self._mlp(x + out, lp)
+        return self._mlp(x + self._reduce_out(out, self._split(self.w)), lp)
 
-    def decode_step(self, params, cache, tokens, pos):
-        """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
-        the cache updated in place."""
+    def _decode_attn(self, x, lp, ck, cv, cp, pos, time_cut: bool):
+        """The local-attention layer of a decode step: q, k and v of this
+        rank's heads gathered whole over ``model`` (all heads on every rank
+        where the axis does not divide them), rotated, and the ring's slot
+        written and attended by ``ShardingMixin._cached_attention`` (over a
+        ring cut by time each rank attends its slots); then ``wo`` on this
+        rank's heads, summed over ``model``, and the MLP."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
-        x = self._embed(params, tokens)
         q_pos = pos[:, None]
-        for b in range(self.n_blocks):
-            x = self._rec_step(x, self._layer(params["rec0"], b), cache["h0"][b], cache["c0"][b])
-            x = self._rec_step(x, self._layer(params["rec1"], b), cache["h1"][b], cache["c1"][b])
-            lp = self._layer(params["attn"], b)
-            ck, cv, cp = cache["ak"][b], cache["av"][b], cache["ap"][b]
-            q, k, v = self._qkv(x, lp, q_pos)
-            DenseLM._cache_write(ck, cv, cp, k, v, pos, pos % ck.shape[1])
-            o = cm.attention(q, ck, cv, causal=True, q_positions=q_pos,
-                             kv_positions=cp, window=cfg.window)
-            o = torch.einsum("bsnh,nhd->bsd", o, lp["wo"])
-            x = self._mlp(x + o, lp)
-        for j in range(self.n_tail):
-            x = self._rec_step(x, self._layer(params["tail"], j), cache["ht"][j], cache["ct"][j])
+        h = cm.rms_norm(x, lp["ln"])
+        q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
+        k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
+        v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
+        kv = (cfg.n_kv_heads, cfg.hd)
+        q, k, v = self._whole_heads((q, k, v), ((cfg.n_heads, cfg.hd), kv, kv))
+        q, k = cm.rope(q, q_pos, cfg.rope_theta), cm.rope(k, q_pos, cfg.rope_theta)
+        o = self._cached_attention(q, ck, cv, cp, pos, time_cut, new=(k, v), window=cfg.window)
+        return self._mlp(x + self._heads_out(o, lp["wo"]), lp)
+
+    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
+        """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
+        the cache updated in place.
+
+        Over a mesh, ``params`` are this rank's blocks under the train
+        specs (ZeRO blocks gathered a layer at a time, as the forward
+        gathers them) and ``cache`` its blocks under ``cache_specs`` (None:
+        whole on every rank): the recurrent layers run on this rank's
+        channels, the local attention over its slots of the ring."""
+        cfg = self.cfg
+        time_cut = self._time_cut(None if cache_specs is None else cache_specs["ap"])
+        names = ("rec0", "rec1", "attn") + (("tail",) if self.n_tail else ())
+        keys = {n: list(params[n]) for n in names}
+        zero = self._dp() > 1 and params["rec0"]["wx"].shape[1] != cfg.d_model
+        specs = None
+        if zero:
+            params = self._zero_top(params)
+            specs = self.param_specs(self.mesh)
+
+        def layers(group):
+            lspecs = None if specs is None else [specs[n][k] for n in group for k in keys[n]]
+            for leaves in cm.layer_slices([params[n][k] for n in group for k in keys[n]]):
+                it = iter(self._zero_layer(leaves, lspecs) if zero else leaves)
+                yield {n: {k: next(it) for k in keys[n]} for n in group}
+
+        x = self._embed(params, tokens)
+        for b, blk in enumerate(layers(("rec0", "rec1", "attn"))):
+            x = self._rec_step(x, blk["rec0"], cache["h0"][b], cache["c0"][b])
+            x = self._rec_step(x, blk["rec1"], cache["h1"][b], cache["c1"][b])
+            x = self._decode_attn(x, blk["attn"], cache["ak"][b], cache["av"][b],
+                                  cache["ap"][b], pos, time_cut)
+        if self.n_tail:
+            for j, blk in enumerate(layers(("tail",))):
+                x = self._rec_step(x, blk["tail"], cache["ht"][j], cache["ct"][j])
         x = cm.rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bld,vd->blv", x, params["embed"].to(cfg.dtype))
-        return cm.softcap(logits, cfg.final_softcap), cache
+        return cm.softcap(self._unembed(params, x), cfg.final_softcap), cache

@@ -53,6 +53,14 @@ capacity C taken over its own tokens, as the reference's per-shard
 the router and each rank's expert blocks are cut by ``D`` too and reach
 ``_mlp`` gathered whole in ``D`` (``DenseLM._backbone`` gathers a layer's
 leaves before its attention), still cut over ``model``.
+
+Decode and prefill over a ``model`` axis are ``DenseLM``'s, with the params
+in these train specs (the reference serves the MoE with them too): decode
+gathers a layer's ZeRO blocks as the forward does, and each step's few
+rows go through ``_mlp`` as the forward's do. A column whose slice holds
+only the rows that pad B·S to a multiple of tp routes those zero rows
+among themselves (each sender has its own capacity), and their outputs are
+cut off after the gather.
 """
 from __future__ import annotations
 
@@ -205,12 +213,6 @@ class MoELM(DenseLM):
             lp["we_i"] = P(None, MODEL, None, d_dat, None)
             lp["we_o"] = P(None, MODEL, None, None, d_dat)
         return specs
-
-    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
-        """``DenseLM.decode_step``; over a ``model`` axis the experts' decode
-        waits for ROADMAP Queue 1 item 6b."""
-        cm.refuse_model_axis(self.mesh, "decode", "item 6b")
-        return super().decode_step(params, cache, tokens, pos, cache_specs)
 
     # -- the MoE FFN replaces the dense MLP ----------------------------------
     def _mlp(self, x, lp):

@@ -17,7 +17,8 @@ B and C, runs the conv on its channels and the SSD on its heads, sums the
 gated norm's squares over ``model`` and ends in a row-parallel ``w_out``.
 Each whole leaf then feeds this rank's heads only, so its gradient is
 summed over ``model`` (``ShardingMixin._copy_in``). Decode over a
-``model`` axis waits for ROADMAP Queue 1 item 6c.
+``model`` axis runs the same block on this rank's blocks of the cache,
+laid out by the reference's ``cache_specs`` (``decode_step``).
 """
 from __future__ import annotations
 
@@ -313,26 +314,67 @@ class Mamba2LM(cm.ShardingMixin, torch.nn.Module):
                                 dtype=cfg.dtype, device=device),
         }
 
-    def decode_step(self, params, cache, tokens, pos):
+    def cache_specs(self, mesh, batch: int, max_len: int) -> Any:
+        """The reference's: the batch over pod x data where their product
+        divides it; over ``model`` the SSM state by heads and the conv
+        window by its channels, (x, B, C) concatenated, in contiguous
+        blocks."""
+        b = cm.cache_batch_spec(mesh, batch)
+        nh_m = cm.shardable(self.nheads, MODEL, mesh)
+        di_m = cm.shardable(self.d_inner + 2 * self.n_state, MODEL, mesh)
+        return {"ssm": P(None, b, nh_m, None, None), "conv": P(None, b, None, di_m)}
+
+    def decode_step(self, params, cache, tokens, pos, cache_specs=None):
         """tokens: (B, 1) int, pos: (B,). Returns (logits (B,1,V), cache) —
-        the cache updated in place."""
+        the cache updated in place.
+
+        Over a mesh, ``params`` are this rank's blocks under the train
+        specs (ZeRO blocks gathered a layer at a time) and ``cache`` its
+        blocks under ``cache_specs``, whose cut each block's shape tells
+        (so ``cache_specs`` is not read). The block runs head-parallel as in
+        training, on this rank's block of the SSM state. The conv window's
+        block is not the compute's channels (those of its heads' x, and the
+        whole B and C), so every layer's window is gathered whole over
+        ``model`` in one all-gather before the first layer; each rank
+        convolves its channels of it and writes back its own block, the
+        window shifted by the new token's ``conv_in`` of those channels
+        (from the whole ``w_in``)."""
         cfg = self.cfg
-        cm.refuse_model_axis(self.mesh, "decode", "item 6c")
         B = tokens.shape[0]
+        (h0, nh), _ = self._ranges()
+        hd, di, ns = cfg.ssm_head_dim, self.d_inner, self.n_state
+        keys = list(params["blocks"])
+        zero = self._dp() > 1 and params["blocks"]["w_in"].shape[1] != cfg.d_model
+        lspecs = None
+        if zero:
+            params = self._zero_top(params)
+            specs = self.param_specs(self.mesh)["blocks"]
+            lspecs = [specs[k] for k in keys]
         x = self._embed(params, tokens)                                # (B,1,D)
-        nh, hd = self.nheads, cfg.ssm_head_dim
-        for i in range(cfg.n_layers):
-            lp = {k: t[i] for k, t in params["blocks"].items()}
+        c = cache["conv"].shape[-1]                                    # this rank's channels
+        cut = c != di + 2 * ns
+        c0 = self._mrank() * c if cut else 0
+        windows = self._gather_model([cache["conv"]], -1)[0] if cut else cache["conv"]
+        own = nh == self.nheads and not cut                            # every channel, whole
+        x0, n = h0 * hd, nh * hd
+        for i, leaves in enumerate(cm.layer_slices([params["blocks"][k] for k in keys])):
+            whole = dict(zip(keys, self._zero_layer(leaves, lspecs) if zero else leaves))
+            lp = self._local(whole)
             h = cm.rms_norm(x, lp["ln"])
             z, xin, Bc, Cc, dt = self._split_proj(h, lp)
-            xc, Bc, Cc, new_conv = self._conv_split(xin, Bc, Cc, lp, cache=cache["conv"][i])
+            w = windows[i] if nh == self.nheads else torch.cat(
+                [windows[i][..., x0:x0 + n], windows[i][..., di:]], dim=-1)
+            xc, Bc, Cc, new_conv = self._conv_split(xin, Bc, Cc, lp, cache=w)
             A = -torch.exp(lp["A_log"].float())
             a = (dt * A[None, None, :])[:, 0]                          # (B,nh)
             xdt = xc.reshape(B, nh, hd).float() * dt[:, 0, :, None]
             new_ssm, y = ssd_step(cache["ssm"][i], xdt, a, Bc[:, 0].float(), Cc[:, 0].float())
             cache["ssm"][i] = new_ssm
-            cache["conv"][i] = new_conv
+            if own:
+                cache["conv"][i] = new_conv
+            else:       # conv channel j is w_in's column d_inner + j
+                new_in = torch.einsum("bld,de->ble", h, whole["w_in"][:, di + c0:di + c0 + c])
+                cache["conv"][i] = torch.cat([cache["conv"][i][:, 1:], new_in], dim=1)
             x = x + self._finish(y[:, None], z, xc, dt, lp)
         x = cm.rms_norm(x, params["final_norm"])
-        logits = torch.einsum("bld,vd->blv", x, params["embed"].to(cfg.dtype))
-        return logits, cache
+        return self._unembed(params, x), cache

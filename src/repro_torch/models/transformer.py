@@ -52,7 +52,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.mesh import DATA, MODEL, P, cut_axes
+from repro_torch.distributed.mesh import DATA, MODEL, P
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 
@@ -301,79 +301,29 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
             specs[f"p{i}"] = cm.kv_cache_spec(mesh, batch, T)
         return specs
 
-    @staticmethod
-    def _cache_write(cache_k, cache_v, cache_p, k_new, v_new, pos, slot, own=None):
-        """Write one token's K/V at per-batch ``slot``, in place; with
-        ``own`` (B,) bool, only the rows it marks (the others write back
-        what the slot held, so no row is picked on the host).
-        shapes: cache (B, T, KVH, hd), k_new/v_new (B, 1, KVH, hd), pos (B,)."""
-        rows = torch.arange(cache_k.shape[0], device=cache_k.device)
-        slot = slot.long()
-        new = (k_new[:, 0].to(cache_k.dtype), v_new[:, 0].to(cache_v.dtype),
-               pos.to(cache_p.dtype))
-        for c, n in zip((cache_k, cache_v, cache_p), new):
-            if own is not None:
-                n = torch.where(own.view(-1, *[1] * (n.dim() - 1)), n, c[rows, slot])
-            c[rows, slot] = n
-        return cache_k, cache_v, cache_p
-
-    def _time_cut(self, cache_specs) -> list[bool]:
-        """For each kind, whether its cache's time dim is cut over
-        ``model``, from the specs the cache was cut by (None: whole). Time
-        cut over ``data`` or ``pod`` raises."""
-        if cache_specs is None:
-            return [False] * len(self.pattern)
-        out = []
-        for i in range(len(self.pattern)):
-            axes = cut_axes(self.mesh, P(cache_specs[f"p{i}"][2]))
-            if set(axes) - {MODEL}:
-                raise NotImplementedError(
-                    f"decode over a cache whose time dim is cut over {axes} (a batch that pod x "
-                    "data does not divide) is not ported yet (ROADMAP Queue 1 item 6d)")
-            out.append(MODEL in axes)
-        return out
-
     def _decode_attn(self, x, lp, kind, ck, cv, cp, pos, time_cut: bool):
         """One decode attention sub-layer on this rank's blocks of the
         weights and the cache: q, k and v gathered whole over ``model`` in
         one all-gather along the dim the layout cuts (heads for the train
         specs, head_dim for the serve specs; none where the block is
-        whole), then rotated; the new slot written by the rank that holds
-        it; over a time-cut cache each rank's partial softmax, combined.
-        Returns the sub-layer's output (B, 1, D), summed over ``model``."""
+        whole), then rotated; the new slot written and the cache attended
+        by ``ShardingMixin._cached_attention``. Returns the sub-layer's
+        output (B, 1, D), summed over ``model``."""
         cfg = self.cfg
         q_pos = pos[:, None]
         h = cm.rms_norm(x, lp["ln1"])
         q = torch.einsum("bsd,dnh->bsnh", h, lp["wq"])
         k = torch.einsum("bsd,dkh->bskh", h, lp["wk"])
         v = torch.einsum("bsd,dkh->bskh", h, lp["wv"])
-        whole = (cfg.n_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd)
-        parts = [t for t, w in zip((q, k, v), whole) if tuple(t.shape[-2:]) != w]
-        if parts:
-            dim = -2 if q.shape[-2] != cfg.n_heads else -1
-            it = iter(self._gather_model(parts, dim))
-            q, k, v = (next(it) if tuple(t.shape[-2:]) != w else t
-                       for t, w in zip((q, k, v), whole))
+        q, k, v = self._whole_heads(
+            (q, k, v), ((cfg.n_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd), (cfg.n_kv_heads, cfg.hd)))
         q = cm.rope(q, q_pos, cfg.rope_theta)
         k = cm.rope(k, q_pos, cfg.rope_theta)
-        T = ck.shape[1]
-        window = cfg.window if kind == "l" else None
-        if time_cut:       # slot pos % (tp T) lives on rank slot // T, at slot % T
-            slot = pos % (T * self._tp())
-            self._cache_write(ck, cv, cp, k, v, pos, slot % T, own=slot // T == self._mrank())
-            m, l, o = cm.partial_attention(q, ck, cv, causal=True, q_positions=q_pos,
-                                           kv_positions=cp, window=window,
-                                           logit_cap=cfg.attn_softcap)
-            o = self._combine(m, l, o, q.dtype)
-        else:
-            self._cache_write(ck, cv, cp, k, v, pos, pos % T)
-            o = cm.attention(q, ck, cv, causal=True, q_positions=q_pos, kv_positions=cp,
-                             window=window, logit_cap=cfg.attn_softcap)
-        wo = lp["wo"]                       # (H, hd, D) or this rank's rows of it
-        cut = [d for d in (0, 1) if wo.shape[d] != o.shape[2 + d]]
-        for d in cut:
-            o = o.narrow(2 + d, self._mrank() * wo.shape[d], wo.shape[d])
-        return self._attn_out(o, lp, bool(cut))
+        o = self._cached_attention(q, ck, cv, cp, pos, time_cut, new=(k, v),
+                                   window=cfg.window if kind == "l" else None,
+                                   logit_cap=cfg.attn_softcap)
+        o, cut = self._own_rows(o, lp["wo"])        # wo: (H, hd, D) or this rank's rows
+        return self._attn_out(o, lp, cut)
 
     def decode_step(self, params, cache, tokens, pos, cache_specs=None):
         """tokens: (B, 1) int, pos: (B,) current absolute position.
@@ -387,7 +337,8 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
         rank). Train-spec blocks cut over ``data`` (ZeRO-3) are gathered a
         layer at a time, as the forward gathers them."""
         cfg = self.cfg
-        time_cut = self._time_cut(cache_specs)
+        time_cut = [self._time_cut(None if cache_specs is None else cache_specs[f"p{i}"])
+                    for i in range(len(self.pattern))]
         keys = [(str(i), k) for i in range(len(self.pattern)) for k in params["blocks"][str(i)]]
         zero = self._dp() > 1 and params["blocks"]["0"]["wq"].shape[1] != cfg.d_model
         lspecs = None

@@ -244,14 +244,23 @@ def reference(inputs):
 # ---------------------------------------------------------------------------
 # the port: four gloo ranks
 # ---------------------------------------------------------------------------
+def _time_cut_over_data_decode(mesh):
+    """gemma-2b's decode at B = 1 over ``mesh``: ``kv_cache_spec`` cuts the
+    cache's time over ``data`` as well as ``model``, which raises (ROADMAP
+    Queue 1 item 6d)."""
+    from repro_torch.configs.registry import build_model
+
+    model = build_model("gemma-2b", mesh, smoke=True)
+    return model.decode_step({}, {}, torch.zeros((1, 1), dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32), model.cache_specs(mesh, 1, 16))
+
+
 def _port_collectives(rank, root):
     import torch.distributed as dist
 
     from repro_torch.distributed import chunked as C
     from repro_torch.distributed.fsdp import cross_pod_mean
-    from repro_torch.configs.registry import get_config
     from repro_torch.distributed.mesh import DATA, POD, make_mesh
-    from repro_torch.models.ssm import Mamba2LM
 
     cases = json.loads((root / "cases.json").read_text())
     inp = np.load(root / "in.npz")
@@ -306,10 +315,8 @@ def _port_collectives(rank, root):
     # refusals inside a world of four
     refusals = {}
     for what, call in (
-            ("model_axis", lambda: Mamba2LM(get_config("mamba2-370m", smoke=True),
-                                            make_mesh((1, 2, 2), (POD, DATA, "model"),
-                                                      device="cpu")).decode_step(
-                {}, {}, torch.zeros((1, 1), dtype=torch.int32), torch.zeros(1, dtype=torch.int32))),
+            ("model_axis", lambda: _time_cut_over_data_decode(
+                make_mesh((1, 2, 2), (POD, DATA, "model"), device="cpu"))),
             ("mesh_over_world", lambda: make_mesh((2, 2, 2), (POD, DATA, "model"),
                                                   device="cpu")),
             ("mesh_under_world", lambda: make_mesh((2,), (DATA,), device="cpu")),
@@ -456,10 +463,10 @@ def test_each_ring_step_carries_n_chunks_messages(kind, nc, port):
     ("mmrs_rows", "ValueError", "6 rows do not split over an axis of 4"),
 ])
 def test_refusals_inside_a_world_of_four(what, error, text, port):
-    """An ssm's decode over a model axis of 2 (``make_mesh`` builds the
-    mesh; decode over ``model`` is ROADMAP Queue 1 item 6), a mesh
-    that is not the world, and shapes the reference asserts on all raise,
-    on every rank."""
+    """A decode whose cache time is cut over ``data`` (gemma-2b at B = 1 on
+    a (1, 2, 2) mesh that ``make_mesh`` builds; ROADMAP Queue 1 item 6d),
+    a mesh that is not the world, and shapes the reference asserts on all
+    raise, on every rank."""
     for meta in port[1]:
         msg = meta["refusals"][what]
         assert msg is not None and msg.startswith(error + ":") and text in msg, msg

@@ -32,12 +32,16 @@ port's world so the two overlap. Held, case by case:
   * every tensor handed to ``torch.distributed`` contiguous.
 
 Then ``launch.serve.main --mesh 1x1x4 --device cpu --smoke`` in the same
-world: its sample equals the one-device run's. Without a world: the serve
-specs, ``kv_cache_spec`` and ``cache_specs`` equal the reference's entry
-for entry; the MoE's serve specs are its train specs (the reference's
-``param_specs`` takes no ``serve``); and the decodes that are not ported
-raise, naming their ROADMAP items. JAX is imported only in the reference's
-subprocess and in the spec tests.
+world: its sample equals the one-device run's; and qwen3-moe's decode,
+serve step and prefill step over (1, 1, 4) return the reference's shapes
+(the other families are held to the reference in
+``test_torch_serve_tp_families``). Without a world: the serve specs,
+``kv_cache_spec`` and every family's ``cache_specs`` equal the
+reference's entry for entry; the MoE's serve specs are its train specs
+(the reference's ``param_specs`` takes no ``serve``); and a decode whose
+cache time is cut over ``data`` or ``pod`` raises, naming ROADMAP Queue 1
+item 6d. JAX is imported only in the reference's subprocess and in the
+spec tests.
 """
 import contextlib
 import io
@@ -61,6 +65,7 @@ CASES = [(arch, shape, serve) for arch in ARCHS for shape in SHAPES for serve in
 PREFILLS = [(arch, shape) for arch in ARCHS for shape in SHAPES]
 SERVE_ARGS = ["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--batch", "4",
               "--prompt-len", "6", "--gen", "8", "--seed", "2"]
+MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def _name(arch, shape, serve):
@@ -247,9 +252,44 @@ def _port_serve(rank, root):
     with contextlib.redirect_stdout(buf):
         rows = serve.main(SERVE_ARGS + ["--mesh", "1x1x4"])
     meta["serve_main"] = {"rows": rows.tolist(), "stdout": buf.getvalue()}
+    mesh = make_mesh((1, 1, 4), AXES, device="cpu")
+    meta["moe"] = _moe_steps(mesh, treg.build_model(MOE_ARCH, mesh, smoke=True))
     meta["not_contiguous"] = loose
     np.savez(root / f"port{rank}.npz", **out)
     (root / f"port{rank}.json").write_text(json.dumps(meta))
+
+
+def _moe_steps(mesh, model) -> dict:
+    """qwen3-moe's decode, serve step and prefill step over ``mesh``, on
+    this rank's blocks of seeded weights: the shapes each returns (this
+    rank's blocks of the cache), and whether the bundle's specs are
+    ``(param_specs(mesh), cache_specs(mesh, B, T))``."""
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+
+    def shapes(tree):
+        return {k: list(t.shape) for k, t in tree.items()}
+
+    bundle = build_serve_step(model, mesh, cell=ShapeCell("d", T, B, "decode"))
+    pspecs, cspecs = bundle.specs
+    params = train.shard_state(mesh, model.init_params(0, "cpu"), pspecs)
+    tok, pos = torch.ones((B, 1), dtype=torch.int32), torch.zeros((B,), dtype=torch.int32)
+
+    def fresh():
+        return train.shard_state(mesh, model.init_cache(B, T, device="cpu"), cspecs)
+
+    with torch.no_grad():
+        lg, cache = model.decode_step(params, fresh(), tok, pos, cache_specs=cspecs)
+        nxt, cache2, pos1 = bundle.fn(params, fresh(), tok, pos)
+        prefill = build_prefill_step(model, mesh, cell=ShapeCell("p", S, B, "prefill"))
+        plg = prefill.fn(params, {"tokens": torch.ones((B, S), dtype=torch.int32)})
+    return {"decode": [list(lg.shape), shapes(cache)],
+            "serve_step": [list(nxt.shape), shapes(cache2), list(pos1.shape)],
+            "prefill_step": [list(plg.shape)],
+            "finite": bool(torch.isfinite(lg).all() and torch.isfinite(plg).all()),
+            "specs_equal": [_flat(pspecs) == _flat(model.param_specs(mesh)),
+                            cspecs == model.cache_specs(mesh, B, T)]}
 
 
 @pytest.fixture(scope="module")
@@ -403,29 +443,60 @@ def _decode_refusal(model, cache_specs=None):
 
 
 @pytest.mark.parametrize("what", ["decode", "serve_step", "prefill_step"])
-def test_moe_decode_over_the_model_axis_raises(what):
-    from repro_torch.configs import registry as treg
-    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+def test_moe_decode_over_the_model_axis_raises(what, port):
+    """Once a refusal (ROADMAP Queue 1 item 6b), now run: qwen3-moe's
+    decode, the serve step and the prefill step over (1, 1, 4), in the
+    port's world, return the reference's shapes (this rank's blocks of its
+    cache, cut by ``cache_specs``; finite logits), and the bundle's specs
+    are ``(param_specs(mesh), cache_specs(mesh, B, T))``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as jreg
 
-    mesh = _meshes((1, 1, 4))[0]
-    model = treg.build_model("qwen3-moe-30b-a3b", mesh, smoke=True)
-    call = {"decode": lambda: _decode_refusal(model),
-            "serve_step": lambda: build_serve_step(model, mesh),
-            "prefill_step": lambda: build_prefill_step(model, mesh)}[what]
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        call()
+    jm = jreg.build_model(MOE_ARCH, smoke=True)
+    tok, pos = jnp.zeros((B, 1), jnp.int32), jnp.zeros((B,), jnp.int32)
+    logits, cache = jax.eval_shape(
+        lambda: jm.decode_step(jm.init_params(0), jm.init_cache(B, T), tok, pos))
+    specs = jm.cache_specs(types.SimpleNamespace(shape=dict(zip(AXES, (1, 1, 4))),
+                                                 axis_names=AXES), B, T)
+    blocks = {k: [n // (4 if spec[d] == "model" else 1) for d, n in enumerate(c.shape)]
+              for (k, c), spec in ((kv, specs[kv[0]]) for kv in cache.items())}
+    want = {"decode": [list(logits.shape), blocks],
+            "serve_step": [[B, 1], blocks, [B]],
+            "prefill_step": [list(logits.shape)]}[what]
+    for meta in port[1]:
+        assert meta["moe"][what] == want
+        assert meta["moe"]["finite"] and meta["moe"]["specs_equal"] == [True, True]
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b", "whisper-large-v3"])
 def test_other_families_serving_steps_over_the_model_axis_raise(arch):
-    from repro_torch.configs import registry as treg
-    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    """Once a refusal (ROADMAP Queue 1 item 6c), now the cut the serving
+    steps run on: each family's ``cache_specs`` equals the reference's
+    entry for entry, over the spec meshes, batches and times. What still
+    raises is a time dim cut over ``data`` (B = 1 on (1, 2, 2), item 6d)
+    for the families whose cache has one."""
+    from repro.configs import registry as jreg
 
+    from repro_torch.configs import registry as treg
+    tm, jm = treg.build_model(arch, smoke=True), jreg.build_model(arch, smoke=True)
+    for shape in SPEC_MESHES:
+        port_mesh, ref_mesh = _meshes(shape)
+        for batch in (1, 2, 4, 6):
+            for time in (8, 12, 16):
+                got = tm.cache_specs(port_mesh, batch, time)
+                want = jm.cache_specs(ref_mesh, batch, time)
+                assert sorted(got) == sorted(want)
+                for key in want:
+                    assert tuple(got[key]) == tuple(want[key]), (shape, key, batch, time)
     mesh = _meshes((1, 2, 2))[0]
     model = treg.build_model(arch, mesh, smoke=True)
-    for build in (build_serve_step, build_prefill_step):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            build(model, mesh)
+    specs = model.cache_specs(mesh, 1, 16)
+    if arch == "mamba2-370m":           # no time dim: every rank holds the row
+        assert specs["ssm"][1] is None and specs["conv"][1] is None
+    else:
+        with pytest.raises(NotImplementedError, match="item 6d"):
+            _decode_refusal(model, specs)
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 1, 2), (1, 4, 1)])

@@ -362,12 +362,56 @@ def _port_tp(rank, root):
         for key, t in _flat(gather_params(grads, mesh, specs)).items():  # every rank gathers
             if rank == 0:
                 out[f"remat/{arch}/{key}"] = t.numpy()
+        serving = _serve_steps(root, arch, mesh)          # every rank decodes
+        if rank == 0:
+            out.update(serving)
     ck = root / "elastic"
     meta["launch"] = train.main(ELASTIC_ARGS + ["--mesh", "2x2", "--steps", "5",
                                                 "--ckpt-dir", str(ck), "--ckpt-every", "3"])["losses"]
     meta["not_contiguous"] = loose
     np.savez(root / f"port{rank}.npz", **out)
     (root / f"port{rank}.json").write_text(json.dumps(meta))
+
+
+SERVE_STEPS = 3                    # decode steps of the serving check
+
+
+def _serve_steps(root, arch, mesh) -> dict:
+    """``SERVE_STEPS`` decode steps of ``arch``'s smoke config over
+    ``mesh`` (whisper's after ``prefill_cross``), on this rank's blocks of
+    the weights and of a cache cut by ``cache_specs``; the gathered logits
+    and the one-device decode's of the same weights and tokens."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.convert import params_from_reference
+    from repro_torch.distributed.mesh import P, gather
+    from repro_torch.launch import train
+    from repro_torch.models.common import cache_batch_spec
+
+    inp = {k: torch.from_numpy(v) for k, v in np.load(root / f"inputs-{arch}.npz").items()}
+    whole = params_from_reference(_unflat(dict(np.load(root / f"params-{arch}.npz"))), "cpu")
+    tok, audio = inp["tokens"], inp["audio"]
+    B, T = tok.shape[0], 8
+    out = {}
+    for where in (None, mesh):
+        model = treg.build_model(arch, where, smoke=True)
+        params, cache, kw = whole, model.init_cache(B, T, device="cpu"), {}
+        if where is not None:
+            specs = model.cache_specs(mesh, B, T)
+            params = train.shard_state(mesh, whole, model.param_specs(mesh))
+            cache, kw = train.shard_state(mesh, cache, specs), {"cache_specs": specs}
+        lgs = []
+        with torch.no_grad():
+            if _whisper(arch):
+                cache = model.prefill_cross(params, cache, audio, **kw)
+            for t in range(SERVE_STEPS):
+                lg, cache = model.decode_step(params, cache, tok[:, t:t + 1],
+                                              torch.full((B,), t, dtype=torch.int32), **kw)
+                lgs.append(lg)
+        lg = torch.cat(lgs, dim=1)
+        if where is not None:
+            lg = gather(mesh, lg, P(cache_batch_spec(mesh, B), None, None))
+        out[f"serve/{arch}/{'mesh' if where is not None else 'one'}"] = lg.numpy()
+    return out
 
 
 def _remat_batch(root, arch):
@@ -518,20 +562,16 @@ def test_param_specs_equal_the_reference(arch, override, shape, full):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serving_over_the_model_axis_raises(arch):
-    """Decode (and whisper's ``prefill_cross``) over a ``model`` axis wait
-    for ROADMAP Queue 1 item 6."""
-    from repro_torch.configs import registry as treg
-    from repro_torch.distributed.mesh import Mesh
-
-    model = treg.build_model(arch, Mesh(dict(zip(AXES, (1, 1, 4))), (torch.device("cpu"),)),
-                             smoke=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model.decode_step({}, {}, torch.zeros((1, 1), dtype=torch.int32),
-                          torch.zeros((1,), dtype=torch.int32))
-    if _whisper(arch):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            model.prefill_cross({}, {}, torch.zeros((1, 2, model.cfg.d_model)))
+def test_serving_over_the_model_axis_raises(arch, port):
+    """Once a refusal (ROADMAP Queue 1 item 6c), now run: ``decode_step``
+    over (1, 1, 4) on the smoke config (whisper's after ``prefill_cross``),
+    on this rank's blocks of the weights and of a cache cut by
+    ``cache_specs``, gives the one-device decode's logits within
+    ``LOGITS_RTOL`` of the largest (``test_torch_serve_tp_families`` holds
+    it to the reference)."""
+    got, want = port[0][0][f"serve/{arch}/mesh"], port[0][0][f"serve/{arch}/one"]
+    assert got.shape == want.shape == (2, SERVE_STEPS, 128) and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= LOGITS_RTOL * np.abs(want).max()
 
 
 @pytest.mark.parametrize("what", ["gather", "stat"])
