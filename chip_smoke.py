@@ -2,12 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases card,collectives|expert_axis|family_model_axis|zero_axis]
+        [--phases card,collectives|serve_long|remat|expert_axis|family_model_axis|zero_axis|
+                  serve_model_axis|serve_families]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
-the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
-``zero_axis`` run that part of it alone). In order:
+the one-card phases alone; ``serve_long`` and ``remat`` run that one-card
+phase alone; ``expert_axis``, ``family_model_axis``, ``zero_axis``,
+``serve_model_axis`` and ``serve_families`` run that part of the four-card
+phase alone). In order:
 
   1. prints the card: torch's device name, and nvidia-smi's name and power
      limit (every number below is this card's, at that limit);
@@ -116,6 +119,17 @@ the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
      about 5.05 GB) and ``serve_vlm`` serves it text-only as phase 12, then
      ``prefill_vlm`` holds its prefill step over seeded patch embeddings to
      ``logits_mm`` and the card's f32 ``logits_mm`` to the CPU's;
+     ``serve_long`` (``serve_long_path``) decodes gemma2-2b at full width
+     and all 26 layers, bf16, at batch 1 over a cache of the long_500k
+     cell's 524288 positions (about 28 GB, drawn on the card from seeded
+     tiles, ``long_cache``), 32 teacher-forced tokens from position 393200
+     (crossing a four-way time cut's block boundary and the local ring's
+     wrap): finite logits, every position written at its slot of every
+     layer, ms a step, cache and peak GB; ``remat`` (``remat_path``) runs 3
+     train steps of phase 11's gemma-2b under ``remat`` "none", "full" and
+     "dots" from the same weights and batches: "dots"' losses within
+     ``LOSS_RTOL`` of "full"'s (bit-equality recorded), its peak between
+     theirs, step ms and peak GB of each;
  15. the dry run (``repro_torch.launch.dryrun``), with the launch counts at
      0 (it digests nothing): (a) on four cells at full width, at each probe
      depth, the walk on fake tensors against ``measure``, the same step run
@@ -151,7 +165,7 @@ the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
      the model axis (``model_axis_path``): gemma-2b on 1x2x2 and 1x1x4 and
      internvl2-2b on 1x1x4; (d) the expert axis (``expert_axis_path``;
      ``--phases expert_axis`` runs it alone): qwen3-moe-30b-a3b at full
-     width, 2 of 48 layers, the same 16 sequences a step, on 1x2x2 (64
+     width, 1 of 48 layers, the same 16 sequences a step, on 1x2x2 (64
      experts a card) and 1x1x4 (32 a card), 6 steps each: finite falling
      losses, step 1 within ``LOSS_RTOL`` of one card's on the same weights
      (the draws for tp columns are one card's, reshaped), the assignments
@@ -159,7 +173,7 @@ the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
      one layer within ``TP_F32_TOL`` of the largest sum of magnitudes
      behind one card's logits (max |h| @ |W|) at the tokens whose top-k
      experts agree (the flipped share under ``FLIP_SHARE_F32``),
-     every leaf bit-equal on the ranks that hold its block; an 18.7 GB checkpoint
+     every leaf bit-equal on the ranks that hold its block; a 12.5 GB checkpoint
      at step 4 from 1x2x2 in the tp = 2 layout, restored bit-equal on every
      rank with exact launch counts and resumed there and on 1x1x2; then
      grok-1-314b at 1 of 64 layers on 1x1x4 (2 of its 8 experts a card),
@@ -214,7 +228,18 @@ the one-card phases alone; ``expert_axis``, ``family_model_axis`` and
      greedy tokens in bf16, counted against one card's (not bounded). Each run prints ms a
      decoded token (one card's beside it), the model all-gather and
      all-reduce ms a token (``collective_timer``), cache bytes and peak GB
-     a card, and the save and restore seconds;
+     a card, and the save and restore seconds. In the same world
+     (``long_ranks``), gemma2-2b at batch 1 over the long_500k cache, its
+     time cut over model x data (1x2x2) and model x pod (2x1x2), under the
+     serve specs: 32 teacher-forced tokens in f32 at 1 global layer and at
+     2 (local, global), within ``TP_F32_TOL`` and ``F32_TOL`` of rank 0's
+     one-card logits over the whole cache; then all 26 layers in bf16 on
+     1x2x2 (a quarter of the cache a card): ms a step, its collectives,
+     cache and peak GB a card. The families' serving part
+     (``serve_families_path``) also serves mamba2-370m, recurrentgemma-2b
+     and whisper-large-v3 at batch 1 on 1x2x2 (the time over model x data),
+     an 8-token prompt and 8 greedy tokens, under the gates of their
+     batch-4 runs;
  17. prints ``{"kernels": [...]}`` (after the one-card phases) and, as the
      last line, ``{"ok": true, "device": {...}}``.
 
@@ -1135,6 +1160,18 @@ DECODE_TOL = 2.0 ** -5           # bf16: max |decode - forward| over max |forwar
 F32_TOL = 2.0 ** -10             # f32 card forward against the CPU f32 forward, same scale
 PREFILL_TOL = 2.0 ** -7          # bf16 prefill step against the forward's last position: an ulp
 BF16_PEAK_FLOPS = 989.4e12       # H100 SXM dense bf16, NVIDIA data sheet (at 700 W)
+# serving at batch 1 over the long_500k cell's cache: gemma2-2b (src/repro/configs/gemma2_2b.py:9)
+# at full width and all 26 layers, bf16, its global layers' cache of LONG_T positions and its local
+# layers' ring of 4096, drawn on the card from seeded tiles of LONG_TILE slots; LONG_STEPS tokens
+# decoded from LONG_START, which crosses the boundary of a four-way time cut of the global cache
+# (slot 393216) and the wrap of the ring (slot 4096 -> 0, a four-way cut's boundary too)
+LONG_ARGS = ["--arch", "gemma2-2b"]
+LONG_T = 524288
+LONG_TILE = 1024
+LONG_STEPS = 32
+LONG_START = 3 * LONG_T // 4 - LONG_STEPS // 2
+# remat "none", "full" and "dots": gemma-2b as the train phase runs it (TRAIN_ARGS), REMAT_STEPS each
+REMAT_STEPS = 3
 # the dry run (launch.dryrun): walk against card on four cells, then full-depth walks
 DRYRUN_TRAIN_SEQ, DRYRUN_TRAIN_BATCH = 4096, 4      # gemma-2b's train cell of the smoke
 DRYRUN_PREFILL_BATCH = 32        # mamba2-370m prefill_32k: halved until the walk's peak fits
@@ -1779,6 +1816,178 @@ def vlm_prefill_path(seed: int, device, args=VLM_SERVE_ARGS) -> dict:
     return out
 
 
+def long_cache(model, T: int, start: int, seed: int, dev, tile: int, mesh=None,
+               specs=None) -> dict:
+    """A dense LM's decode cache of ``T`` positions at batch 1 that holds
+    positions 0 .. ``start`` - 1 (each slot the newest of them it would
+    hold, -1 where none), its keys and values standard normal draws of one
+    generator per (leaf, layer, ``tile`` slots). Under ``specs`` (over
+    ``mesh``) this rank's blocks, drawing only the tiles it holds: every
+    cut holds the same whole cache."""
+    import zlib
+
+    from repro_torch.distributed.mesh import P, shard
+
+    cfg, nb = model.cfg, model.n_blocks
+    cache = {}
+    for i, kind in enumerate(model.pattern):
+        Ti = model.cache_len(kind, T)
+        slots = torch.arange(Ti)
+        if specs is not None:
+            slots = shard(mesh, slots, P(specs[f"p{i}"][2]))
+        lo, n = int(slots[0]), slots.numel()
+        check(lo % tile == 0 and n % tile == 0,
+              f"a block of {n} slots from {lo} is whole tiles of {tile}")
+        s = slots.to(dev)
+        newest = s + Ti * torch.div(start - 1 - s, Ti, rounding_mode="floor")
+        cache[f"p{i}"] = torch.where(newest >= 0, newest, -1).to(torch.int32) \
+            .expand(nb, 1, n).contiguous()
+        for leaf in ("k", "v"):
+            t = torch.empty((nb, 1, n, cfg.n_kv_heads, cfg.hd), dtype=cfg.dtype, device=dev)
+            for b in range(nb):
+                for a in range(lo, lo + n, tile):
+                    gen = torch.Generator(device=dev)
+                    gen.manual_seed(zlib.crc32(f"{seed}/{leaf}{i}/{b}/{a}".encode()))
+                    t[b, 0, a - lo:a - lo + tile] = torch.randn(
+                        (tile, cfg.n_kv_heads, cfg.hd), generator=gen, device=dev)
+            cache[f"{leaf}{i}"] = t
+    return cache
+
+
+def long_decode(model, params, cache, tokens, start: int, specs=None):
+    """(each step's logits (1, S, V) in f32, the cache) of decoding
+    ``tokens`` (1, S) token by token from position ``start`` (teacher
+    forced), over this rank's blocks of ``cache`` under ``specs``."""
+    kw = {} if specs is None else {"cache_specs": specs}
+    out = []
+    with torch.no_grad():
+        for t in range(tokens.shape[1]):
+            pos = torch.full((1,), start + t, dtype=torch.int32, device=tokens.device)
+            lg, cache = model.decode_step(params, cache, tokens[:, t:t + 1], pos, **kw)
+            out.append(lg.float())
+    return torch.cat(out, dim=1), cache
+
+
+def long_written(model, cache, T: int, start: int, steps: int, mesh=None, specs=None) -> int:
+    """The slots of this rank's blocks of the position caches that hold one
+    of the decoded positions ``start`` .. ``start + steps - 1``, each at
+    its own slot (pos % the cache's length)."""
+    from repro_torch.distributed.mesh import P, shard
+
+    n = 0
+    for i, kind in enumerate(model.pattern):
+        Ti = model.cache_len(kind, T)
+        slots = torch.arange(Ti)
+        if specs is not None:
+            slots = shard(mesh, slots, P(specs[f"p{i}"][2]))
+        p = cache[f"p{i}"].cpu()
+        hit = (p >= start) & (p < start + steps)
+        check(bool((p[hit] % Ti == slots.expand_as(p)[hit]).all()),
+              f"serve_long: every decoded position of p{i} at its own slot")
+        n += int(hit.sum())
+    return n
+
+
+def serve_long_path(seed: int, device) -> dict:
+    """Main path, part 12: gemma2-2b (``LONG_ARGS``) at full width and
+    depth, bf16, at batch 1 over a cache of the long_500k cell's
+    ``LONG_T`` positions (``long_cache``), ``LONG_STEPS`` teacher-forced
+    tokens decoded from ``LONG_START`` after a two-token warm-up: ms a
+    decode step, cache and peak bytes. Checked: finite logits of the
+    vocab's width, every decoded position written at its slot of every
+    layer's cache."""
+    from repro_torch.launch import serve
+
+    model = smoke_model(LONG_ARGS)
+    reset_peak(device)
+    params = model.init_params(seed, device)
+    t0 = time.perf_counter()
+    cache = long_cache(model, LONG_T, LONG_START, seed, device, LONG_TILE)
+    sync(device)
+    fill_s = time.perf_counter() - t0
+    tokens = serve.prompts_for(seed + 7, 1, LONG_STEPS, model.cfg.vocab, device)
+    long_decode(model, params, cache, tokens[:, :2], LONG_START)     # rewrites its two slots
+    sync(device)
+    t0 = time.perf_counter()
+    logits, cache = long_decode(model, params, cache, tokens, LONG_START)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / LONG_STEPS
+    check(tuple(logits.shape) == (1, LONG_STEPS, model.cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "serve_long: finite logits of the vocab's width")
+    written = long_written(model, cache, LONG_T, LONG_START, LONG_STEPS)
+    check(written == LONG_STEPS * model.cfg.n_layers,
+          f"serve_long: {LONG_STEPS} positions written in each of {model.cfg.n_layers} layers "
+          f"({written})")
+    out = {"arch": _arg(LONG_ARGS, "--arch"), "layers": model.cfg.n_layers, "batch": 1,
+           "positions": LONG_T, "start": LONG_START, "steps": LONG_STEPS,
+           "ms_per_decode_step": ms, "cache_fill_s": fill_s,
+           "cache_bytes": sum(t.numel() * t.element_size() for t in cache.values()),
+           "param_bytes": sum(t.numel() * t.element_size() for t in
+                              flat_tree(params).values()),
+           "peak_bytes": peak_bytes(device), "max_logit": float(logits.abs().max())}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_path(seed: int, device) -> dict:
+    """Main path, part 13: ``REMAT_STEPS`` train steps of ``TRAIN_ARGS``'
+    model (gemma-2b at full width, 2 layers, its sequence length and batch)
+    under ``remat`` "none", "full" and "dots", from the same seeded weights
+    and batches: step ms, losses and the card's peak bytes of each, then
+    the peak bytes of one forward and backward alone (the AdamW update's
+    temporaries, the same under every policy, set the step's peak where the
+    activations are fewer). Checked: the losses of "dots" within
+    ``LOSS_RTOL`` of "full"'s (whether bit-equal is recorded) and the
+    forward and backward's peak under "dots" above "full"'s and below
+    "none"'s."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch.steps import _value_and_grad, build_train_step
+    from repro_torch.launch.train import rebuild
+    from repro_torch.optim import adamw
+
+    base = smoke_model(TRAIN_ARGS)
+    seq, B = int(_arg(TRAIN_ARGS, "--seq-len")), int(_arg(TRAIN_ARGS, "--global-batch"))
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    batches = [{"tokens": torch.randint(0, base.cfg.vocab, (B, seq + 1), generator=gen,
+                                        device=device, dtype=torch.int32)}
+               for _ in range(REMAT_STEPS)]
+    ocfg = adamw.AdamWConfig(lr=float(_arg(TRAIN_ARGS, "--lr")))
+    out = {"arch": base.cfg.name, "layers": base.cfg.n_layers, "seq": seq, "batch": B}
+    for remat in ("none", "full", "dots"):
+        model = rebuild(base, dataclasses.replace(base.cfg, remat=remat))
+        step = build_train_step(model, None, ocfg, cell=ShapeCell("remat", seq, B, "train")).fn
+        reset_peak(device)
+        params = model.init_params(seed, device)
+        opt = adamw.init(params, ocfg)
+        losses, ms = [], []
+        for batch in batches:
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt, stats = step(params, opt, batch)
+            losses.append(float(stats["loss"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[remat] = {"losses": losses, "step_ms": ms, "peak_bytes": peak_bytes(device)}
+        reset_peak(device)
+        grads = _value_and_grad(model, params, batches[0])[1]
+        out[remat]["grad_peak_bytes"] = peak_bytes(device)
+        del params, opt, stats, grads
+        torch.cuda.empty_cache()
+    dots, full, none = out["dots"], out["full"], out["none"]
+    for i, (d, f) in enumerate(zip(dots["losses"], full["losses"])):
+        check(abs(d - f) <= LOSS_RTOL * abs(f),
+              f"remat: step {i + 1}'s loss under dots within {LOSS_RTOL} of full's ({d} vs {f})")
+    out["dots_losses_bit_equal_full"] = dots["losses"] == full["losses"]
+    check(torch.device(device).type != "cuda"         # the host counts no peak
+          or full["grad_peak_bytes"] < dots["grad_peak_bytes"] < none["grad_peak_bytes"],
+          f"remat: the forward and backward's peak under dots between full's and none's "
+          f"({dots['grad_peak_bytes']} of {full['grad_peak_bytes']} .. "
+          f"{none['grad_peak_bytes']})")
+    return out
+
+
 def digest_latency(device, iters: int = 200, threads: int = 16) -> dict:
     """Host-clock latency of one card digest of a host byte view
     (``fingerprint_on_device``: staging copy, host-to-device copy, launch,
@@ -1852,7 +2061,7 @@ def dryrun_cells():
 
 
 def dryrun_path(device, reset, counts) -> dict:
-    """Main path, part 12: the dry run (``launch.dryrun``). (a) On each cell
+    """Main path, part 14: the dry run (``launch.dryrun``). (a) On each cell
     of ``dryrun_cells``, at each depth, in this process: the walk on fake
     tensors against ``measure`` on the card — FLOPs and argument bytes
     equal, the walk's peak within ``DRYRUN_PEAK_REL`` of the card's; the
@@ -1962,12 +2171,13 @@ TP_F32_TOL = 2e-5      # of the largest logit (model axis); of the largest |h| @
 VLM_TP_ARGS = ["--arch", "internvl2-2b", "--layers", "2", "--seq-len", "2048",
                "--global-batch", "4", "--lr", "3e-3", "--log-every", "0"]
 VLM_TP_STEPS = 3
-# the expert axis: qwen3-moe-30b-a3b at full width, 2 of 48 layers, the same 16
-# sequences a step, on 1x2x2 (64 experts a card) and 1x1x4 (32 a card); its checkpoint
+# the expert axis: qwen3-moe-30b-a3b at full width, 1 of 48 layers (cut from 2 to keep the
+# whole four-card phase inside its time), the same 16 sequences a step, on 1x2x2 (64 experts
+# a card) and 1x1x4 (32 a card); its checkpoint
 # saved on 1x2x2, resumed there and on two ranks (1x1x2, 8 sequences at a time, so each
 # column routes the rows it routed on 1x2x2); grok-1-314b at 1 of 64 layers on 1x1x4 (2
 # of its 8 experts a card), which one card cannot train
-EP_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--layers", "2", "--seq-len", "2048",
+EP_ARGS = ["--arch", "qwen3-moe-30b-a3b", "--layers", "1", "--seq-len", "2048",
            "--global-batch", "16", "--lr", "3e-3", "--log-every", "0"]
 EP_MESHES, EP_CKPT_MESH, EP_ELASTIC_MESH = ("1x2x2", "1x1x4"), "1x2x2", "1x1x2"
 EP_STEPS, EP_CKPT = 6, 4
@@ -2010,17 +2220,27 @@ ZERO_TIMEOUT_S = 480             # each world of the ZeRO part
 # specs on 1x2x2 (the serve specs on 1x1x4 left out to keep the whole four-card phase
 # inside its time with serve_families beside it)
 SERVE_TP_RUNS = (("1x1x4", False), ("1x2x2", True))
-SERVE_TP_TIMEOUT_S = 480
+SERVE_TP_TIMEOUT_S = 600
+# in the same world, gemma2-2b (LONG_ARGS) at batch 1 over the long_500k cache (long_cache), its
+# time cut over model and data (1x2x2) or model and pod (2x1x2), under the serve specs: in f32 at
+# 1 global layer and at 2 (local, global) against rank 0's one card, then at all 26 layers in bf16
+# on LONG_DEEP_MESH
+LONG_TP_MESHES = ("1x2x2", "2x1x2")
+LONG_DEEP_MESH = "1x2x2"
 
 # serving over the model axis for the moe, ssm, hybrid and encdec families, each at full width
 # at the depth the four-card train parts use, from a params-only root, under its train specs
 # (the reference serves them with those): one world of four serves them in turn on 1x1x4,
 # qwen3-moe also on 1x2x2 (its experts over two columns, the batch over data, the weights
 # gathered over data a layer at a time); SERVE_BATCH sequences, SERVE_PROMPT + SERVE_GEN
-SERVE_FAMILY_RUNS = ((["--arch", "qwen3-moe-30b-a3b", "--layers", "2"], ("1x1x4", "1x2x2")),
-                     (["--arch", "mamba2-370m", "--layers", "8"], ("1x1x4",)),
-                     (["--arch", "recurrentgemma-2b", "--layers", "3"], ("1x1x4",)),
-                     (["--arch", "whisper-large-v3", "--layers", "1"], ("1x1x4",)))
+# (args, meshes at SERVE_BATCH, meshes at batch 1): at batch 1 the cache's time is cut over model
+# and data (the ssm's state and conv window stay whole in the batch), SERVE_B1_PROMPT +
+# SERVE_B1_GEN tokens
+SERVE_FAMILY_RUNS = ((["--arch", "qwen3-moe-30b-a3b", "--layers", "2"], ("1x1x4", "1x2x2"), ()),
+                     (["--arch", "mamba2-370m", "--layers", "8"], ("1x1x4",), ("1x2x2",)),
+                     (["--arch", "recurrentgemma-2b", "--layers", "3"], ("1x1x4",), ("1x2x2",)),
+                     (["--arch", "whisper-large-v3", "--layers", "1"], ("1x1x4",), ("1x2x2",)))
+SERVE_B1_PROMPT, SERVE_B1_GEN = 8, 8
 SERVE_FAMILIES_TIMEOUT_S = 900
 
 
@@ -2864,7 +3084,6 @@ def serve_dist_worker(cfg: dict) -> dict:
 
     from repro_torch.distributed.mesh import P, cut_axes, gather, shard
     from repro_torch.launch import serve, train
-    from repro_torch.launch.train import parse_mesh
 
     device = cfg["device"]
     dev = rank_device(device)
@@ -2896,9 +3115,10 @@ def serve_dist_worker(cfg: dict) -> dict:
         out["one_card"]["ms_per_decode_step"] = one_ms
         del params
     dist.barrier()
+    meshes: dict = {}
     for mesh_spec, stationary in cfg["runs"]:
         release(dev)
-        mesh = parse_mesh(mesh_spec, device)
+        mesh = mesh_for(mesh_spec, device, meshes)
         model = type(one)(one.cfg, mesh)
         pspecs = model.param_specs(mesh, serve=stationary)
         flat = flat_tree({"params": pspecs})
@@ -2946,7 +3166,106 @@ def serve_dist_worker(cfg: dict) -> dict:
                                        else None for r, w in zip(new, ref)]
         del params
         out["runs"].append(run)
+    if cfg.get("long"):
+        release(dev)
+        out["long"] = long_ranks(cfg["long"], cfg["seed"], device, dev, rank, meshes)
     return out
+
+
+def long_ranks(cfg: dict, seed: int, device, dev, rank: int, meshes: dict) -> dict:
+    """This rank's part of gemma2-2b (``cfg["args"]``, ``LONG_ARGS``) at
+    batch 1 over the long_500k cache (``long_cache``) in the serve world:
+    rank 0 decodes
+    ``cfg["steps"]`` teacher-forced tokens from ``cfg["start"]`` on its card
+    alone in f32 at 1 global layer and at 2 (local, global) over the whole
+    cache; then on each of ``cfg["meshes"]`` every rank decodes the same
+    over its blocks of the cache (``cache_specs``: the time cut over every
+    axis over 1) and of the weights (the serve specs), and rank 0 holds
+    the logits to its one-card ones; then at the whole depth in bf16 on
+    ``cfg["deep_mesh"]``, timed with every collective (``collective_timer``):
+    ms a decode step, cache and peak bytes a card, the positions each
+    rank wrote. Meshes come from ``meshes`` (``mesh_for``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.mesh import block_index, entry_cut
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import shard_state
+
+    T, start, steps, tile = cfg["T"], cfg["start"], cfg["steps"], cfg["tile"]
+    deep = smoke_model(cfg["args"])
+    tokens = serve.prompts_for(seed + 7, 1, steps, deep.cfg.vocab, dev)
+    cuts = {"1": dataclasses.replace(deep.cfg, n_layers=1, attn_pattern="g", dtype=torch.float32),
+            "2": dataclasses.replace(deep.cfg, n_layers=2, dtype=torch.float32)}
+    out: dict = {"one_card": {}, "runs": []}
+    want = {}
+    if rank == 0:
+        for n, c in cuts.items():
+            m = type(deep)(c)
+            want[n] = long_decode(m, m.init_params(seed, dev),
+                                  long_cache(m, T, start, seed, dev, tile), tokens, start)[0]
+            out["one_card"][n] = {"max_logit": float(want[n].abs().max())}
+            release(dev)
+    dist.barrier()
+    for mesh_spec in cfg["meshes"]:
+        mesh = mesh_for(mesh_spec, device, meshes)
+        run: dict = {"mesh": mesh_spec, "f32_max_abs_err": {}}
+        for n, c in cuts.items():
+            m = type(deep)(c, mesh)
+            params = shard_state(mesh, type(deep)(c).init_params(seed, dev),
+                                 m.param_specs(mesh, serve=True))
+            specs = m.cache_specs(mesh, 1, T)
+            got = long_decode(m, params, long_cache(m, T, start, seed, dev, tile, mesh, specs),
+                              tokens, start, specs)[0]
+            run["time_axes"] = list(m._time_cut(specs["p0"]))
+            if rank == 0:
+                run["f32_max_abs_err"][n] = float((got - want[n]).abs().max())
+            del params, got
+            release(dev)
+        out["runs"].append(run)
+    mesh = mesh_for(cfg["deep_mesh"], device, meshes)
+    model = on_mesh(deep, mesh)
+    params = shard_state(mesh, deep.init_params(seed, dev), model.param_specs(mesh, serve=True))
+    specs = model.cache_specs(mesh, 1, T)
+    release(dev)
+    reset_peak(dev)
+    cache = long_cache(model, T, start, seed, dev, tile, mesh, specs)
+    long_decode(model, params, cache, tokens[:, :2], start, specs)      # rewrites its two slots
+    sync(dev)
+    timer = collective_timer(dev)
+    t0 = time.perf_counter()
+    with timer:
+        logits, cache = long_decode(model, params, cache, tokens, start, specs)
+        sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    cache_bytes = {k: t.numel() * t.element_size() for k, t in cache.items()}
+    out["deep"] = {
+        "mesh": cfg["deep_mesh"], "layers": deep.cfg.n_layers, "ms_per_decode_step": ms,
+        "dtype": str(deep.cfg.dtype).removeprefix("torch."),
+        "time_axes": list(model._time_cut(specs["p1"])),
+        "cache_bytes": sum(cache_bytes.values()),
+        "cache_bytes_whole": sum(b * block_index(mesh, entry_cut(mesh, specs[k][2]))[1]
+                                 for k, b in cache_bytes.items()),
+        "peak_bytes": peak_bytes(dev), "finite": bool(torch.isfinite(logits).all()),
+        "logits_sum": float(logits.double().sum()),
+        "written": long_written(model, cache, T, start, steps, mesh, specs),
+        "collective_ms": timer.per_step(steps),
+        "collective_calls": {k: len(v) // steps for k, v in timer.calls.items()}}
+    del params, cache, logits
+    release(dev)
+    return out
+
+
+def mesh_for(spec: str, device, meshes: dict):
+    """``launch.train.parse_mesh(spec)``, made once a world and kept in
+    ``meshes``: every rank asks for the same specs in the same order, and a
+    mesh's process groups cost seconds each to set up on NCCL."""
+    from repro_torch.launch.train import parse_mesh
+
+    if spec not in meshes:
+        meshes[spec] = parse_mesh(spec, device)
+    return meshes[spec]
 
 
 def on_mesh(model, mesh):
@@ -3035,50 +3354,48 @@ def timed_greedy(model, params, prompts, gen: int, dev, timer=None, audio=None):
 
 
 def serve_families_worker(cfg: dict) -> dict:
-    """One rank of the families' serving world. For each of
-    ``cfg["families"]`` (launcher args, meshes): rank 0 draws the one-device
-    params (full width, bf16), saves them as a params-only root and decodes
-    on its card alone: the f32 teacher-forced logits of the prompt at
-    ``TP_F32_LAYERS`` and at the family's depth (each from its own f32
+    """One rank of the families' world. For each of ``cfg["families"]``
+    (launcher args, meshes at ``cfg["batch"]``, meshes at batch 1): rank 0
+    draws the one-device params (full width, bf16) and saves them as a
+    params-only root. Then for each batch with meshes (``cfg["batch"]`` with
+    ``cfg["prompt"]`` + ``cfg["gen"]`` tokens; 1 with ``cfg["b1_prompt"]`` +
+    ``cfg["b1_gen"]``, whose cache time is cut over ``data`` too) rank 0
+    decodes on its card alone: the f32 teacher-forced logits of the prompt
+    at ``TP_F32_LAYERS`` and at the family's depth (each from its own f32
     draw, which every rank also makes), a MoE's top-k choices at every
-    step, and the bf16 greedy tokens with their ms a step (an encdec's
-    after ``prefill_cross``, timed). Then on each mesh every rank restores
-    its blocks of the root under the train specs (a MoE's expert leaves laid
-    out for the mesh's columns, ``to_columns``; every host digest patched to
-    raise; compared, gathered, with rank 0's saved tree), decodes the
-    prompt in f32 at both depths over a cache cut by ``cache_specs`` (rank 0
-    holds the gathered logits to its one-card ones, leaving out each row's
-    steps where a MoE layer chose other experts, which it counts) and
-    then ``cfg["gen"]`` greedy tokens in bf16 with every model-axis
-    collective timed, and checks its blocks bit-equal on the ranks that
-    hold them."""
+    step, and the bf16 greedy tokens with their ms a step (an encdec's after
+    ``prefill_cross``, timed). Then on each mesh every rank restores its
+    blocks of the root under the train specs (a MoE's expert leaves laid
+    out for the mesh's columns, ``to_columns``; every host digest patched
+    to raise; compared, gathered, with rank 0's saved tree), decodes the
+    prompt in f32 at both depths over a cache cut by ``cache_specs`` (rank
+    0 holds the gathered logits to its one-card ones, leaving out each
+    row's steps where a MoE layer chose other experts, which it counts)
+    and then the greedy tokens in bf16 with every model-axis collective
+    timed, and checks its blocks bit-equal on the ranks that hold them."""
     import shutil
 
     import torch.distributed as dist
 
     from repro_torch.distributed.mesh import P, axis_size, cut_axes, gather, shard
     from repro_torch.launch import serve, train
-    from repro_torch.launch.train import parse_mesh
     from repro_torch.models.common import cache_batch_spec
 
     device = cfg["device"]
     dev = rank_device(device)
     rank = dist.get_rank()
-    B, Lp, gen = cfg["batch"], cfg["prompt"], cfg["gen"]
     reset, counts = launch_counters()
     out: dict = {"rank": rank, "world": dist.get_world_size(), "families": []}
-    for args, meshes in cfg["families"]:
+    made: dict = {}
+    for args, meshes, b1_meshes in cfg["families"]:
         release(dev)
         one = smoke_model(args)
         moe, encdec = one.cfg.family == "moe", one.cfg.family == "encdec"
         records: dict = {}
         root = os.path.join(cfg["root"], _arg(args, "--arch"))
         mgr = recording_manager(records, dev, reset, counts)(root, device=dev)
-        prompts = serve.prompts_for(cfg["seed"], B, Lp, one.cfg.vocab, dev)
-        audio = seeded_embeddings(cfg["seed"] + 6, B, one.cfg.enc_positions, one, dev) \
-            if encdec else None
         depths = sorted({TP_F32_LAYERS, one.cfg.n_layers})
-        fam: dict = {"arch": _arg(args, "--arch"), "layers": one.cfg.n_layers, "runs": [],
+        fam: dict = {"arch": _arg(args, "--arch"), "layers": one.cfg.n_layers,
                      "f32_tolerance": {str(n): ENCDEC_TP_F32_TOL if encdec else
                                        (TP_F32_TOL if n == TP_F32_LAYERS else F32_TOL)
                                        for n in depths}}
@@ -3087,97 +3404,113 @@ def serve_families_worker(cfg: dict) -> dict:
             m = smoke_model(with_arg(args, "--layers", n), dtype=torch.float32)
             return m if mesh is None else on_mesh(m, mesh)
 
-        want_f32, want_top = {}, {}
+        params = None
         if rank == 0:
             params = one.init_params(cfg["seed"], dev)
             with host_digests_raise():
                 mgr.save(0, {"params": params})
-            fam["one_card"] = {}
-            for n in depths:
-                m32 = f32_model(n)
-                if moe:
-                    m32.route_log = []
-                want_f32[n] = teacher_forced(m32, m32.init_params(cfg["seed"], dev), prompts,
-                                             audio=None if audio is None else audio.float())
-                if moe:
-                    want_top[n] = topk_sets(m32.route_log, one.cfg.top_k)
-                fam["one_card"][str(n)] = {"max_logit": float(want_f32[n].abs().max())}
-                del m32
-            want_rows, one_ms, one_pre = timed_greedy(one, params, prompts, gen, dev,
-                                                      audio=audio)
-            fam["one_card"].update(ms_per_decode_step=one_ms, prefill_cross_ms=one_pre)
-            del params
-        dist.barrier()
-        for mesh_spec in meshes:
-            release(dev)
-            mesh = parse_mesh(mesh_spec, device)
-            model = on_mesh(one, mesh)
-            tp = model._tp()
-            pspecs = model.param_specs(mesh)
-            flat = flat_tree({"params": pspecs})
-
-            def keep(key, t):
-                t = column_leaf(key, t, one.cfg, tp) if moe else t
-                s = flat[key]
-                return shard(mesh, t, s).clone() if cut_axes(mesh, s) else t
-
-            with host_digests_raise():
-                params = mgr.restore(keep=keep)[0]["params"]
-            run = {"mesh": mesh_spec}
-            # gathered, a MoE's expert leaf holds the saved leaf's bytes (a view of them)
-            checkpoint_records(records, run, mesh, {"params": pspecs})
-            if "manifest" in run:
-                fam["manifest"] = run.pop("manifest")
-            run["blocks_equal"] = blocks_agree(params, pspecs, mesh)
-            run["f32_max_abs_err"], run["route_flips"] = {}, {}
-            rows = cache_batch_spec(mesh, B)
-            b_loc = B if rows is None else B // (axis_size(mesh, "pod") * axis_size(mesh, "data"))
-            for n in depths:
-                m32 = f32_model(n, mesh)
-                if moe:
-                    m32.route_log = []
-                p32 = f32_model(n).init_params(cfg["seed"], dev)
-                p32 = train.shard_state(mesh, to_columns(p32, one.cfg, tp) if moe else p32,
-                                        m32.param_specs(mesh))
-                specs = m32.cache_specs(mesh, B, Lp)
-                got = gather(mesh, teacher_forced(m32, p32, prompts, specs,
-                                                  None if audio is None else audio.float()),
-                             P(rows, None, None))
-                flipped = torch.zeros((B, Lp), dtype=torch.bool)
-                if moe:     # each logged layer's choices at each step, over the whole batch
-                    mine = [gather(mesh, g, P(rows, None))
-                            for g in gathered_routes(m32.route_log, mesh, b_loc)]
-                    if rank == 0:
-                        layers = len(mine) // Lp
-                        for i, (a, b) in enumerate(zip(want_top[n],
-                                                       topk_sets(mine, one.cfg.top_k))):
-                            flipped[:, i // layers] |= (a != b).any(-1)
-                        run["route_flips"][str(n)] = [int(flipped.sum()), B * Lp]
-                if rank == 0:
-                    err = (got - want_f32[n]).abs()[~flipped.to(got.device)]
-                    run["f32_max_abs_err"][str(n)] = float(err.max())
-                del got, p32, m32
-            reset_peak(dev)
-            timer = collective_timer(dev)
-            mine_rows, ms, pre_ms = timed_greedy(model, params, prompts, gen, dev, timer, audio)
-            cache = model.init_cache(B, Lp + gen, device=dev)
-            cspecs = model.cache_specs(mesh, B, Lp + gen)
-            run["cache_bytes"] = sum(t.numel() * t.element_size() for t in
-                                     train.shard_state(mesh, cache, cspecs).values())
-            run["cache_bytes_whole"] = sum(t.numel() * t.element_size() for t in cache.values())
-            del cache
-            steps = Lp + gen - 1
-            run.update(ms_per_decode_step=ms, prefill_cross_ms=pre_ms, peak_bytes=peak_bytes(dev),
-                       collective_ms=timer.per_step(steps),
-                       collective_calls={k: len(v) // steps for k, v in timer.calls.items()})
-            whole = gather(mesh, mine_rows, P(rows, None))
+        for B, Lp, gen, where, key in ((cfg["batch"], cfg["prompt"], cfg["gen"], meshes, ""),
+                                       (1, cfg["b1_prompt"], cfg["b1_gen"], b1_meshes, "b1_")):
+            fam[f"{key}runs"] = []
+            if not where:
+                continue
+            prompts = serve.prompts_for(cfg["seed"], B, Lp, one.cfg.vocab, dev)
+            audio = seeded_embeddings(cfg["seed"] + 6, B, one.cfg.enc_positions, one, dev) \
+                if encdec else None
+            want_f32, want_top = {}, {}
             if rank == 0:
-                new, ref = whole[:, Lp:], want_rows[:, Lp:]
-                run["prompt_equal"] = bool(torch.equal(whole[:, :Lp], want_rows[:, :Lp]))
-                run["greedy_agree"] = int((new == ref).sum())
-                run["greedy_tokens"] = int(new.numel())
-            del params
-            fam["runs"].append(run)
+                fam[f"{key}one_card"] = one_card = {}
+                for n in depths:
+                    m32 = f32_model(n)
+                    if moe:
+                        m32.route_log = []
+                    want_f32[n] = teacher_forced(m32, m32.init_params(cfg["seed"], dev), prompts,
+                                                 audio=None if audio is None else audio.float())
+                    if moe:
+                        want_top[n] = topk_sets(m32.route_log, one.cfg.top_k)
+                    one_card[str(n)] = {"max_logit": float(want_f32[n].abs().max())}
+                    del m32
+                want_rows, one_ms, one_pre = timed_greedy(one, params, prompts, gen, dev,
+                                                          audio=audio)
+                one_card.update(ms_per_decode_step=one_ms, prefill_cross_ms=one_pre)
+            dist.barrier()
+            for mesh_spec in where:
+                release(dev)
+                mesh = mesh_for(mesh_spec, device, made)
+                model = on_mesh(one, mesh)
+                tp = model._tp()
+                pspecs = model.param_specs(mesh)
+                flat = flat_tree({"params": pspecs})
+
+                def keep(key, t):
+                    t = column_leaf(key, t, one.cfg, tp) if moe else t
+                    s = flat[key]
+                    return shard(mesh, t, s).clone() if cut_axes(mesh, s) else t
+
+                with host_digests_raise():
+                    blocks = mgr.restore(keep=keep)[0]["params"]
+                run = {"mesh": mesh_spec}
+                # gathered, a MoE's expert leaf holds the saved leaf's bytes (a view of them)
+                checkpoint_records(records, run, mesh, {"params": pspecs})
+                if "manifest" in run:
+                    fam["manifest"] = run.pop("manifest")
+                run["blocks_equal"] = blocks_agree(blocks, pspecs, mesh)
+                run["f32_max_abs_err"], run["route_flips"] = {}, {}
+                rows = cache_batch_spec(mesh, B)
+                b_loc = B if rows is None else B // (axis_size(mesh, "pod")
+                                                     * axis_size(mesh, "data"))
+                run["time_axes"] = list(model._time_cut(next(
+                    (v for k, v in model.cache_specs(mesh, B, Lp).items()
+                     if k in ("p0", "p", "ap")), None)))
+                for n in depths:
+                    m32 = f32_model(n, mesh)
+                    if moe:
+                        m32.route_log = []
+                    p32 = f32_model(n).init_params(cfg["seed"], dev)
+                    p32 = train.shard_state(mesh, to_columns(p32, one.cfg, tp) if moe else p32,
+                                            m32.param_specs(mesh))
+                    specs = m32.cache_specs(mesh, B, Lp)
+                    got = gather(mesh, teacher_forced(m32, p32, prompts, specs,
+                                                      None if audio is None else audio.float()),
+                                 P(rows, None, None))
+                    flipped = torch.zeros((B, Lp), dtype=torch.bool)
+                    if moe:     # each logged layer's choices at each step, over the whole batch
+                        mine = [gather(mesh, g, P(rows, None))
+                                for g in gathered_routes(m32.route_log, mesh, b_loc)]
+                        if rank == 0:
+                            layers = len(mine) // Lp
+                            for i, (a, b) in enumerate(zip(want_top[n],
+                                                           topk_sets(mine, one.cfg.top_k))):
+                                flipped[:, i // layers] |= (a != b).any(-1)
+                            run["route_flips"][str(n)] = [int(flipped.sum()), B * Lp]
+                    if rank == 0:
+                        err = (got - want_f32[n]).abs()[~flipped.to(got.device)]
+                        run["f32_max_abs_err"][str(n)] = float(err.max())
+                    del got, p32, m32
+                reset_peak(dev)
+                timer = collective_timer(dev)
+                mine_rows, ms, pre_ms = timed_greedy(model, blocks, prompts, gen, dev, timer,
+                                                     audio)
+                cache = model.init_cache(B, Lp + gen, device=dev)
+                cspecs = model.cache_specs(mesh, B, Lp + gen)
+                run["cache_bytes"] = sum(t.numel() * t.element_size() for t in
+                                         train.shard_state(mesh, cache, cspecs).values())
+                run["cache_bytes_whole"] = sum(t.numel() * t.element_size()
+                                               for t in cache.values())
+                del cache
+                steps = Lp + gen - 1
+                run.update(ms_per_decode_step=ms, prefill_cross_ms=pre_ms,
+                           peak_bytes=peak_bytes(dev), collective_ms=timer.per_step(steps),
+                           collective_calls={k: len(v) // steps for k, v in timer.calls.items()})
+                whole = gather(mesh, mine_rows, P(rows, None))
+                if rank == 0:
+                    new, ref = whole[:, Lp:], want_rows[:, Lp:]
+                    run["prompt_equal"] = bool(torch.equal(whole[:, :Lp], want_rows[:, :Lp]))
+                    run["greedy_agree"] = int((new == ref).sum())
+                    run["greedy_tokens"] = int(new.numel())
+                del blocks
+                fam[f"{key}runs"].append(run)
+        del params
         out["families"].append(fam)
         dist.barrier()
         if rank == 0:
@@ -4048,7 +4381,11 @@ def serve_model_axis_path(seed: int, device, dev: str) -> dict:
         ranks = run_ranks("serve_dist", COLL_CARDS, {
             "device": dev, "seed": seed, "args": SERVE_ARGS, "root": root,
             "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
-            "runs": [list(r) for r in SERVE_TP_RUNS]}, SERVE_TP_TIMEOUT_S)
+            "runs": [list(r) for r in SERVE_TP_RUNS],
+            "long": {"args": LONG_ARGS, "T": LONG_T, "start": LONG_START, "steps": LONG_STEPS,
+                     "tile": LONG_TILE, "meshes": list(LONG_TP_MESHES),
+                     "deep_mesh": LONG_DEEP_MESH}},
+            SERVE_TP_TIMEOUT_S)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     r0 = ranks[0]
@@ -4096,6 +4433,7 @@ def serve_model_axis_path(seed: int, device, dev: str) -> dict:
             "greedy_agree": a["greedy_agree"], "greedy_tokens": a["greedy_tokens"],
             "first_divergence": a["first_divergence"]})
     return {"serve_model_axis": {
+        "long": long_checks([r["long"] for r in ranks]),
         "arch": _arg(SERVE_ARGS, "--arch"), "layers": smoke_model(SERVE_ARGS).cfg.n_layers,
         "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
         "one_card_ms_per_decode_step": one["ms_per_decode_step"],
@@ -4103,6 +4441,70 @@ def serve_model_axis_path(seed: int, device, dev: str) -> dict:
         "save_s": save["seconds"], "bytes": save["bytes"],
         "launches_save_rank0": save["launches"], "expected_launches": want, "runs": runs,
         "wall_s": r0["wall_s"], "seconds": time.perf_counter() - t0}}
+
+
+def long_checks(ranks: list) -> dict:
+    """``long_ranks``' results held: on each mesh the time cut over
+    ``data`` or ``pod`` as well as ``model`` and the f32 logits within
+    ``TP_F32_TOL`` of one card's largest at 1 layer and ``F32_TOL`` at 2;
+    at the whole depth, finite logits equal on every rank, each decoded
+    position written once in every layer, and each rank's cache a quarter
+    of the whole. Returns the part's numbers."""
+    r0 = ranks[0]
+    one, tol = r0["one_card"], {"1": TP_F32_TOL, "2": F32_TOL}
+    runs = []
+    for run in r0["runs"]:
+        what = f"serve_model_axis gemma2-2b batch 1 on {run['mesh']}"
+        check(set(run["time_axes"]) & {"data", "pod"} and "model" in run["time_axes"],
+              f"{what}: the cache's time cut over model and data or pod ({run['time_axes']})")
+        for n, err in run["f32_max_abs_err"].items():
+            check(err <= tol[n] * one[n]["max_logit"],
+                  f"{what}: f32 logits at {n} layer(s) within {tol[n]} of one card's largest "
+                  f"({err} of {one[n]['max_logit']})")
+        runs.append({**run, "f32_rel": {n: e / one[n]["max_logit"]
+                                        for n, e in run["f32_max_abs_err"].items()}})
+    ds = [r["deep"] for r in ranks]
+    d = ds[0]
+    what = f"serve_model_axis gemma2-2b {d['layers']} layers batch 1 on {d['mesh']}"
+    check(all(x["finite"] and x["logits_sum"] == d["logits_sum"] for x in ds),
+          f"{what}: finite logits, equal on every rank")
+    check(sum(x["written"] for x in ds) == LONG_STEPS * d["layers"],
+          f"{what}: each decoded position written once in every layer "
+          f"({[x['written'] for x in ds]})")
+    check(all(4 * x["cache_bytes"] == d["cache_bytes_whole"] for x in ds),
+          f"{what}: each card holds a quarter of the cache ({d['cache_bytes']} of "
+          f"{d['cache_bytes_whole']})")
+    kinds = [k for k, v in d["collective_calls"].items() if v]
+    return {"positions": LONG_T, "start": LONG_START, "steps": LONG_STEPS,
+            "tolerance": tol, "one_card": one, "runs": runs,
+            "deep": {"mesh": d["mesh"], "layers": d["layers"], "time_axes": d["time_axes"],
+                     "dtype": d["dtype"],
+                     "ms_per_decode_step": max(x["ms_per_decode_step"] for x in ds),
+                     "cache_bytes": [x["cache_bytes"] for x in ds],
+                     "cache_bytes_whole": d["cache_bytes_whole"],
+                     "peak_bytes": [x["peak_bytes"] for x in ds],
+                     "collective_ms_per_step": {
+                         k: sum(max(x["collective_ms"][k][j] for x in ds)
+                                for j in range(LONG_STEPS)) / LONG_STEPS for k in kinds},
+                     "collective_calls_per_step": {k: d["collective_calls"][k] for k in kinds}}}
+
+
+def print_serve_long(m: dict, smi: str) -> None:
+    """The batch-1 long-cache lines of the serving part."""
+    for r in m["runs"]:
+        f32 = ", ".join(f"{rel:.3g} of one card's largest at {n} layer(s) (bound "
+                        f"{m['tolerance'][n]:.3g})" for n, rel in r["f32_rel"].items())
+        print(f"collectives serve_model_axis gemma2-2b batch 1 on {r['mesh']} (time over "
+              f"{'x'.join(r['time_axes'])}), serve specs, {m['steps']} steps from position "
+              f"{m['start']} of {m['positions']}: f32 logits within {f32} [{smi}]")
+    d = m["deep"]
+    c, n = d["collective_ms_per_step"], d["collective_calls_per_step"]
+    coll = ", ".join(f"{k} {c[k]:.3f} ({n[k]} calls)" for k in c)
+    print(f"collectives serve_model_axis gemma2-2b {d['layers']} layers batch 1 on {d['mesh']} "
+          f"(time over {'x'.join(d['time_axes'])}), serve specs, {d['dtype']}: "
+          f"{d['ms_per_decode_step']:.2f} ms a decode step; ms a step: {coll}; cache "
+          f"{d['cache_bytes'][0] / 1e9:.3f} GB a card of {d['cache_bytes_whole'] / 1e9:.3f}; "
+          f"peak GB a card {[round(b / 1e9, 2) for b in d['peak_bytes']]} [{smi}]")
 
 
 def print_serve_model_axis(m: dict, smi: str) -> None:
@@ -4126,6 +4528,7 @@ def print_serve_model_axis(m: dict, smi: str) -> None:
               f"{r['greedy_agree']} of {r['greedy_tokens']} (first divergence "
               f"{r['first_divergence']}); restore {', '.join(f'{x:.2f}' for x in r['restore_s'])} "
               f"s (launches {r['launches_restore'][0]} each) [{smi}]")
+    print_serve_long(m["long"], smi)
     print(f"collectives serve_model_axis checkpoint: {m['bytes'] / 1e9:.2f} GB of params saved by "
           f"rank 0 in {m['save_s']:.2f} s (launches {m['launches_save_rank0']}); world "
           f"{m['wall_s']:.1f} s; part {m['seconds']:.1f} s [{smi}]")
@@ -4135,15 +4538,16 @@ def print_serve_model_axis(m: dict, smi: str) -> None:
 def serve_families_path(seed: int, device, dev: str) -> dict:
     """The collectives phase's part that serves the moe, ssm, hybrid and
     encdec families over the model axis: ``serve_families_worker`` on four
-    ranks over ``SERVE_FAMILY_RUNS``. Every check fails the phase: rank 0's
-    save and each restore launch the chunk plan's digests, each rank's
-    restored blocks equal rank 0's saved tree (gathered) and agree on the
-    ranks that hold them, the f32 logits lie within ``TP_F32_TOL`` of one
-    card's largest at ``TP_F32_LAYERS`` layer and within ``F32_TOL`` at the
-    family's depth (whisper within ``ENCDEC_TP_F32_TOL``), a MoE's steps
-    whose routing flipped left out and counted, and the teacher-forced
-    prompt is echoed. The greedy tokens are counted against one card's, not
-    bounded."""
+    ranks over ``SERVE_FAMILY_RUNS``, at ``SERVE_BATCH`` and at batch 1.
+    Every check fails the phase: rank 0's save and each restore launch the
+    chunk plan's digests, each rank's restored blocks equal rank 0's saved
+    tree (gathered) and agree on the ranks that hold them, the f32 logits
+    lie within ``TP_F32_TOL`` of one card's largest at ``TP_F32_LAYERS``
+    layer and within ``F32_TOL`` at the family's depth (whisper within
+    ``ENCDEC_TP_F32_TOL``), a MoE's steps whose routing flipped left out
+    and counted, the teacher-forced prompt is echoed, and at batch 1 the
+    cache's time is cut over ``data`` too where it has one. The greedy
+    tokens are counted against one card's, not bounded."""
     import shutil
     import tempfile
 
@@ -4153,66 +4557,81 @@ def serve_families_path(seed: int, device, dev: str) -> dict:
     try:
         ranks = run_ranks("serve_families", COLL_CARDS, {
             "device": dev, "seed": seed, "root": root, "batch": SERVE_BATCH,
-            "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
-            "families": [[list(a), list(m)] for a, m in SERVE_FAMILY_RUNS]},
+            "prompt": SERVE_PROMPT, "gen": SERVE_GEN, "b1_prompt": SERVE_B1_PROMPT,
+            "b1_gen": SERVE_B1_GEN,
+            "families": [[list(a), list(m), list(m1)] for a, m, m1 in SERVE_FAMILY_RUNS]},
             SERVE_FAMILIES_TIMEOUT_S)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     r0 = ranks[0]
-    steps = SERVE_PROMPT + SERVE_GEN - 1
     fams = []
-    for i, (_args, meshes) in enumerate(SERVE_FAMILY_RUNS):
+    for i, (_args, meshes, b1_meshes) in enumerate(SERVE_FAMILY_RUNS):
         f0 = r0["families"][i]
         want = ckpt_launches(f0["manifest"])
-        save = f0["runs"][0]["save"]
+        first = (f0["runs"] or f0["b1_runs"])[0]
+        save = first["save"]
         check(save["launches"] == {**save["launches"], **want["save"]}
               and save["launches"]["checksum_copy_words"] == 0,
               f"serve_families {f0['arch']}: rank 0's save launched exactly {want['save']}: "
               f"{save['launches']}")
-        one, tol = f0["one_card"], f0["f32_tolerance"]
-        runs = []
-        for j, mesh in enumerate(meshes):
-            rs = [r["families"][i]["runs"][j] for r in ranks]
-            a = rs[0]
-            what = f"serve_families {f0['arch']} {f0['layers']} layers on {mesh}"
-            check(a["saved_equal_restored"], f"{what}: rank 0 restored the saved tree bit for bit")
-            for r, x in zip(ranks, rs):
-                check(x["restored_equal_rank0"] and x["blocks_equal"],
-                      f"{what} rank {r['rank']}: its restored blocks are rank 0's saved tree's, "
-                      "bit-equal on the ranks that hold them")
-                got = x["restore"]["launches"]
-                check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
-                      f"{what} rank {r['rank']}'s restore launched exactly {want['restore']}: "
-                      f"{got}")
-            for n, err in a["f32_max_abs_err"].items():
-                check(err <= tol[n] * one[n]["max_logit"],
-                      f"{what}: f32 logits at {n} layer(s) within {tol[n]} of one card's largest "
-                      f"({err} of {one[n]['max_logit']}; route flips {a['route_flips']})")
-            check(a["prompt_equal"], f"{what}: the teacher-forced prompt echoed")
-            kinds = [k for k in ("model", "gather", "a2a", "gather_data")
-                     if a["collective_calls"][k]]
-            runs.append({
-                "mesh": mesh, "ms_per_decode_step": max(x["ms_per_decode_step"] for x in rs),
-                "prefill_cross_ms": (max(x["prefill_cross_ms"] for x in rs)
-                                     if a["prefill_cross_ms"] is not None else None),
-                "collective_ms_per_step": {k: sum(max(x["collective_ms"][k][s] for x in rs)
-                                                  for s in range(steps)) / steps for k in kinds},
-                "collective_calls_per_step": {k: a["collective_calls"][k] for k in kinds},
-                "cache_bytes": [x["cache_bytes"] for x in rs],
-                "cache_bytes_whole": a["cache_bytes_whole"],
-                "peak_bytes": [x["peak_bytes"] for x in rs],
-                "restore_s": [x["restore"]["seconds"] for x in rs],
-                "launches_restore": [x["restore"]["launches"] for x in rs],
-                "f32_max_abs_err": a["f32_max_abs_err"],
-                "f32_rel": {n: e / one[n]["max_logit"] for n, e in a["f32_max_abs_err"].items()},
-                "route_flips": a["route_flips"],
-                "greedy_agree": a["greedy_agree"], "greedy_tokens": a["greedy_tokens"]})
-        fams.append({"arch": f0["arch"], "layers": f0["layers"],
-                     "one_card_ms_per_decode_step": one["ms_per_decode_step"],
-                     "one_card_prefill_cross_ms": one["prefill_cross_ms"],
-                     "f32_tolerance": tol, "save_s": save["seconds"], "bytes": save["bytes"],
-                     "launches_save_rank0": save["launches"], "expected_launches": want,
-                     "runs": runs})
+        tol = f0["f32_tolerance"]
+        fam = {"arch": f0["arch"], "layers": f0["layers"], "f32_tolerance": tol,
+               "save_s": save["seconds"], "bytes": save["bytes"],
+               "launches_save_rank0": save["launches"], "expected_launches": want}
+        for key, B, Lp, gen, where in (("", SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, meshes),
+                                       ("b1_", 1, SERVE_B1_PROMPT, SERVE_B1_GEN, b1_meshes)):
+            steps = Lp + gen - 1
+            runs = []
+            for j, mesh in enumerate(where):
+                one = f0[f"{key}one_card"]
+                rs = [r["families"][i][f"{key}runs"][j] for r in ranks]
+                a = rs[0]
+                what = f"serve_families {f0['arch']} {f0['layers']} layers on {mesh}, batch {B}"
+                check(a["saved_equal_restored"],
+                      f"{what}: rank 0 restored the saved tree bit for bit")
+                for r, x in zip(ranks, rs):
+                    check(x["restored_equal_rank0"] and x["blocks_equal"],
+                          f"{what} rank {r['rank']}: its restored blocks are rank 0's saved "
+                          "tree's, bit-equal on the ranks that hold them")
+                    got = x["restore"]["launches"]
+                    check(got == {**got, **want["restore"]} and got["checksum_copy_words"] == 0,
+                          f"{what} rank {r['rank']}'s restore launched exactly "
+                          f"{want['restore']}: {got}")
+                for n, err in a["f32_max_abs_err"].items():
+                    check(err <= tol[n] * one[n]["max_logit"],
+                          f"{what}: f32 logits at {n} layer(s) within {tol[n]} of one card's "
+                          f"largest ({err} of {one[n]['max_logit']}; route flips "
+                          f"{a['route_flips']})")
+                check(a["prompt_equal"], f"{what}: the teacher-forced prompt echoed")
+                if B == 1 and f0["arch"] != "mamba2-370m":
+                    check("data" in a["time_axes"],
+                          f"{what}: the cache's time cut over data ({a['time_axes']})")
+                kinds = [k for k in ("model", "gather", "a2a", "gather_data")
+                         if a["collective_calls"][k]]
+                runs.append({
+                    "mesh": mesh, "batch": B, "prompt": Lp, "generated": gen,
+                    "time_axes": a["time_axes"],
+                    "ms_per_decode_step": max(x["ms_per_decode_step"] for x in rs),
+                    "one_card_ms_per_decode_step": one["ms_per_decode_step"],
+                    "prefill_cross_ms": (max(x["prefill_cross_ms"] for x in rs)
+                                         if a["prefill_cross_ms"] is not None else None),
+                    "one_card_prefill_cross_ms": one["prefill_cross_ms"],
+                    "collective_ms_per_step": {k: sum(max(x["collective_ms"][k][s] for x in rs)
+                                                      for s in range(steps)) / steps
+                                               for k in kinds},
+                    "collective_calls_per_step": {k: a["collective_calls"][k] for k in kinds},
+                    "cache_bytes": [x["cache_bytes"] for x in rs],
+                    "cache_bytes_whole": a["cache_bytes_whole"],
+                    "peak_bytes": [x["peak_bytes"] for x in rs],
+                    "restore_s": [x["restore"]["seconds"] for x in rs],
+                    "launches_restore": [x["restore"]["launches"] for x in rs],
+                    "f32_max_abs_err": a["f32_max_abs_err"],
+                    "f32_rel": {n: e / one[n]["max_logit"]
+                                for n, e in a["f32_max_abs_err"].items()},
+                    "route_flips": a["route_flips"],
+                    "greedy_agree": a["greedy_agree"], "greedy_tokens": a["greedy_tokens"]})
+            fam[f"{key}runs"] = runs
+        fams.append(fam)
     return {"serve_families": {
         "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "generated": SERVE_GEN,
         "families": fams, "wall_s": r0["wall_s"], "seconds": time.perf_counter() - t0}}
@@ -4221,19 +4640,21 @@ def serve_families_path(seed: int, device, dev: str) -> dict:
 def print_serve_families(m: dict, smi: str) -> None:
     """The families' serving part's lines."""
     for f in m["families"]:
-        for r in f["runs"]:
+        for r in f["runs"] + f["b1_runs"]:
             c, n = r["collective_ms_per_step"], r["collective_calls_per_step"]
             coll = ", ".join(f"{k} {c[k]:.3f} ({n[k]} calls)" for k in c)
             pre = ("" if r["prefill_cross_ms"] is None else
                    f"; prefill_cross {r['prefill_cross_ms']:.2f} ms "
-                   f"(one card {f['one_card_prefill_cross_ms']:.2f})")
+                   f"(one card {r['one_card_prefill_cross_ms']:.2f})")
             f32 = ", ".join(f"{rel:.3g} of one card's largest at {d} layer(s) (bound "
                             f"{f['f32_tolerance'][d]:.3g})" for d, rel in r["f32_rel"].items())
             flips = f"; route flips {r['route_flips']}" if r["route_flips"] else ""
-            print(f"collectives serve_families {f['arch']} {f['layers']} layers on {r['mesh']}, "
-                  f"batch {m['batch']}, {m['prompt']}-token prompt + {m['generated']}: "
+            cut = "" if r["batch"] != 1 else (
+                f" (time over {'x'.join(r['time_axes'])})" if r["time_axes"] else " (no time dim)")
+            print(f"collectives serve_families {f['arch']} {f['layers']} layers on {r['mesh']}"
+                  f"{cut}, batch {r['batch']}, {r['prompt']}-token prompt + {r['generated']}: "
                   f"{r['ms_per_decode_step']:.2f} ms a decode step (one card "
-                  f"{f['one_card_ms_per_decode_step']:.2f}){pre}; ms a step: {coll}; cache "
+                  f"{r['one_card_ms_per_decode_step']:.2f}){pre}; ms a step: {coll}; cache "
                   f"{r['cache_bytes'][0] / 1e6:.3f} MB a card of "
                   f"{r['cache_bytes_whole'] / 1e6:.3f}; peak GB a card "
                   f"{[round(b / 1e9, 2) for b in r['peak_bytes']]}; f32 logits within {f32}"
@@ -4336,7 +4757,8 @@ def print_expert_axis(m: dict, smi: str) -> None:
               f"{100 * r['f32_flipped_share']:.2f}% flipped [{smi}]")
 
     for mesh, r in m["meshes"].items():
-        row(m["arch"], "2 layers", mesh, r, (m["one_card_step1"], m["one_card_dropped_step1"]))
+        row(m["arch"], f"{smoke_model(EP_ARGS).cfg.n_layers} layer(s)", mesh, r,
+            (m["one_card_step1"], m["one_card_dropped_step1"]))
     c = m["ckpt"]
     print(f"collectives expert_axis checkpoint on {c['mesh']}: {c['bytes'] / 1e9:.2f} GB, the "
           f"whole tree gathered and saved by rank 0 in {c['save_s']:.2f} s (launches "
@@ -4422,6 +4844,37 @@ def print_collectives(coll: dict, smi: str) -> None:
     print_serve_model_axis(coll["serve_model_axis"], smi)
     print_serve_families(coll["serve_families"], smi)
     print("collectives " + json.dumps(coll))
+
+
+CARD_PARTS = ("serve_long", "remat")   # one-card phases that --phases also runs alone
+
+
+def long_and_remat(seed: int, device, smi: str, parts) -> None:
+    """The ``serve_long`` and ``remat`` phases named in ``parts``, each
+    printed as its JSON and one line."""
+    if "serve_long" in parts:
+        torch.cuda.empty_cache()
+        lng = serve_long_path(seed, device)
+        print("serve_long " + json.dumps(lng))
+        print(f"serve_long: {lng['arch']} {lng['layers']} layers, batch 1 over a cache of "
+              f"{lng['positions']} positions ({lng['cache_bytes'] / 1e9:.2f} GB; params "
+              f"{lng['param_bytes'] / 1e9:.2f} GB; drawn in {lng['cache_fill_s']:.2f} s), "
+              f"{lng['steps']} steps from position {lng['start']}: "
+              f"{lng['ms_per_decode_step']:.2f} ms a decode step, peak "
+              f"{lng['peak_bytes'] / 1e9:.2f} GB [{smi}]")
+    if "remat" in parts:
+        torch.cuda.empty_cache()
+        rem = remat_path(seed, device)
+        print("remat " + json.dumps(rem))
+        modes = "; ".join(
+            f"{k} {sum(rem[k]['step_ms'][1:]) / (REMAT_STEPS - 1):.1f} ms a step (step 1 "
+            f"{rem[k]['step_ms'][0]:.1f}), peak {rem[k]['peak_bytes'] / 1e9:.2f} GB (forward "
+            f"and backward {rem[k]['grad_peak_bytes'] / 1e9:.2f}), losses "
+            f"{', '.join(f'{x:.6g}' for x in rem[k]['losses'])}" for k in ("none", "full", "dots"))
+        print(f"remat: {rem['arch']} {rem['layers']} layers, seq {rem['seq']}, batch "
+              f"{rem['batch']}: {modes}; dots' losses bit-equal to full's: "
+              f"{rem['dots_losses_bit_equal_full']} [{smi}]")
+    sys.stdout.flush()
 
 
 def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -> list[dict]:
@@ -4611,7 +5064,7 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
           f"{pre_vlm['f32_card_vs_cpu_max_abs_err']:.4g} of {pre_vlm['f32_card_vs_cpu_scale']:.4g} "
           f"[{smi}]")
     del srv, srv_moe, srv_grok, srv_ssm, srv_hyb, srv_enc, srv_vlm, pre_vlm
-    torch.cuda.empty_cache()
+    long_and_remat(seed, device, smi, ("serve_long", "remat"))
     dry = dryrun_path(device, reset, counts)
     print("dryrun " + json.dumps(dry))
     for r in dry["checked"]:
@@ -4677,9 +5130,10 @@ def main() -> int:
     if args.rank_worker:
         return rank_worker(args.rank_worker, args.config)
     phases = set(PHASES) if args.phases == "all" else set(args.phases.split(","))
-    if not phases or phases - set(PHASES) - set(COLL_PARTS):
-        parser.error(f"--phases takes {', '.join(PHASES)}, {', '.join(COLL_PARTS[1:])} (those "
-                     f"parts of collectives alone) or all, not {args.phases!r}")
+    if not phases or phases - set(PHASES) - set(COLL_PARTS) - set(CARD_PARTS):
+        parser.error(f"--phases takes {', '.join(PHASES)}, {', '.join(CARD_PARTS)} (those "
+                     f"parts of card alone), {', '.join(COLL_PARTS[1:])} (those parts of "
+                     f"collectives alone) or all, not {args.phases!r}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card",
@@ -4717,6 +5171,8 @@ def main() -> int:
     kernels = None
     if "card" in phases:
         kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
+    elif phases & set(CARD_PARTS):
+        long_and_remat(args.seed, device, smi, phases)
     if phases & set(COLL_PARTS):
         parts = COLL_PARTS if "collectives" in phases else tuple(
             p for p in COLL_PARTS if p in phases)

@@ -16,7 +16,10 @@ more it lays the axes row-major over the world's ranks (as
 ``cuda:{LOCAL_RANK}`` (or the host). A mesh larger than the world raises
 ``RuntimeError``, as the reference's ``launch.train.parse_mesh`` does. The
 mesh also holds a process group over its batch axes (pod x data): the ranks
-that share this rank's ``model`` index, over which gradients are meaned.
+that share this rank's ``model`` index, over which gradients are meaned;
+and a group over every other set of two or more of its axes over 1
+(``Mesh.group_over``): the ranks over which a decode cache's time dim is
+cut at a batch that pod x data does not divide.
 
 The sharding rules are the reference's (``_RULES``, ``spec``,
 ``batch_spec``), with ``PartitionSpec`` a tuple of mesh axes a dim.
@@ -56,6 +59,7 @@ class Mesh:
     devices: tuple[torch.device, ...]
     device_mesh: Any = None
     batch_group: Any = None      # the pod x data group through this rank (None: the world's)
+    axis_groups: Any = None      # frozenset of axes -> their group through this rank
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -73,6 +77,19 @@ class Mesh:
         """The process group of ``axis`` through this rank (None on a mesh
         of one device)."""
         return None if self.device_mesh is None else self.device_mesh.get_group(axis)
+
+    def group_over(self, axes):
+        """The process group of the ranks that share this rank's index on
+        every axis but ``axes``: one axis's own group, the world's (None)
+        where ``axes`` holds every axis over 1 (and on a mesh of one
+        device), else the one ``make_mesh`` created for the set."""
+        over = {a for a in self.axis_names if self.shape[a] > 1}
+        axes = frozenset(a for a in axes if a in over)
+        if self.device_mesh is None or axes == over:
+            return None
+        if len(axes) == 1:
+            return self.group(next(iter(axes)))
+        return self.axis_groups[axes]
 
     def rank(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 off the mesh's axes)."""
@@ -168,7 +185,8 @@ def make_mesh(axis_shapes, axis_names, *, devices=None, device="cuda") -> Mesh:
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     dm = init_device_mesh(dev.type, shapes, mesh_dim_names=names)
-    return Mesh(dict(zip(names, shapes)), (dev,), dm, _batch_group(shapes, names))
+    return Mesh(dict(zip(names, shapes)), (dev,), dm, _batch_group(shapes, names),
+                _axis_groups(shapes, names))
 
 
 def _batch_group(shapes: tuple[int, ...], names: tuple[str, ...]):
@@ -186,6 +204,25 @@ def _batch_group(shapes: tuple[int, ...], names: tuple[str, ...]):
         group = dist.new_group(ranks)
         if me in ranks:
             mine = group
+    return mine
+
+
+def _axis_groups(shapes: tuple[int, ...], names: tuple[str, ...]) -> dict:
+    """For every set of two or more axes over 1 short of all of them, the
+    group of the ranks that share this rank's index on every other axis
+    (none on a mesh with at most two axes over 1: such a set is the
+    world). Every rank creates every such group, in the same order."""
+    over = [i for i, s in enumerate(shapes) if s > 1]
+    coords = list(itertools.product(*(range(s) for s in shapes)))   # row-major ranks
+    me, mine = dist.get_rank(), {}
+    for k in range(2, len(over)):
+        for subset in itertools.combinations(over, k):
+            rest = [i for i in range(len(shapes)) if i not in subset]
+            for key in itertools.product(*(range(shapes[i]) for i in rest)):
+                ranks = [r for r, c in enumerate(coords) if tuple(c[i] for i in rest) == key]
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    mine[frozenset(names[i] for i in subset)] = group
     return mine
 
 
@@ -257,6 +294,22 @@ def data_dims(pspec) -> list[int]:
     return [i for i, e in enumerate(pspec) if DATA in _entry_axes(e)]
 
 
+def entry_cut(mesh: Mesh, entry) -> tuple[str, ...]:
+    """The axes over 1 that one spec entry cuts its dim over, in the
+    entry's order: the dim is cut row-major over them (``shard``)."""
+    return tuple(a for a in _entry_axes(entry) if axis_size(mesh, a) > 1)
+
+
+def block_index(mesh: Mesh, axes) -> tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dim cut row-major
+    over ``axes``, the first axis outermost."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * axis_size(mesh, a) + mesh.rank(a)
+        n *= axis_size(mesh, a)
+    return idx, n
+
+
 def cut_axes(mesh: Mesh, pspec) -> tuple[str, ...]:
     """The mesh axes over 1 that cut a leaf of ``pspec``, in mesh order."""
     named = {a for e in pspec for a in _entry_axes(e)}
@@ -269,13 +322,10 @@ def shard(mesh: Mesh, x: torch.Tensor, pspec) -> torch.Tensor:
     of a tuple entry, as ``device_put`` cuts it (a view; ``x`` itself where
     nothing is cut). A dim that does not split evenly raises ``ValueError``."""
     for d, e in enumerate(pspec):
-        axes = [a for a in _entry_axes(e) if axis_size(mesh, a) > 1]
+        axes = entry_cut(mesh, e)
         if not axes:
             continue
-        n = math.prod(axis_size(mesh, a) for a in axes)
-        idx = 0
-        for a in axes:
-            idx = idx * axis_size(mesh, a) + mesh.rank(a)
+        idx, n = block_index(mesh, axes)
         if x.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(x.shape)} does not split over {n} ranks")
         size = x.shape[d] // n

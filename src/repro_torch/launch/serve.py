@@ -7,11 +7,16 @@ does: every rank draws the one-device weights from the seed and keeps its
 blocks of them (``param_specs``, the reference's default layout), the
 cache is cut by ``cache_specs`` (the batch over pod x data; time, heads or
 channels over ``model``) and each rank decodes its batch rows; rank 0
-prints. An encdec raises in ``generate`` here, as the reference's does.
+prints. At a batch that pod x data does not divide (``--batch 1``) every
+rank decodes every row and the cache's time is cut over ``data`` and
+``pod`` as well as ``model``: no rank holds the whole cache. An encdec
+raises in ``generate`` here, as the reference's does.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --smoke \\
       --device cpu --batch 4 --prompt-len 12 --gen 16
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
       -m repro_torch.launch.serve --arch gemma-2b --smoke --device cpu --mesh 1x1x4
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+      -m repro_torch.launch.serve --arch gemma2-2b --smoke --device cpu --mesh 1x2x2 --batch 1
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ def generate(model, params, prompts: torch.Tensor, gen: int, max_len: int) -> to
     encdec serves through ``prefill_cross`` and the serve step instead.
     Over a mesh of more than one rank, ``params`` are this rank's blocks,
     the cache is cut by ``cache_specs`` and the rank decodes its rows of
-    ``prompts``: it returns those rows."""
+    ``prompts`` (all of them where pod x data does not divide the batch):
+    it returns those rows."""
     if model.cfg.family == "encdec":
         raise NotImplementedError("use prefill_cross + decode for enc-dec")
     mesh = model.mesh

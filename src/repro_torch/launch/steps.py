@@ -30,7 +30,8 @@ the training forward with its last position unembedded vocab-parallel
 (``ShardingMixin._unembed``), and the serve step decodes over this rank's
 blocks of the params (the train specs, or the dense family's and the vlm's
 weight-stationary serve specs) and of the cache (``cache_specs``: batch
-over pod x data; time, heads or channels over ``model``);
+over pod x data; time, heads or channels over ``model``; at a batch that
+pod x data does not divide, the time over ``data`` and ``pod`` too);
 ``StepBundle.specs`` names both, so a caller cuts whole trees with
 ``launch.train.shard_state``.
 

@@ -4,7 +4,8 @@ Twin of ``repro.models.common`` in plain torch ops. Params are nested dicts
 of tensors, as in the reference, with the layers stacked on a leading axis;
 a model walks that axis in a Python loop (the reference's ``lax.scan``) and
 recomputes each block in its backward pass under ``remat="full"``
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), all but
+its weight projections under ``remat="dots"`` (``remat_policy``).
 
 Attention is written out in einsums, as the reference writes it in
 ``jnp``: ``F.scaled_dot_product_attention`` takes no logit soft-cap, and no
@@ -30,14 +31,18 @@ reduce-scatters). The residual stays whole on every
 model rank, where the reference may shard it by sequence (``constrain``,
 ``_seq``, ``_res`` are layout hints of GSPMD and have no counterpart).
 A decode cache is laid out by the reference's ``kv_cache_spec`` (batch
-over pod x data, time over the other axes); a decode layer of any family
-writes the new slot on the rank that holds it, attends each rank's time
-block and combines the ranks' partial softmaxes over ``model``
-(``ShardingMixin._cached_attention``: ``partial_attention``, ``_combine``).
+over pod x data, time over the other axes: over ``model``, and at a batch
+that pod x data does not divide over ``data`` and ``pod`` too); a decode
+layer of any family writes the new slot on the rank that holds it, attends
+each rank's time block and combines the ranks' partial softmaxes over the
+axes that cut the time (``ShardingMixin._cached_attention``:
+``partial_attention``, ``_combine`` on ``Mesh.group_over`` of them).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 import zlib
 from typing import Any, Callable, Sequence
@@ -45,10 +50,13 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.overrides import TorchFunctionMode
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.distributed.mesh import (
-    DATA, MODEL, POD, P, all_gather_into, axis_size, cut_axes, data_dims, reduce_scatter_into)
+    DATA, MODEL, POD, P, all_gather_into, axis_size, block_index, data_dims, entry_cut,
+    reduce_scatter_into)
 
 Params = Any
 
@@ -447,14 +455,13 @@ class ShardingMixin:
                                                      *t.shape[d + 1:]))
         return whole
 
-    def _combine(self, m, l, o, dtype):
-        """The softmax over every model rank's block of the keys from each
-        rank's ``partial_attention`` (m, l, o): the largest logit
-        all-reduced (max), each rank's sums rescaled to it (a rank with no
-        valid key scales by exp(-inf) = 0) and summed over ``model`` in one
-        all-reduce of l and o together, then normalised. (B, S, H, hd) in
-        ``dtype``."""
-        group = self.mesh.group(MODEL)
+    def _combine(self, m, l, o, dtype, group):
+        """The softmax over every block of the keys from each rank's
+        ``partial_attention`` (m, l, o), over ``group`` (the ranks that
+        cut the time): the largest logit all-reduced (max), each rank's
+        sums rescaled to it (a rank with no valid key scales by exp(-inf) =
+        0) and summed in one all-reduce of l and o together, then
+        normalised. (B, S, H, hd) in ``dtype``."""
         top = m.clone()
         dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
         scale = torch.exp(m - top)
@@ -481,18 +488,12 @@ class ShardingMixin:
             c[rows, slot] = n
         return cache_k, cache_v, cache_p
 
-    def _time_cut(self, spec) -> bool:
-        """Whether a decode cache laid out by ``spec`` (its time on dim 2;
-        None: whole on every rank) has its time dim cut over ``model``.
-        Time cut over ``data`` or ``pod`` raises."""
-        if spec is None:
-            return False
-        axes = cut_axes(self.mesh, P(spec[2]))
-        if set(axes) - {MODEL}:
-            raise NotImplementedError(
-                f"decode over a cache whose time dim is cut over {axes} (a batch that pod x "
-                "data does not divide) is not ported yet (ROADMAP Queue 1 item 6d)")
-        return MODEL in axes
+    def _time_cut(self, spec) -> tuple[str, ...]:
+        """The mesh axes over 1 that cut the time dim (dim 2) of a decode
+        cache laid out by ``spec`` (None: whole on every rank), in the
+        spec's order: ``kv_cache_spec``'s model, data, pod, row-major, the
+        way ``shard`` cuts it. Empty where the time is whole."""
+        return () if spec is None else entry_cut(self.mesh, spec[2])
 
     def _whole_heads(self, parts, whole) -> list:
         """Each of ``parts`` (B, S, heads, hd) whole: those whose last two
@@ -508,23 +509,26 @@ class ShardingMixin:
         it = iter(self._gather_model(cut, dim))
         return [next(it) if tuple(t.shape[-2:]) != w else t for t, w in zip(parts, whole)]
 
-    def _cached_attention(self, q, ck, cv, cp, pos, time_cut: bool, *, new=None,
+    def _cached_attention(self, q, ck, cv, cp, pos, time_cut: tuple, *, new=None,
                           causal: bool = True, window=None, logit_cap=None):
         """Decode attention of the whole ``q`` (B, 1, H, hd) over this
         rank's block of a cache (``ck``, ``cv`` (B, T, KVH, hd), positions
         ``cp`` (B, T), -1 where empty). ``new`` = (k, v) of the token at
         ``pos``, whole, is first written at slot ``pos % T`` of the whole
-        cache: over a time cut (``time_cut``) slot ``pos % (tp T)`` lives on
-        rank ``slot // T`` at ``slot % T`` and only that rank writes it. Over
-        a time cut each rank attends its block (``partial_attention``) and
-        the ranks' partial softmaxes are combined (``_combine``); else the
+        cache: over a time cut over the n blocks of ``time_cut``
+        (``_time_cut``) slot ``pos % (n T)`` lives in block ``slot // T``
+        at ``slot % T``, and only the rank that holds that block
+        (``block_index``) writes it. Over a time cut each rank attends its
+        block (``partial_attention``) and the partial softmaxes are
+        combined over the cutting axes' group (``_combine``); else the
         whole cache is attended. (B, 1, H, hd) in ``q``'s dtype."""
         q_pos = pos[:, None]
         if new is not None:
             T = ck.shape[1]
             if time_cut:
-                slot = pos % (T * self._tp())
-                self._cache_write(ck, cv, cp, *new, pos, slot % T, own=slot // T == self._mrank())
+                mine, n = block_index(self.mesh, time_cut)
+                slot = pos % (T * n)
+                self._cache_write(ck, cv, cp, *new, pos, slot % T, own=slot // T == mine)
             else:
                 self._cache_write(ck, cv, cp, *new, pos, pos % T)
         if not time_cut:
@@ -532,7 +536,7 @@ class ShardingMixin:
                              window=window, logit_cap=logit_cap)
         m, l, o = partial_attention(q, ck, cv, causal=causal, q_positions=q_pos,
                                     kv_positions=cp, window=window, logit_cap=logit_cap)
-        return self._combine(m, l, o, q.dtype)
+        return self._combine(m, l, o, q.dtype, self.mesh.group_over(time_cut))
 
     def _own_rows(self, o, wo):
         """(``o`` (B, S, H, hd) narrowed to this rank's rows of ``wo`` (H,
@@ -901,19 +905,90 @@ def layer_slices(stacked: Sequence[torch.Tensor]) -> list[tuple[torch.Tensor, ..
     return list(zip(*(t.unbind(0) for t in stacked)))
 
 
+class _NoBatchDots(TorchFunctionMode):
+    """While entered, counts in ``state["inside"]`` the calls in flight of
+    a product with no batch dims: an einsum none of whose dims appears in
+    both operands and in the output, or an ``@`` with an operand of at most
+    two dims (the weight projections). The dims' kind decides, as in the
+    reference's ``dot_general``; aten's ``mm`` / ``bmm`` cannot tell it,
+    since an einsum reaches them decomposed (a projection as a ``bmm`` of
+    batch 1, an attention product at B = 1 over one kv head too)."""
+
+    def __init__(self, state: dict):
+        super().__init__()
+        self.state = state
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not _no_batch_dims(func, args):
+            return func(*args, **kwargs)
+        self.state["inside"] += 1
+        try:
+            return func(*args, **kwargs)
+        finally:
+            self.state["inside"] -= 1
+
+
+def _no_batch_dims(func, args) -> bool:
+    """Whether ``func(*args)`` is a product with no batch dims."""
+    if func is torch.einsum:
+        ins, out = args[0].split("->")
+        lhs, rhs = ins.split(",")
+        return not set(lhs) & set(rhs) & set(out)
+    # ``a @ b`` reaches a mode as one of these, by torch version
+    return (func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+            and min(args[0].dim(), args[1].dim()) <= 2)
+
+
+def _dots_policy(state: dict, ctx, op, *args, **kwargs):
+    """The product inside a call that ``_NoBatchDots`` counts is saved,
+    every other op recomputed."""
+    if state["inside"] and op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def _dots_context():
+    """``checkpoint``'s ``context_fn`` for "dots": the forward and the
+    recompute each run under ``_NoBatchDots`` and the selective-checkpoint
+    mode of ``_dots_policy``."""
+    state = {"inside": 0}
+    fwd, rec = create_selective_checkpoint_contexts(functools.partial(_dots_policy, state))
+    return _entered(_NoBatchDots(state), fwd), _entered(_NoBatchDots(state), rec)
+
+
+def remat_policy(name: str):
+    """The reference's: None for "none" (no checkpoint); for "dots"
+    ``checkpoint``'s ``context_fn`` that saves the outputs of the products
+    with no batch dims (jax's ``dots_with_no_batch_dims_saveable``: the
+    weight projections) and recomputes the rest, a ZeRO gather included;
+    else one that saves nothing (``nothing_saveable``)."""
+    if name == "none":
+        return None
+    if name == "dots":
+        return _dots_context
+    return noop_context_fn
+
+
 def maybe_remat(fn, cfg: ModelConfig):
-    """``remat="full"``: recompute ``fn`` in the backward pass
-    (``torch.utils.checkpoint``); ``"none"``: keep its activations."""
-    if cfg.remat == "none":
+    """``fn`` recomputed in the backward pass by ``torch.utils.checkpoint``
+    under ``remat_policy(cfg.remat)``; ``"none"``: ``fn``, its activations
+    kept."""
+    policy = remat_policy(cfg.remat)
+    if policy is None:
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r}: the port has 'full' and 'none' (torch has no "
-            "save-the-dots policy)")
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=policy)
 
     return wrapped

@@ -35,8 +35,10 @@ reference's ``_qspec`` (context-parallel queries where a 16-wide axis
 does not divide 20 heads) is a layout hint of GSPMD with no counterpart.
 Over a ``model`` axis the decode cache is laid out by the reference's
 ``cache_specs``: the self-attention cache and the cross K/V both cut by
-time, every head on every rank. ``prefill_cross`` re-cuts the cross K/V of
-this rank's heads into its block of positions with one all-to-all, and
+time, every head on every rank (at a batch that pod x data does not
+divide, over ``data`` and ``pod`` too). ``prefill_cross`` re-cuts the
+cross K/V of this rank's heads into its block of positions with one
+all-to-all over ``model``, then keeps its data and pod sub-block, and
 ``decode_step`` attends each rank's blocks and combines them by
 log-sum-exp.
 """
@@ -47,7 +49,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.mesh import DATA, MODEL, P
+from repro_torch.distributed.mesh import DATA, MODEL, P, block_index
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
 
@@ -277,26 +279,30 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
         ``wv`` heads take every encoder position; the cache wants every
         head of this rank's block of positions, so one all-to-all over
         ``model`` turns the heads' cut into the time's (where the time is
-        whole, the heads are gathered)."""
+        not cut over ``model``, the heads are gathered). Where the time is
+        also cut over ``data`` or ``pod`` (a batch that they do not divide,
+        so every rank there computed the same rows) each rank keeps its
+        sub-block of that, with no collective."""
         cfg = self.cfg
         enc = self.encode(params, audio_embed)
         specs = self.param_specs(self.mesh)["dec"]["cross"] if self._dp() > 1 else None
         wk, wv = (params["dec"]["cross"][k] if specs is None else self._zero(
             params["dec"]["cross"][k], specs[k]) for k in ("wk", "wv"))
         kv = torch.stack([torch.einsum("btd,ldnh->lbtnh", enc, w) for w in (wk, wv)])
-        time_cut = self._time_cut(None if cache_specs is None else cache_specs["ek"])
+        rest = self._time_cut(None if cache_specs is None else cache_specs["ek"])
         heads_cut = kv.shape[-2] != cfg.n_heads
-        if time_cut and heads_cut:    # (2, L, B, Te, H/tp, hd) -> (2, L, B, Te/tp, H, hd)
+        if MODEL in rest and heads_cut:  # (2, L, B, Te, H/tp, hd) -> (2, L, B, Te/tp, H, hd)
             tp = self._tp()
             two, L, B, Te, h, hd = kv.shape
             blocks = kv.reshape(two, L, B, tp, Te // tp, h, hd).movedim(3, 0)
             got = cm.all_to_all(blocks, self.mesh.group(MODEL))      # [j]: rank j's heads
             kv = got.permute(1, 2, 3, 4, 0, 5, 6).reshape(two, L, B, Te // tp, tp * h, hd)
-        elif time_cut:
-            n = kv.shape[3] // self._tp()
-            kv = kv.narrow(3, self._mrank() * n, n)
+            rest = tuple(a for a in rest if a != MODEL)              # model is outermost
         elif heads_cut:
             kv = self._gather_model([kv], -2)[0]
+        if rest:
+            i, n = block_index(self.mesh, rest)
+            kv = kv.narrow(3, i * (kv.shape[3] // n), kv.shape[3] // n)
         return {**cache, "ek": kv[0].contiguous(), "ev": kv[1].contiguous()}
 
     def decode_step(self, params, cache, tokens, pos, cache_specs=None):
@@ -329,7 +335,7 @@ class WhisperLM(cm.ShardingMixin, torch.nn.Module):
         pos_emb = params["pos_dec"][torch.clamp(pos, max=self.max_target - 1).long()]
         x = x + pos_emb[:, None].to(cfg.dtype)
         te = cache["ek"].shape[2]                          # this rank's encoder positions
-        e0 = self._mrank() * te if cross_cut else 0
+        e0 = block_index(self.mesh, cross_cut)[0] * te
         enc_pos = self._positions(B, te, x.device) + e0
         heads = ((cfg.n_heads, cfg.hd),) * 3
         stacked = [params["dec"][sub][k] for sub, k in keys]

@@ -27,8 +27,11 @@ them (the one kv head whole) and runs whole on every rank where it does
 not; the tied embedding is vocab-parallel. Decode over a ``model`` axis
 runs the same layers on this rank's blocks of a cache laid out by the
 reference's ``cache_specs``: the recurrent states and conv windows by
-channels, the local-attention ring by time, attended by each rank over its
-slots and combined by log-sum-exp (``ShardingMixin._cached_attention``);
+channels, the local-attention ring by time (over ``model``, and at a batch
+that pod x data does not divide over ``data`` and ``pod`` too, so the
+slot's owner moves across the whole group as the ring wraps), attended by
+each rank over its slots and combined by log-sum-exp
+(``ShardingMixin._cached_attention``);
 where the heads stay whole, the whole q meets each rank's slots and ``wo``
 needs no sum.
 """
@@ -355,7 +358,7 @@ class RecurrentGemmaLM(cm.ShardingMixin, torch.nn.Module):
         out = torch.einsum("blw,wd->bld", hs[:, None].to(x.dtype) * yb, lp["wo"])
         return self._mlp(x + self._reduce_out(out, self._split(self.w)), lp)
 
-    def _decode_attn(self, x, lp, ck, cv, cp, pos, time_cut: bool):
+    def _decode_attn(self, x, lp, ck, cv, cp, pos, time_cut: tuple):
         """The local-attention layer of a decode step: q, k and v of this
         rank's heads gathered whole over ``model`` (all heads on every rank
         where the axis does not divide them), rotated, and the ring's slot

@@ -34,16 +34,20 @@ gathers it) or the weight-stationary serve specs
 (``param_specs(serve=True)``: head_dim, ffn and vocab, nothing over
 ``data``, so no weight moves). The cache is laid out by ``cache_specs``
 (the reference's ``kv_cache_spec``): the batch over pod x data, the time
-dim over ``model``. A layer computes this rank's block of the new
-token's q, k and v and gathers them whole over ``model`` in one
-all-gather, then rotates them (RoPE pairs element i of head_dim with
-element i + hd/2, which the serve layout puts on different ranks); the
-rank that owns slot ``pos % T`` writes it; each rank attends its own time
-block (``common.partial_attention``) and the ranks' partial softmaxes are
-combined by log-sum-exp (``ShardingMixin._combine``); each rank then
-feeds its block of the output to its rows of ``wo`` and the partial sums
-are all-reduced. Time cut over ``data`` or ``pod`` (a batch that pod x
-data does not divide) waits for ROADMAP Queue 1 item 6d.
+dim over ``model``; at a batch that pod x data does not divide (B = 1,
+long context) the batch stays whole on every rank and the time dim is cut
+over ``data`` and ``pod`` too, model-major. A layer computes this rank's
+block of the new token's q, k and v and gathers them whole over ``model``
+in one all-gather, then rotates them (RoPE pairs element i of head_dim
+with element i + hd/2, which the serve layout puts on different ranks);
+the rank that owns slot ``pos % T`` writes it; each rank attends its own
+time block (``common.partial_attention``) and the partial softmaxes are
+combined by log-sum-exp over the axes that cut the time
+(``ShardingMixin._combine``); each rank then feeds its block of the
+output to its rows of ``wo`` and the partial sums are all-reduced over
+``model``. Over ``data`` at B = 1 every rank computes the same row, so
+under the serve specs only the combine crosses ``data``; train-spec
+blocks are still gathered over it (ZeRO-3).
 """
 from __future__ import annotations
 
@@ -301,7 +305,7 @@ class DenseLM(cm.ShardingMixin, torch.nn.Module):
             specs[f"p{i}"] = cm.kv_cache_spec(mesh, batch, T)
         return specs
 
-    def _decode_attn(self, x, lp, kind, ck, cv, cp, pos, time_cut: bool):
+    def _decode_attn(self, x, lp, kind, ck, cv, cp, pos, time_cut: tuple):
         """One decode attention sub-layer on this rank's blocks of the
         weights and the cache: q, k and v gathered whole over ``model`` in
         one all-gather along the dim the layout cuts (heads for the train

@@ -244,15 +244,16 @@ def reference(inputs):
 # ---------------------------------------------------------------------------
 # the port: four gloo ranks
 # ---------------------------------------------------------------------------
-def _time_cut_over_data_decode(mesh):
-    """gemma-2b's decode at B = 1 over ``mesh``: ``kv_cache_spec`` cuts the
-    cache's time over ``data`` as well as ``model``, which raises (ROADMAP
-    Queue 1 item 6d)."""
-    from repro_torch.configs.registry import build_model
+def _time_cut_over_data_decode() -> float:
+    """gemma-2b's decode at B = 1 over a (1, 2, 2) mesh, whose cache's time
+    ``kv_cache_spec`` cuts over ``data`` as well as ``model`` (once a
+    refusal, ROADMAP Queue 1 item 6d), against the one-device decode
+    (``test_torch_serve_tp._batch_one``): the largest logit difference over
+    the largest logit."""
+    from repro_torch.configs import registry as treg
+    from test_torch_serve_tp import _batch_one
 
-    model = build_model("gemma-2b", mesh, smoke=True)
-    return model.decode_step({}, {}, torch.zeros((1, 1), dtype=torch.int32),
-                             torch.zeros(1, dtype=torch.int32), model.cache_specs(mesh, 1, 16))
+    return _batch_one(treg, "gemma-2b", (1, 2, 2))["rel"]
 
 
 def _port_collectives(rank, root):
@@ -313,10 +314,9 @@ def _port_collectives(rank, root):
         dist.batch_isend_irecv = real
 
     # refusals inside a world of four
+    time_cut = _time_cut_over_data_decode()
     refusals = {}
     for what, call in (
-            ("model_axis", lambda: _time_cut_over_data_decode(
-                make_mesh((1, 2, 2), (POD, DATA, "model"), device="cpu"))),
             ("mesh_over_world", lambda: make_mesh((2, 2, 2), (POD, DATA, "model"),
                                                   device="cpu")),
             ("mesh_under_world", lambda: make_mesh((2,), (DATA,), device="cpu")),
@@ -331,7 +331,8 @@ def _port_collectives(rank, root):
         except (RuntimeError, ValueError, NotImplementedError) as e:
             refusals[what] = f"{type(e).__name__}: {e}"
     np.savez(root / f"port{rank}.npz", **out)
-    (root / f"port{rank}.json").write_text(json.dumps({"sends": counts, "refusals": refusals}))
+    (root / f"port{rank}.json").write_text(json.dumps({"sends": counts, "refusals": refusals,
+                                                       "time_cut": time_cut}))
 
 
 @pytest.fixture(scope="module")
@@ -455,7 +456,6 @@ def test_each_ring_step_carries_n_chunks_messages(kind, nc, port):
 
 
 @pytest.mark.parametrize("what,error,text", [
-    ("model_axis", "NotImplementedError", "ROADMAP Queue 1"),
     ("mesh_over_world", "RuntimeError", "needs 8 devices, have 4"),
     ("mesh_under_world", "RuntimeError", "in a world of 4"),
     ("rs_rows", "ValueError", "6 rows do not split over an axis of 4"),
@@ -463,13 +463,20 @@ def test_each_ring_step_carries_n_chunks_messages(kind, nc, port):
     ("mmrs_rows", "ValueError", "6 rows do not split over an axis of 4"),
 ])
 def test_refusals_inside_a_world_of_four(what, error, text, port):
-    """A decode whose cache time is cut over ``data`` (gemma-2b at B = 1 on
-    a (1, 2, 2) mesh that ``make_mesh`` builds; ROADMAP Queue 1 item 6d),
-    a mesh that is not the world, and shapes the reference asserts on all
+    """A mesh that is not the world and shapes the reference asserts on all
     raise, on every rank."""
     for meta in port[1]:
         msg = meta["refusals"][what]
         assert msg is not None and msg.startswith(error + ":") and text in msg, msg
+
+
+def test_a_time_cut_over_data_decodes_inside_a_world_of_four(port):
+    """Once a refusal (ROADMAP Queue 1 item 6d): gemma-2b's decode at B = 1
+    on a (1, 2, 2) mesh that ``make_mesh`` builds, its cache time cut over
+    ``model`` and ``data``, equals the one-device decode within 2e-5 of the
+    largest logit on every rank."""
+    for meta in port[1]:
+        assert meta["time_cut"] <= 2e-5
 
 
 @pytest.mark.parametrize("depth", [1, 4, 8])

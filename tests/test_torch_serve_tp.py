@@ -38,9 +38,12 @@ serve step and prefill step over (1, 1, 4) return the reference's shapes
 ``test_torch_serve_tp_families``). Without a world: the serve specs,
 ``kv_cache_spec`` and every family's ``cache_specs`` equal the
 reference's entry for entry; the MoE's serve specs are its train specs
-(the reference's ``param_specs`` takes no ``serve``); and a decode whose
-cache time is cut over ``data`` or ``pod`` raises, naming ROADMAP Queue 1
-item 6d. JAX is imported only in the reference's subprocess and in the
+(the reference's ``param_specs`` takes no ``serve``). In the same world, a
+decode whose cache time is cut over ``data`` or ``pod`` (B = 1, once a
+refusal) equals the one-device decode: gemma-2b on (1, 2, 2), (2, 1, 2)
+and (1, 4, 1), recurrentgemma-2b and whisper-large-v3 on (1, 2, 2)
+(``test_torch_serve_time_cut`` holds every family to the reference
+there). JAX is imported only in the reference's subprocess and in the
 spec tests.
 """
 import contextlib
@@ -66,6 +69,8 @@ PREFILLS = [(arch, shape) for arch in ARCHS for shape in SHAPES]
 SERVE_ARGS = ["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--batch", "4",
               "--prompt-len", "6", "--gen", "8", "--seed", "2"]
 MOE_ARCH = "qwen3-moe-30b-a3b"
+BATCH_ONE = [("gemma-2b", shape) for shape in ((1, 2, 2), (2, 1, 2), (1, 4, 1))] + \
+    [(arch, (1, 2, 2)) for arch in ("recurrentgemma-2b", "whisper-large-v3")]
 
 
 def _name(arch, shape, serve):
@@ -254,9 +259,47 @@ def _port_serve(rank, root):
     meta["serve_main"] = {"rows": rows.tolist(), "stdout": buf.getvalue()}
     mesh = make_mesh((1, 1, 4), AXES, device="cpu")
     meta["moe"] = _moe_steps(mesh, treg.build_model(MOE_ARCH, mesh, smoke=True))
+    meta["batch_one"] = {f"{arch}-{'x'.join(map(str, shape))}": _batch_one(treg, arch, shape)
+                         for arch, shape in BATCH_ONE}
     meta["not_contiguous"] = loose
     np.savez(root / f"port{rank}.npz", **out)
     (root / f"port{rank}.json").write_text(json.dumps(meta))
+
+
+def _batch_one(treg, arch, shape) -> dict:
+    """``arch``'s decode at B = 1 over ``shape`` (its cache time cut over
+    ``data`` or ``pod`` too) against the one-device decode of the same
+    seeded weights and tokens (whisper's after ``prefill_cross`` of seeded
+    frames): the largest logit difference over the largest logit."""
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_serve_step
+
+    one = treg.build_model(arch, smoke=True)
+    whole = one.init_params(0, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    tok = torch.randint(0, one.cfg.vocab, (1, S), generator=gen, dtype=torch.int32)
+    audio = torch.randn((1, one.cfg.enc_positions, one.cfg.d_model), generator=gen)
+    mesh = make_mesh(shape, AXES, device="cpu")
+    model = treg.build_model(arch, mesh, smoke=True)
+    pspecs, cspecs = build_serve_step(model, mesh, cell=ShapeCell("d", T, 1, "decode")).specs
+    lgs = {}
+    with torch.no_grad():
+        for tag, m, params, kw in (
+                ("one", one, whole, {}),
+                ("mesh", model, train.shard_state(mesh, whole, pspecs), {"cache_specs": cspecs})):
+            cache = m.init_cache(1, T, device="cpu")
+            if kw:
+                cache = train.shard_state(mesh, cache, cspecs)
+            if arch.startswith("whisper"):
+                cache = m.prefill_cross(params, cache, audio, **kw)
+            lgs[tag] = torch.cat([m.decode_step(params, cache, tok[:, t:t + 1],
+                                                torch.full((1,), t, dtype=torch.int32), **kw)[0]
+                                  for t in range(S)], dim=1)
+    err = (lgs["mesh"] - lgs["one"]).abs().max() / lgs["one"].abs().max()
+    return {"rel": float(err), "time_axes": list(model._time_cut(cspecs[next(
+        k for k in cspecs if k.startswith(("p", "ap")))]))}
 
 
 def _moe_steps(mesh, model) -> dict:
@@ -437,11 +480,6 @@ def test_moe_serve_specs_are_the_reference_train_specs(arch, shape):
         assert tuple(got[key]) == tuple(want[key]), key
 
 
-def _decode_refusal(model, cache_specs=None):
-    return model.decode_step({}, {}, torch.zeros((1, 1), dtype=torch.int32),
-                             torch.zeros((1,), dtype=torch.int32), cache_specs)
-
-
 @pytest.mark.parametrize("what", ["decode", "serve_step", "prefill_step"])
 def test_moe_decode_over_the_model_axis_raises(what, port):
     """Once a refusal (ROADMAP Queue 1 item 6b), now run: qwen3-moe's
@@ -470,12 +508,14 @@ def test_moe_decode_over_the_model_axis_raises(what, port):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b", "whisper-large-v3"])
-def test_other_families_serving_steps_over_the_model_axis_raise(arch):
+def test_other_families_serving_steps_over_the_model_axis_raise(arch, port):
     """Once a refusal (ROADMAP Queue 1 item 6c), now the cut the serving
     steps run on: each family's ``cache_specs`` equals the reference's
-    entry for entry, over the spec meshes, batches and times. What still
-    raises is a time dim cut over ``data`` (B = 1 on (1, 2, 2), item 6d)
-    for the families whose cache has one."""
+    entry for entry, over the spec meshes, batches and times. Once a
+    refusal too (item 6d), now run in the port's world: at B = 1 on
+    (1, 2, 2) the families whose cache has a time dim cut it over
+    ``model`` and ``data``, and their decode equals the one-device
+    decode."""
     from repro.configs import registry as jreg
 
     from repro_torch.configs import registry as treg
@@ -490,25 +530,28 @@ def test_other_families_serving_steps_over_the_model_axis_raise(arch):
                 for key in want:
                     assert tuple(got[key]) == tuple(want[key]), (shape, key, batch, time)
     mesh = _meshes((1, 2, 2))[0]
-    model = treg.build_model(arch, mesh, smoke=True)
-    specs = model.cache_specs(mesh, 1, 16)
+    specs = treg.build_model(arch, mesh, smoke=True).cache_specs(mesh, 1, 16)
     if arch == "mamba2-370m":           # no time dim: every rank holds the row
         assert specs["ssm"][1] is None and specs["conv"][1] is None
-    else:
-        with pytest.raises(NotImplementedError, match="item 6d"):
-            _decode_refusal(model, specs)
+        return
+    for meta in port[1]:
+        got = meta["batch_one"][f"{arch}-1x2x2"]
+        assert got["time_axes"] == ["model", "data"] and got["rel"] <= LOGITS_RTOL, got
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 2), (2, 1, 2), (1, 4, 1)])
-def test_time_cut_over_data_or_pod_raises(shape):
-    """B = 1 on a mesh with pod x data over 1: ``kv_cache_spec`` cuts the
-    time dim over ``data`` or ``pod`` too (long-context decode), which
-    waits for ROADMAP Queue 1 item 6d."""
+def test_time_cut_over_data_or_pod_raises(shape, port):
+    """Once a refusal (ROADMAP Queue 1 item 6d), now run: at B = 1 on a
+    mesh with pod x data over 1, ``kv_cache_spec`` cuts the time dim over
+    ``data`` or ``pod`` too (long-context decode), and gemma-2b's decode
+    over that cache, in the port's world, equals the one-device decode on
+    every rank."""
     from repro_torch.configs import registry as treg
 
     mesh = _meshes(shape)[0]
-    model = treg.build_model("gemma-2b", mesh, smoke=True)
-    specs = model.cache_specs(mesh, 1, 16)
+    specs = treg.build_model("gemma-2b", mesh, smoke=True).cache_specs(mesh, 1, 16)
     assert set(specs["p0"][2]) & {"data", "pod"}
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        _decode_refusal(model, specs)
+    for meta in port[1]:
+        got = meta["batch_one"][f"gemma-2b-{'x'.join(map(str, shape))}"]
+        cut = [a for a in specs["p0"][2] if shape[AXES.index(a)] > 1]
+        assert got["time_axes"] == cut and got["rel"] <= LOGITS_RTOL, got
