@@ -143,8 +143,14 @@ phase alone). In order:
      over one registry cell a family at full depth and batch (gemma-2b
      train_4k, qwen3-moe decode_32k, mamba2 long_500k, recurrentgemma-2b
      prefill_32k, whisper decode_32k, internvl2-2b train_4k): none may
-     fail, each peak printed against the card's memory; then a ``--mesh
-     single`` cell must record the production mesh's ``RuntimeError``;
+     fail, each peak printed against the card's memory; then ``--mesh
+     both --no-probes`` over ``DRYRUN_MESH`` (two of those cells) on the
+     production meshes, this process as rank 0 of a fake world of 256 or
+     512 ranks, once on fake card tensors and once on fake host tensors:
+     no cell may fail, each must record collectives, and FLOPs, argument
+     and output bytes and collectives must be equal on both devices; one
+     ``dryrun mesh`` line a cell (argument and peak GB a rank, TFLOP,
+     collective GB by group size), and no world left after them;
  16. the four-card phase ``collectives`` (``collectives_path``): with fewer
      than four cards it prints ``collectives: not run, needs 4 cards, N
      visible`` and runs nothing in its place (NCCL refuses two ranks on one
@@ -1182,6 +1188,11 @@ DRYRUN_PEAK_REL = 0.10           # the walk's peak against max_memory_allocated 
 DRYRUN_FULL = [("gemma-2b", "train_4k"), ("qwen3-moe-30b-a3b", "decode_32k"),
                ("mamba2-370m", "long_500k"), ("recurrentgemma-2b", "prefill_32k"),
                ("whisper-large-v3", "decode_32k"), ("internvl2-2b", "train_4k")]
+# DRYRUN_FULL's cells walked on both production meshes, on the card's fake tensors
+# and the host's: four walks a cell (gemma-2b's train cell ~100 s of them, whisper's
+# decode ~25 s on the card's host), so the other four are left out to hold the part
+# near 120 s (``launch.dryrun --all --mesh both --device cpu`` walks every cell)
+DRYRUN_MESH = [("gemma-2b", "train_4k"), ("whisper-large-v3", "decode_32k")]
 
 
 class host_digests_raise:
@@ -2068,9 +2079,14 @@ def dryrun_path(device, reset, counts) -> dict:
     prefill cell's batch is halved until its walk's peak is under
     ``DRYRUN_PREFILL_MAX_BYTES``. (b) ``dryrun.main`` over ``DRYRUN_FULL``
     (one cell a family, full depth, the registry's batch, ``--mesh one
-    --no-probes``): no cell may fail; then a ``--mesh single`` cell must
-    record the production mesh's ``RuntimeError``."""
+    --no-probes``): no cell may fail. (c) ``dryrun.main --mesh both
+    --no-probes`` over ``DRYRUN_MESH`` on fake card tensors, then on fake
+    host tensors: no cell may fail, each records collectives, and the two
+    devices' FLOPs, argument and output bytes and collectives are equal;
+    no process group is left after them."""
     import tempfile
+
+    import torch.distributed as dist
 
     from repro_torch.launch import dryrun
 
@@ -2113,21 +2129,41 @@ def dryrun_path(device, reset, counts) -> dict:
     t1 = time.perf_counter()
     path = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"), "dryrun.json")
     for arch, shape in DRYRUN_FULL:
-        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "one", "--no-probes",
-                     "--device", "cuda", "--out", path])
-    single = dryrun.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--mesh", "single",
-                          "--no-probes", "--device", "cuda", "--out", path])
+        one = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "one", "--no-probes",
+                           "--device", "cuda", "--out", path])
     for arch, shape in DRYRUN_FULL:
-        rec = single[f"{arch}|{shape}|one|auto|mb0"]
+        rec = one[f"{arch}|{shape}|one|auto|mb0"]
         check("error" not in rec, f"dryrun {arch} {shape} walked: {rec.get('error')}")
         out["full"][f"{arch}|{shape}"] = {k: rec[k] for k in (
             "flops_per_device", "bytes_accessed", "argument_bytes", "output_bytes",
             "temp_bytes", "peak_bytes", "walk_s", "microbatches")}
-    err = single["gemma-2b|decode_32k|single|auto|mb0"].get("error", "")
-    check(err.startswith("RuntimeError: need 256 devices"),
-          f"the single-pod mesh recorded its RuntimeError: {err!r}")
-    out["single_error"] = err
     out["full_s"] = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        dev_path = os.path.join(os.path.dirname(path), f"dryrun_mesh_{dev}.json")
+        for arch, shape in DRYRUN_MESH:
+            recs[dev] = dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "both",
+                                     "--no-probes", "--device", dev, "--out", dev_path])
+    check(not dist.is_initialized(), "no world is left after the production walks")
+    out["mesh"] = {}
+    for arch, shape in DRYRUN_MESH:
+        for mk in ("single", "multi"):
+            key = f"{arch}|{shape}|{mk}|auto|mb0"
+            card, host = recs["cuda"][key], recs["cpu"][key]
+            what = f"dryrun mesh {arch} {shape} {mk}"
+            check("error" not in card and "error" not in host,
+                  f"{what} walked: {card.get('error')} / {host.get('error')}")
+            check(card["collectives"]["n_ops"] > 0, f"{what} recorded collectives")
+            for k in ("flops_per_device", "argument_bytes", "output_bytes", "collectives"):
+                check(card[k] == host[k], f"{what}: {k} on the card {card[k]} == host {host[k]}")
+            out["mesh"][f"{arch}|{shape}|{mk}"] = {
+                **{k: card[k] for k in ("devices", "flops_per_device", "argument_bytes",
+                                        "output_bytes", "temp_bytes", "peak_bytes",
+                                        "collectives", "microbatches")},
+                "walk_s": card["walk_s"], "host_walk_s": host["walk_s"]}
+    out["mesh_s"] = time.perf_counter() - t2
     torch.cuda.synchronize(device)
     out["launches"] = counts()
     out["seconds"] = time.perf_counter() - t0
@@ -4846,7 +4882,7 @@ def print_collectives(coll: dict, smi: str) -> None:
     print("collectives " + json.dumps(coll))
 
 
-CARD_PARTS = ("serve_long", "remat")   # one-card phases that --phases also runs alone
+CARD_PARTS = ("serve_long", "remat", "dryrun")   # one-card phases --phases also runs alone
 
 
 def long_and_remat(seed: int, device, smi: str, parts) -> None:
@@ -4874,6 +4910,36 @@ def long_and_remat(seed: int, device, smi: str, parts) -> None:
         print(f"remat: {rem['arch']} {rem['layers']} layers, seq {rem['seq']}, batch "
               f"{rem['batch']}: {modes}; dots' losses bit-equal to full's: "
               f"{rem['dots_losses_bit_equal_full']} [{smi}]")
+    sys.stdout.flush()
+
+
+def print_dryrun(dry: dict, smi: str, props) -> None:
+    """The dry-run phase's JSON and lines."""
+    print("dryrun " + json.dumps(dry))
+    for r in dry["checked"]:
+        w, c = r["walk"], r["card"]
+        print(f"dryrun {r['cell']}: {r['arch']} {r['layers']} layers, batch {r['batch']}: "
+              f"{c['flops_per_device'] / 1e12:.2f} TFLOP (walk = card), argument "
+              f"{c['argument_bytes'] / 1e9:.3f} GB (walk = card), peak walk "
+              f"{w['peak_bytes'] / 1e9:.3f} GB / card {c['peak_bytes'] / 1e9:.3f} GB "
+              f"({100 * r['peak_rel_err']:+.2f}%), {r['step_ms']:.2f} ms a step, "
+              f"{100 * r['flop_share']:.1f}% of {BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s [{smi}]")
+    for key, r in dry["full"].items():
+        print(f"dryrun full {key}: peak {r['peak_bytes'] / 1e9:.2f} GB of "
+              f"{props.total_memory / 1e9:.2f} GB on the card, "
+              f"{r['flops_per_device'] / 1e12:.2f} TFLOP, {r['bytes_accessed'] / 1e12:.2f} TB "
+              f"accessed, walked in {r['walk_s']:.1f} s")
+    for key, r in dry["mesh"].items():
+        c = r["collectives"]
+        groups = ", ".join(f"{g}: {b / 1e9:.3f}" for g, b in sorted(
+            c["by_group_size"].items(), key=lambda kv: int(kv[0])))
+        print(f"dryrun mesh {key}: rank 0 of {r['devices']}, argument "
+              f"{r['argument_bytes'] / 1e9:.3f} GB, peak {r['peak_bytes'] / 1e9:.3f} GB a rank, "
+              f"{r['flops_per_device'] / 1e12:.2f} TFLOP, {c['n_ops']} collectives, GB by group "
+              f"size {{{groups}}} (walk counts, equal on card and host tensors), walked in "
+              f"{r['walk_s']:.1f} s (card) / {r['host_walk_s']:.1f} s (host) [{smi}]")
+    print(f"dryrun: checked {dry['checked_s']:.1f} s, full-depth walks {dry['full_s']:.1f} s, "
+          f"production meshes {dry['mesh_s']:.1f} s, phase {dry['seconds']:.1f} s")
     sys.stdout.flush()
 
 
@@ -5066,22 +5132,7 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     del srv, srv_moe, srv_grok, srv_ssm, srv_hyb, srv_enc, srv_vlm, pre_vlm
     long_and_remat(seed, device, smi, ("serve_long", "remat"))
     dry = dryrun_path(device, reset, counts)
-    print("dryrun " + json.dumps(dry))
-    for r in dry["checked"]:
-        w, c = r["walk"], r["card"]
-        print(f"dryrun {r['cell']}: {r['arch']} {r['layers']} layers, batch {r['batch']}: "
-              f"{c['flops_per_device'] / 1e12:.2f} TFLOP (walk = card), argument "
-              f"{c['argument_bytes'] / 1e9:.3f} GB (walk = card), peak walk "
-              f"{w['peak_bytes'] / 1e9:.3f} GB / card {c['peak_bytes'] / 1e9:.3f} GB "
-              f"({100 * r['peak_rel_err']:+.2f}%), {r['step_ms']:.2f} ms a step, "
-              f"{100 * r['flop_share']:.1f}% of {BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s [{smi}]")
-    for key, r in dry["full"].items():
-        print(f"dryrun full {key}: peak {r['peak_bytes'] / 1e9:.2f} GB of "
-              f"{props.total_memory / 1e9:.2f} GB on the card, "
-              f"{r['flops_per_device'] / 1e12:.2f} TFLOP, {r['bytes_accessed'] / 1e12:.2f} TB "
-              f"accessed, walked in {r['walk_s']:.1f} s")
-    print(f"dryrun: checked {dry['checked_s']:.1f} s, full-depth walks {dry['full_s']:.1f} s, "
-          f"phase {dry['seconds']:.1f} s; single-pod mesh: {dry['single_error']}")
+    print_dryrun(dry, smi, props)
     check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     # each kernel's launches over every main-path run
     runs = [mpath["launches"], ckpt["launches"], svc["launches"],
@@ -5173,6 +5224,10 @@ def main() -> int:
         kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
     elif phases & set(CARD_PARTS):
         long_and_remat(args.seed, device, smi, phases)
+        if "dryrun" in phases:
+            dry = dryrun_path(device, reset, counts)
+            print_dryrun(dry, smi, props)
+            check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     if phases & set(COLL_PARTS):
         parts = COLL_PARTS if "collectives" in phases else tuple(
             p for p in COLL_PARTS if p in phases)

@@ -1,22 +1,31 @@
 """Dry run: walk every (arch x shape x mesh) cell on a fake device.
 
-Twin of ``repro.launch.dryrun`` for the port's world. For each cell it:
-  1. builds the mesh: kind "one" is the port's world of one device
-     (``make_host_mesh((1, 1))``); "single" (16x16) and "multi" (2x16x16)
-     are the reference's production meshes and raise on fewer devices,
-  2. builds the step (train_step / prefill / serve_step) with full config,
+Twin of ``repro.launch.dryrun``. For each cell it:
+  1. builds the mesh: kind "one" is this process alone
+     (``make_host_mesh((1, 1))``); "single" (16x16 over data x model) and
+     "multi" (2x16x16 over pod x data x model) are the reference's
+     production meshes, built with this process as rank 0 of a fake world
+     of 256 or 512 ranks (``launch.mesh.fake_world``: torch's fake process
+     group, whose collectives return at once and move nothing); the cell's
+     build, walk and probes run inside that world, which is gone when the
+     cell ends, even if it raised,
+  2. builds the step (train_step / prefill / serve_step) with full config;
+     its arguments are rank 0's blocks (``StepBundle.in_shapes``: the
+     reference's per-device shard shapes),
   3. walks it once (``walk``): ``bundle.fn`` runs on fake tensors made from
      ``bundle.in_shapes`` under ``FakeTensorMode`` on the device, so a step
-     of any size allocates nothing; ``FlopCounterMode`` counts its FLOPs
-     and a dispatch mode of this module (``_LiveBytes``) the bytes its
-     storages hold and the bytes its ops touch,
+     of any size allocates nothing; ``FlopCounterMode`` counts its FLOPs,
+     and two dispatch modes of this module the bytes its storages hold and
+     its ops touch (``_LiveBytes``) and the collectives it issues
+     (``_Collectives``),
   4. records the reference's ``_analyze`` keys, with ``walk_s`` in place of
      ``lower_s`` and ``compile_s``,
   5. walks reduced-layer probes and extrapolates them (``_reconstruct``).
      Eager runs every layer, so on the port the probes check
      ``_with_layers`` and the accounting rather than recover loop bodies.
 
-What the numbers mean:
+What the numbers mean (counts of one rank's step, the same on any device;
+not timings):
   flops_per_device  matmul FLOPs only (``FlopCounterMode``'s rule: mm, bmm,
                     addmm, baddbmm, convolutions, attention), not XLA's
                     count of every op.
@@ -31,9 +40,13 @@ What the numbers mean:
                     its outputs included, each storage rounded up to the
                     CUDA caching allocator's 512-byte blocks.
   peak_bytes        argument_bytes + temp_bytes.
-  collectives       the reference's schema; on a world of one device every
-                    kind is 0. ``collective_bytes`` is the reference's ring
-                    accounting over ``(kind, nbytes, group_size)`` records.
+  collectives       the reference's schema, from one ``(kind, nbytes,
+                    group_size)`` record a c10d op the step issues (its
+                    result's bytes, its group's size) through
+                    ``collective_bytes``, the reference's ring accounting.
+                    These are the port's explicit collectives, not the ones
+                    GSPMD picks for the reference: the bytes by kind differ
+                    from its HLO's; a world of one device records none.
 
 ``measure`` runs the same bundle for real on the card and returns the same
 keys plus ``step_ms``. Nothing happens at import: no environment variable
@@ -41,11 +54,13 @@ is set and no device is touched.
 
 Usage (the card by default; ``--device cpu`` walks fake host tensors):
   python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
-  python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+  python -m repro_torch.launch.dryrun --all --mesh both --device cpu \
+      --out results/dryrun_torch.json
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -54,13 +69,14 @@ import traceback
 import weakref
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.registry import ARCHS, SHAPES, get_config, skip_reason
 from repro_torch.distributed.mesh import available_devices
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import fake_world, make_host_mesh, make_production_mesh
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 ALLOC_BLOCK = 512     # the CUDA caching allocator rounds every block up to this
@@ -115,7 +131,8 @@ def collective_bytes(records) -> dict:
         out[kind] += nbytes * factor
         out["n_ops"] += 1
         # bucket by participant-group size: on the production meshes, group
-        # size 2 == the pod axis, 16 == data or model
+        # size 2 == the pod axis, 16 == data or model, 32 == pod x data,
+        # 256 or 512 == the world (a batch-1 cache's time cut over every axis)
         gk = str(n)
         out["by_group_size"][gk] = out["by_group_size"].get(gk, 0.0) + nbytes * factor
     return out
@@ -160,11 +177,39 @@ class _LiveBytes(TorchDispatchMode):
         return out
 
 
+# c10d's ops -> the reference's kinds; a ring hop counts once, at its send
+# (``recv_`` is left out), as XLA's collective-permute is one op
+_C10D_KINDS = {
+    "allreduce_": "all-reduce", "allgather_": "all-gather", "_allgather_base_": "all-gather",
+    "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "alltoall_base_": "all-to-all", "send": "collective-permute",
+}
+
+
+class _Collectives(TorchDispatchMode):
+    """One ``(kind, nbytes, group_size)`` record a collective the step
+    issues: ``nbytes`` its result's bytes (the first argument of a c10d op
+    is what it writes, or for a send what it sends), ``group_size`` the size
+    of the process group it runs over."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list[tuple[str, int, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kind = _C10D_KINDS.get(func._opname) if func.namespace == "c10d" else None
+        if kind is not None:
+            group = next(a for a in args if isinstance(a, torch.ScriptObject))
+            nbytes = sum(t.nbytes for t in _tensors(args[0]))
+            self.records.append((kind, nbytes, dist.ProcessGroup.unbox(group).size()))
+        return func(*args, **(kwargs or {}))
+
+
 def _account(fn, args) -> dict:
     """Run ``fn(*args)`` once under the counters; the ``_analyze`` record."""
     inputs = list(_tensors(args))
-    live = _LiveBytes(inputs)
-    with FlopCounterMode(display=False) as flops, live:
+    live, colls = _LiveBytes(inputs), _Collectives()
+    with FlopCounterMode(display=False) as flops, live, colls:
         out = fn(*args)
     arg_bytes = sum(t.nbytes for t in inputs)
     return {
@@ -174,7 +219,7 @@ def _account(fn, args) -> dict:
         "output_bytes": int(sum(t.nbytes for t in _tensors(out))),
         "temp_bytes": int(live.peak),
         "peak_bytes": int(arg_bytes + live.peak),
-        "collectives": collective_bytes(()),
+        "collectives": collective_bytes(colls.records),
     }
 
 
@@ -267,45 +312,55 @@ def _reconstruct(full: dict, probes: dict[int, dict], arch: str, family: str,
 # ---------------------------------------------------------------------------
 # cells
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
 def _mesh(mesh_kind: str, device):
+    """The cell's mesh: this process alone for "one"; for "single" and
+    "multi", the production mesh with this process as rank 0 of a fake
+    world of 256 or 512 ranks, destroyed on the way out."""
     if mesh_kind == "one":
-        return make_host_mesh((1, 1), device=device)
-    return make_production_mesh(multi_pod=mesh_kind == "multi", device=device)
+        yield make_host_mesh((1, 1), device=device)
+        return
+    multi = mesh_kind == "multi"
+    with fake_world(512 if multi else 256, device):
+        yield make_production_mesh(multi_pod=multi, device=device)
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str = "one", *, device="cuda",
              sync_mode: str = "auto", microbatches: int = 1, probes: bool = True,
              cfg_overrides: dict | None = None,
              weight_stationary: bool = False) -> dict:
+    """One cell's record: its build, its walk and its probes, on a
+    production mesh inside that mesh's fake world (gone when this returns
+    or raises)."""
     from repro_torch.launch.steps import build_cell
 
-    mesh = _mesh(mesh_kind, device)
-    rec: dict = {
-        "arch": arch, "shape": shape, "mesh": mesh_kind, "devices": mesh.size,
-        "sync_mode": sync_mode, "microbatches": microbatches,
-        "cfg_overrides": cfg_overrides, "weight_stationary": weight_stationary,
-    }
-    t0 = time.perf_counter()
-    kw = dict(cfg_overrides=cfg_overrides, weight_stationary=weight_stationary)
-    bundle = build_cell(arch, shape, mesh, sync_mode=sync_mode,
-                        microbatches=microbatches, **kw)
-    rec.update(walk(bundle, mesh.device))
-    rec["walk_s"] = round(time.perf_counter() - t0, 1)
+    with _mesh(mesh_kind, device) as mesh:
+        rec: dict = {
+            "arch": arch, "shape": shape, "mesh": mesh_kind, "devices": mesh.size,
+            "sync_mode": sync_mode, "microbatches": microbatches,
+            "cfg_overrides": cfg_overrides, "weight_stationary": weight_stationary,
+        }
+        t0 = time.perf_counter()
+        kw = dict(cfg_overrides=cfg_overrides, weight_stationary=weight_stationary)
+        bundle = build_cell(arch, shape, mesh, sync_mode=sync_mode,
+                            microbatches=microbatches, **kw)
+        rec.update(walk(bundle, mesh.device))
+        rec["walk_s"] = round(time.perf_counter() - t0, 1)
 
-    cfg = bundle.model.cfg
-    rec["param_count"] = cfg.param_count()
-    rec["active_param_count"] = cfg.active_param_count()
+        cfg = bundle.model.cfg
+        rec["param_count"] = cfg.param_count()
+        rec["active_param_count"] = cfg.active_param_count()
 
-    if probes:
-        fam = cfg.family
-        probe_res = {}
-        for L in _probe_layers(arch, fam):
-            b2 = build_cell(arch, shape, mesh, sync_mode=sync_mode,
-                            microbatches=1, layers_override=L, **kw)
-            probe_res[L] = walk(b2, mesh.device)
-        rec["extrapolated"] = _reconstruct(rec, probe_res, arch, fam, cfg.n_layers)
-        rec["probes"] = {str(k): v for k, v in probe_res.items()}
-    return rec
+        if probes:
+            fam = cfg.family
+            probe_res = {}
+            for L in _probe_layers(arch, fam):
+                b2 = build_cell(arch, shape, mesh, sync_mode=sync_mode,
+                                microbatches=1, layers_override=L, **kw)
+                probe_res[L] = walk(b2, mesh.device)
+            rec["extrapolated"] = _reconstruct(rec, probe_res, arch, fam, cfg.n_layers)
+            rec["probes"] = {str(k): v for k, v in probe_res.items()}
+        return rec
 
 
 def main(argv=None) -> dict:

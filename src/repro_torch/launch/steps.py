@@ -36,9 +36,14 @@ pod x data does not divide, the time over ``data`` and ``pod`` too);
 ``launch.train.shard_state``.
 
 ``StepBundle.in_shapes`` holds the step's arguments as meta tensors (shape
-and dtype, no storage), the reference's ``ShapeDtypeStruct``s: the dry run
-(``launch.dryrun``) walks a step on fake tensors made from them. The port
-carries no shardings: each rank's tensors are its own blocks.
+and dtype, no storage): the dry run (``launch.dryrun``) walks a step on
+fake tensors made from them. The port carries no shardings: each rank's
+tensors are its own blocks, so over a mesh of more than one rank
+``in_shapes`` holds this rank's blocks, leaf by leaf the reference's
+``in_shardings[i].shard_shape(in_shapes[i].shape)``: the params (and AdamW
+state) under the step's param specs, a decode cache under its
+``cache_specs``, the batch's rows over pod x data (a decode step's tokens
+and positions only where pod x data divides the batch, else whole).
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs.registry import SHAPES, ShapeCell, build_model
 from repro_torch.distributed.fsdp import cross_pod_mean
 from repro_torch.distributed.mesh import DATA, MODEL, POD, axis_size, cut_axes, shard
+from repro_torch.models.common import cache_batch_spec
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -80,12 +86,27 @@ def _param_shapes(model) -> Any:
     return tree_map(_meta, params)
 
 
-def _batch_shapes(model, cell: ShapeCell) -> dict:
-    """The train/prefill batch of ``cell`` as meta tensors: tokens (B, S+1)
-    for train, (B, S) otherwise; a vlm's ``vis_embed`` takes
-    ``n_vis_tokens`` of the positions, an encdec adds ``audio_embed``."""
+def _blocks(mesh, tree, specs):
+    """This rank's blocks of a tree of meta tensors under ``specs`` (the
+    tree itself on a mesh of one device, or without one)."""
+    if mesh is None or mesh.size == 1:
+        return tree
+    return tree_map(lambda t, s: shard(mesh, t, s), tree, specs)
+
+
+def _rows(mesh) -> int:
+    """The blocks a batch's rows are cut into: pod x data (1 without a mesh)."""
+    return 1 if mesh is None else axis_size(mesh, POD) * axis_size(mesh, DATA)
+
+
+def _batch_shapes(model, cell: ShapeCell, mesh=None) -> dict:
+    """This rank's rows of the train/prefill batch of ``cell`` as meta
+    tensors (the rows cut over pod x data, the reference's
+    ``_batch_specs``): tokens (B, S+1) for train, (B, S) otherwise; a vlm's
+    ``vis_embed`` takes ``n_vis_tokens`` of the positions, an encdec adds
+    ``audio_embed``."""
     cfg = model.cfg
-    B, S = cell.global_batch, cell.seq_len
+    B, S = cell.global_batch // _rows(mesh), cell.seq_len
     meta = dict(device="meta")
     shapes: dict[str, torch.Tensor] = {}
     tok_len = S + 1 if cell.kind == "train" else S
@@ -186,8 +207,8 @@ def build_train_step(
 
     p_shapes = _param_shapes(model)
     if sharded is not None:          # this rank's blocks over data and model
-        p_shapes = tree_map(lambda t, s: shard(mesh, t, s), p_shapes, model.param_specs(mesh))
-    shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell))
+        p_shapes = _blocks(mesh, p_shapes, model.param_specs(mesh))
+    shapes = (p_shapes, adamw.init(p_shapes, ocfg), _batch_shapes(model, cell, mesh))
     return StepBundle(step, model, "train", shapes)
 
 
@@ -258,7 +279,12 @@ def build_prefill_step(model, mesh=None, *, cell: ShapeCell | None = None) -> St
         params = model._zero_top(params)
         return model._unembed(params, hidden(params, batch)[:, -1:])
 
-    shapes = None if cell is None else (_param_shapes(model), _batch_shapes(model, cell))
+    shapes = None
+    if cell is not None:
+        p_shapes = _param_shapes(model)
+        if mesh is not None and mesh.size > 1:
+            p_shapes = _blocks(mesh, p_shapes, model.param_specs(mesh))
+        shapes = (p_shapes, _batch_shapes(model, cell, mesh))
     return StepBundle(prefill, model, "prefill", shapes)
 
 
@@ -295,9 +321,11 @@ def build_serve_step(model, mesh=None, *, cell: ShapeCell | None = None,
     shapes = None
     if cell is not None:
         B, T = cell.global_batch, cell.seq_len
-        shapes = (_param_shapes(model), model.init_cache(B, T, device="meta"),
-                  torch.empty((B, 1), dtype=torch.int32, device="meta"),
-                  torch.empty((B,), dtype=torch.int32, device="meta"))
+        b = B if mesh is None or cache_batch_spec(mesh, B) is None else B // _rows(mesh)
+        shapes = (_blocks(mesh, _param_shapes(model), pspecs),
+                  _blocks(mesh, model.init_cache(B, T, device="meta"), cspecs),
+                  torch.empty((b, 1), dtype=torch.int32, device="meta"),
+                  torch.empty((b,), dtype=torch.int32, device="meta"))
     return StepBundle(serve_step, model, "decode", shapes, (pspecs, cspecs))
 
 

@@ -17,7 +17,6 @@ in this worker sees it.
 import dataclasses
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -371,13 +370,24 @@ def test_main_writes_the_reference_keys_and_skips_cached_cells(tmp_path, capsys)
     assert "[skip-cached] mamba2-370m|long_500k|one|auto|mb0" in capsys.readouterr().out
 
 
-def test_main_records_a_production_mesh_error(tmp_path, capsys):
+def test_main_walks_both_production_meshes(tmp_path, capsys):
+    """``--mesh both``: one cell on 16x16 and on 2x16x16, each as rank 0 of
+    its fake world, with the reference's keys and the collectives counted;
+    no world is left after it."""
+    import torch.distributed as dist
+
     out = str(tmp_path / "dry.json")
-    res = tdr.main(["--arch", "gemma-2b", "--shape", "decode_32k", "--mesh", "single",
+    res = tdr.main(["--arch", "mamba2-370m", "--shape", "long_500k", "--mesh", "both",
                     "--device", "cpu", "--out", out, "--no-probes"])
-    err = res["gemma-2b|decode_32k|single|auto|mb0"]["error"]
-    assert re.match(r"RuntimeError: need 256 devices for mesh \(16, 16\), have 1", err)
-    assert capsys.readouterr().out.splitlines()[-1] == f"done: 1 cells, 1 errors -> {out}"
+    assert capsys.readouterr().out.splitlines()[-1] == f"done: 2 cells, 0 errors -> {out}"
+    for mk, n in (("single", 256), ("multi", 512)):
+        rec = res[f"mamba2-370m|long_500k|{mk}|auto|mb0"]
+        keys = REF_RECORD - {"lower_s", "compile_s", "extrapolated", "probes"}
+        assert set(rec) == keys | {"walk_s"} | _ref_analysis_keys()
+        assert rec["mesh"] == mk and rec["devices"] == n
+        assert rec["collectives"]["n_ops"] > 0
+        assert set(rec["collectives"]) == set(_jdryrun().collective_bytes("", 1))
+    assert not dist.is_initialized()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where there is no card")
