@@ -2,15 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases card,collectives|serve_long|remat|expert_axis|family_model_axis|zero_axis|
-                  serve_model_axis|serve_families]
+        [--phases card,collectives|stripes|serve_long|remat|dryrun|expert_axis|
+                  family_model_axis|zero_axis|serve_model_axis|serve_families]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
-the one-card phases alone; ``serve_long`` and ``remat`` run that one-card
-phase alone; ``expert_axis``, ``family_model_axis``, ``zero_axis``,
-``serve_model_axis`` and ``serve_families`` run that part of the four-card
-phase alone). In order:
+the one-card phases alone; ``stripes``, ``serve_long``, ``remat`` and
+``dryrun`` run that one-card part alone; ``expert_axis``,
+``family_model_axis``, ``zero_axis``, ``serve_model_axis`` and
+``serve_families`` run that part of the four-card phase alone). In order:
 
   1. prints the card: torch's device name, and nvidia-smi's name and power
      limit (every number below is this card's, at that limit);
@@ -29,7 +29,19 @@ phase alone). In order:
   5. flips one bit of one chunk's first landing in a short transfer, once
      with 8 MiB chunks (fused drain) and once with 32 MiB chunks (over the
      engine's fuse_max_bytes: the per-job verify on the card): the deferred
-     verifier must catch it and exactly one re-fetch heal it;
+     verifier must catch it and exactly one re-fetch heal it; then the
+     striped transfers (``stripes_path``), every host digest patched to
+     raise and each case's launches counted from 0: a 2 GiB payload in
+     256 MiB chunks at 4 stripes of 64 MiB (over fuse_max_bytes: every
+     stripe verified per job in ``checksum_words``) and in 32 MiB chunks at
+     stripes of 8 MiB (the fused drain's rows in ``checksum_many_words``);
+     one bit flipped in one stripe's first landing, healed by one re-fetch
+     of that stripe; a kill after 6 journaled stripes (serial, one mover)
+     restarted on the same journal with no journaled byte re-moved; the
+     tuner's stripe ladder (1, 2, 4) with the chunk size pinned (at least
+     one stripe re-plan); and a striped service task (4 stripes, 256 MiB
+     chunks) between 1 GiB files on local disk. Each digest must equal the
+     host's and each destination its payload;
   6. the fused matmul + digest at mistral-nemo-12b's width (d_model 5120,
      d_ff 14336): the up-projection weight A (14336, 5120) bf16 times 4096
      tokens of activations B (5120, 4096) bf16. The kernel's residues must
@@ -294,6 +306,19 @@ RELAY_BYTES = 1 * GiB            # the relay's payload, 8 MiB chunks, 3 hops
 RELAY_TUNED_BYTES = 256 * MiB    # the tuned relay (granule hops)
 RELAY_CHUNK = 8 * MiB
 RELAY_GRANULE_MIN = 1 * MiB
+STRIPE_BYTES = 2 * GiB           # the striped transfers' payload
+STRIPE_CHUNK = 256 * MiB         # large chunks: 4 stripes of 64 MiB, over fuse_max_bytes
+STRIPE_FUSED_CHUNK = 32 * MiB    # 4 stripes of 8 MiB: equal, tile-aligned, fused
+STRIPE_COUNT = 4
+STRIPE_MIN = 16 * MiB
+STRIPE_FUSED_MIN = 8 * MiB       # lets a 32 MiB chunk cut into 4
+STRIPE_FLIP_BYTES = 512 * MiB    # the flipped-stripe transfer: 2 chunks, 8 stripes
+STRIPE_KILL_BYTES = 1 * GiB      # the killed transfer: 4 chunks, 16 stripes
+STRIPE_SURVIVORS = 6             # stripes journaled before the kill
+STRIPE_LADDER = (1, 2, 4)
+STRIPE_LADDER_BYTES = 1 * GiB    # the tuned transfer: 16 chunks of 64 MiB
+STRIPE_LADDER_CHUNK = 64 * MiB
+STRIPE_SERVICE_BYTES = 1 * GiB   # the service's striped file on local disk
 
 SOURCES = {
     "checksum_words": "src/repro_torch/kernels/csrc/checksum.cu",
@@ -522,6 +547,282 @@ def flipped_landing(seed: int, device, chunk_bytes: int = CHUNK_BYTES) -> dict:
             "refetches": rep.refetches, "quarantined": len(rep.quarantined),
             "device_jobs": stats.device_jobs, "fused_jobs": stats.fused_jobs,
             "detail": rep.quarantined[0].detail}
+
+
+def stripes_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 2b: striped large-chunk transfers on ``device``, every
+    host digest patched to raise while each case runs, its launches counted
+    from 0. (1) 256 MiB chunks in 4 stripes of 64 MiB, over the engine's
+    fuse_max_bytes, so each stripe verifies per job in ``checksum_words``;
+    (2) 32 MiB chunks in stripes of 8 MiB, fused in ``checksum_many_words``;
+    (3) one bit flipped in one stripe's first landing, healed by one re-fetch
+    of that stripe; (4) a kill after 6 journaled stripes (serial, one
+    mover), restarted on the same journal; (5) the tuner's stripe ladder
+    with the chunk size pinned; (6) a striped service task between files on
+    local disk. Returns each case's numbers and the part's launches."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from repro_torch.core import (BufferDest, BufferSource, ChunkedTransfer, ChunkJournal,
+                                  fingerprint_bytes, merge_all, plan_chunks)
+    from repro_torch.core.transfer import STRIPE_INDEX_BASE
+    from repro_torch.service import ServiceConfig, TransferService
+    from repro_torch.tune import ChunkController
+
+    t_part = time.perf_counter()
+    payload = np.random.default_rng(seed + 11).bytes(STRIPE_BYTES)
+    # host digests of each STRIPE_CHUNK block; a prefix's is their merge
+    blocks = [fingerprint_bytes(payload[o:o + STRIPE_CHUNK])
+              for o in range(0, STRIPE_BYTES, STRIPE_CHUNK)]
+
+    def host(nbytes):
+        return merge_all(blocks[:nbytes // STRIPE_CHUNK])
+
+    setup_s = time.perf_counter() - t_part
+    cases, launches = {}, {}
+
+    def run(name, fn):
+        """One case with the counts at 0 and every host digest raising."""
+        sync(device)
+        reset()
+        t0 = time.perf_counter()
+        with host_digests_raise():
+            out = fn()
+        sync(device)
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = counts()
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        cases[name] = out
+        extra = "".join(f", {k} {out[k]}" for k in ("device_jobs", "fused_jobs", "skipped",
+                                                    "refetches", "stripe_replans") if k in out)
+        print(f"stripes {name}: {out['bytes'] / GiB:.2f} GiB in {out['seconds']:.3f} s "
+              f"({out['GBps']:.2f} GB/s), {out['stripes']} stripes, {out['striped_chunks']} "
+              f"striped chunks{extra}; launches {out['launches']}")
+        sys.stdout.flush()
+        return out
+
+    def engine(nbytes, chunk, dst, **kw):
+        plan = plan_chunks(nbytes, kw.pop("movers", 8), min_chunk=chunk, max_chunk=chunk)
+        check(plan.n_chunks == nbytes // chunk, f"plan of {nbytes // chunk} chunks")
+        kw.setdefault("stripes", STRIPE_COUNT)
+        kw.setdefault("stripe_min_bytes", STRIPE_MIN)
+        xfer = ChunkedTransfer(BufferSource(memoryview(payload)[:nbytes]), dst, plan,
+                               device=device, **kw)
+        return plan, xfer
+
+    def numbers(nbytes, rep, stats=None):
+        out = {"bytes": nbytes, "seconds": rep.seconds, "GBps": nbytes / rep.seconds / 1e9,
+               "stripes": rep.stripes, "striped_chunks": rep.striped_chunks,
+               "stripe_replans": rep.stripe_replans, "work_items": len(rep.outcomes)}
+        if stats is not None:
+            out.update(device_jobs=stats.device_jobs, fused_jobs=stats.fused_jobs,
+                       fused_batches=stats.fused_batches, device_rows=stats.device_rows,
+                       host_rows=stats.host_rows, per_job=stats.per_job)
+        return out
+
+    # (1) large chunks: every 64 MiB stripe verified per job on the card
+    def large():
+        dst = BufferDest(STRIPE_BYTES)
+        plan, xfer = engine(STRIPE_BYTES, STRIPE_CHUNK, dst, pipeline="pipelined",
+                            integrity_workers=2)
+        rep = xfer.run()
+        stats = xfer.integrity_stats
+        n_stripes = plan.n_chunks * STRIPE_COUNT
+        check(rep.file_digest == host(STRIPE_BYTES), "large stripes: digest equals the host's")
+        check(dst.buf == payload, "large stripes: destination equals the payload")
+        check(rep.striped_chunks == plan.n_chunks == STRIPE_BYTES // STRIPE_CHUNK
+              and rep.stripes == STRIPE_COUNT, "large stripes: every chunk striped")
+        check(len(rep.outcomes) == n_stripes
+              and all(i >= STRIPE_INDEX_BASE for i in rep.outcomes),
+              "large stripes: every work item in the stripe band")
+        check(stats.host_rows == 0 and stats.per_job == 0 and stats.errors == 0,
+              "large stripes: nothing verified on the host")
+        check(stats.device_jobs >= n_stripes,
+              f"large stripes: each stripe verified per job: {stats}")
+        return numbers(STRIPE_BYTES, rep, stats)
+    out = run("large", large)
+    check(out["launches"]["checksum_words"] > 0, "large stripes launched checksum_words")
+
+    # (2) equal 8 MiB stripes: the fused drain's rows in checksum_many_words
+    def fused():
+        dst = BufferDest(STRIPE_BYTES)
+        plan, xfer = engine(STRIPE_BYTES, STRIPE_FUSED_CHUNK, dst, pipeline="pipelined",
+                            integrity_workers=2, stripe_min_bytes=STRIPE_FUSED_MIN)
+        rep = xfer.run()
+        stats = xfer.integrity_stats
+        width = STRIPE_FUSED_CHUNK // STRIPE_COUNT
+        check(len(rep.outcomes) == plan.n_chunks * STRIPE_COUNT
+              and {o.chunk.length for o in rep.outcomes.values()} == {width},
+              f"fused stripes: every chunk cut into {STRIPE_COUNT} stripes of {width} bytes")
+        check(rep.file_digest == host(STRIPE_BYTES), "fused stripes: digest equals the host's")
+        check(dst.buf == payload, "fused stripes: destination equals the payload")
+        check(rep.striped_chunks == plan.n_chunks, "fused stripes: every chunk striped")
+        check(stats.fused_jobs > 0 and stats.device_rows > 0 and stats.host_rows == 0,
+              f"fused stripes: the drain digested stripe rows on the card: {stats}")
+        return numbers(STRIPE_BYTES, rep, stats)
+    out = run("fused", fused)
+    check(out["launches"]["checksum_many_words"] > 0,
+          "fused stripes launched checksum_many_words")
+
+    # (3) a flipped bit in one stripe's first landing: one re-fetch of it
+    stripe_len = STRIPE_CHUNK // STRIPE_COUNT
+    target = STRIPE_CHUNK + stripe_len          # stripe 1 of chunk 1
+    flips, moves = [], []
+
+    class FlippyDest(BufferDest):
+        def write(self, offset, data):
+            if offset == target and not flips:
+                flips.append(offset)
+                data = bytes([data[0] ^ 0x01]) + bytes(data[1:])
+            super().write(offset, data)
+
+    def flip():
+        dst = FlippyDest(STRIPE_FLIP_BYTES)
+        plan, xfer = engine(STRIPE_FLIP_BYTES, STRIPE_CHUNK, dst, pipeline="pipelined",
+                            integrity_workers=2,
+                            fault_injector=lambda c, a: moves.append((c.offset, c.length)))
+        rep = xfer.run()
+        stats = xfer.integrity_stats
+        n_stripes = plan.n_chunks * STRIPE_COUNT
+        check(flips == [target], "flipped stripe: the bit flip happened")
+        check(rep.refetches == 1 and len(rep.quarantined) == 1, "flipped stripe: one re-fetch")
+        q = rep.quarantined[0]
+        check((q.offset, q.length) == (target, stripe_len) and q.chunk_index >= STRIPE_INDEX_BASE,
+              f"flipped stripe: the quarantined range is the stripe's, not its chunk's: {q}")
+        check(sorted(moves) == sorted([(target, stripe_len)] + [
+            (c.offset + s * stripe_len, stripe_len)
+            for c in plan.chunks for s in range(STRIPE_COUNT)]),
+              "flipped stripe: only that stripe moved twice")
+        check(dst.buf == memoryview(payload)[:STRIPE_FLIP_BYTES]
+              and rep.file_digest == host(STRIPE_FLIP_BYTES),
+              "flipped stripe: healed destination equals the payload")
+        check(stats.host_rows == 0 and stats.per_job == 0
+              and stats.device_jobs == n_stripes + 1,
+              "flipped stripe: every landing, the re-fetch included, verified per job on the card")
+        return {**numbers(STRIPE_FLIP_BYTES, rep, stats), "refetches": rep.refetches,
+                "quarantined": [q.offset, q.length], "detail": q.detail}
+    run("flip", flip)
+
+    # (4) kill after STRIPE_SURVIVORS journaled stripes, restart on the journal
+    root = tempfile.mkdtemp(prefix="chip-smoke-stripes-")
+    try:
+        jpath = os.path.join(root, "stripes.journal")
+
+        class HostCrash(Exception):
+            pass
+
+        def kill():
+            calls = [0]
+
+            def bomb(_chunk, _attempt):
+                calls[0] += 1
+                if calls[0] > STRIPE_SURVIVORS:
+                    raise HostCrash("host died mid-stripe")
+
+            dst = BufferDest(STRIPE_KILL_BYTES)
+            journal = ChunkJournal(jpath)
+            try:
+                _, xfer = engine(STRIPE_KILL_BYTES, STRIPE_CHUNK, dst, movers=1,
+                                 pipeline="serial", journal=journal, fault_injector=bomb,
+                                 max_retries=0)
+                try:
+                    xfer.run()
+                    check(False, "the killed transfer raised")
+                except HostCrash:
+                    pass
+            finally:
+                journal.close()
+            journal = ChunkJournal(jpath)
+            journaled = [(r.offset, r.length) for r in journal.records.values()]
+            check(len(journaled) == STRIPE_SURVIVORS
+                  and all(g >= STRIPE_INDEX_BASE for g in journal.records),
+                  f"kill: {STRIPE_SURVIVORS} stripes journaled before the crash")
+            moved = []
+            try:
+                _, xfer = engine(STRIPE_KILL_BYTES, STRIPE_CHUNK, dst, movers=1,
+                                 pipeline="serial", journal=journal,
+                                 fault_injector=lambda c, _a: moved.append((c.offset, c.length)))
+                rep = xfer.run()
+            finally:
+                journal.close()
+            check(not [m for m in moved if any(m[0] < o + n and o < m[0] + m[1]
+                                               for o, n in journaled)],
+                  "kill: the restart re-moved no journaled byte")
+            check(rep.skipped_chunks == STRIPE_SURVIVORS and moved,
+                  "kill: the journaled stripes were skipped, the rest moved")
+            check(rep.file_digest == host(STRIPE_KILL_BYTES)
+                  and dst.buf == memoryview(payload)[:STRIPE_KILL_BYTES],
+                  "kill: digest equals the host's, destination the payload")
+            return {**numbers(STRIPE_KILL_BYTES, rep), "skipped": rep.skipped_chunks,
+                    "re_moved_bytes": sum(n for _o, n in moved)}
+        run("kill", kill)
+
+        # (5) the stripe ladder, the chunk size pinned: only stripes can move.
+        # One serial mover feeds the tuner each chunk before it takes the
+        # next, so a rung climbed re-cuts the chunks still queued.
+        def ladder():
+            tuner = ChunkController(chunk_bytes=STRIPE_LADDER_CHUNK,
+                                    min_chunk=STRIPE_LADDER_CHUNK,
+                                    max_chunk=STRIPE_LADDER_CHUNK, epoch_chunks=1,
+                                    hold_patience=1, stripe_ladder=STRIPE_LADDER)
+            dst = BufferDest(STRIPE_LADDER_BYTES)
+            _, xfer = engine(STRIPE_LADDER_BYTES, STRIPE_LADDER_CHUNK, dst, movers=1,
+                             pipeline="serial", stripes=1, tuner=tuner)
+            rep = xfer.run()
+            check(rep.stripe_replans >= 1 and rep.striped_chunks > 0,
+                  f"ladder: the live stripe count rose ({[d.action for d in tuner.decisions]})")
+            check(rep.file_digest == host(STRIPE_LADDER_BYTES)
+                  and dst.buf == memoryview(payload)[:STRIPE_LADDER_BYTES],
+                  "ladder: digest equals the host's, destination the payload")
+            return {**numbers(STRIPE_LADDER_BYTES, rep),
+                    "decisions": [d.action for d in tuner.decisions]}
+        run("ladder", ladder)
+
+        # (6) a striped service task between files on local disk
+        src = os.path.join(root, "striped.bin")
+        with open(src, "wb") as fh:
+            fh.write(memoryview(payload)[:STRIPE_SERVICE_BYTES])
+        want = host(STRIPE_SERVICE_BYTES).hexdigest()
+        del payload, blocks
+
+        def service():
+            cfg = ServiceConfig(stripes=STRIPE_COUNT, chunk_bytes=STRIPE_CHUNK,
+                                stripe_min_bytes=STRIPE_MIN, mover_budget=4)
+            svc = TransferService(os.path.join(root, "svc"), cfg, device=device)
+            try:
+                t0 = time.perf_counter()
+                [tid] = svc.submit([(src, src + ".out")], batch=False)
+                st = svc.wait(tid, timeout=600)
+                secs = time.perf_counter() - t0
+            finally:
+                svc.close()
+            check(st.state == "SUCCEEDED", f"service: the striped task succeeded ({st.error})")
+            check(st.stripes == STRIPE_COUNT and st.striped_chunks > 0,
+                  "service: the task striped its chunks")
+            [rep] = st.item_reports
+            check(rep.digest_hex == want, "service: the item digest equals the host's")
+            check(filecmp.cmp(src, src + ".out", shallow=False),
+                  "service: the output file equals the input")
+            return {"bytes": STRIPE_SERVICE_BYTES, "seconds": secs,
+                    "GBps": STRIPE_SERVICE_BYTES / secs / 1e9, "stripes": st.stripes,
+                    "striped_chunks": st.striped_chunks, "chunks": st.chunks_total,
+                    "pipeline": cfg.pipeline}
+        run("service", service)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"cases": cases, "launches": launches, "setup_s": setup_s,
+            "seconds": time.perf_counter() - t_part}
+
+
+def print_stripes(st: dict, smi: str) -> None:
+    """The stripes part's JSON line and its total (each case printed its
+    own line as it ended)."""
+    print(json.dumps({"stripes": st}))
+    print(f"stripes: part {st['seconds']:.1f} s (payload and host digests "
+          f"{st['setup_s']:.1f} s); launches {st['launches']} [{smi}]")
+    sys.stdout.flush()
 
 
 def matmul_bound(card: dict, M: int, K: int, N: int) -> dict:
@@ -4882,7 +5183,7 @@ def print_collectives(coll: dict, smi: str) -> None:
     print("collectives " + json.dumps(coll))
 
 
-CARD_PARTS = ("serve_long", "remat", "dryrun")   # one-card phases --phases also runs alone
+CARD_PARTS = ("stripes", "serve_long", "remat", "dryrun")   # one-card parts --phases runs alone
 
 
 def long_and_remat(seed: int, device, smi: str, parts) -> None:
@@ -4968,6 +5269,9 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     for chunk_bytes in (CHUNK_BYTES, SERVICE_OVERSIZE_CHUNK):
         flip = flipped_landing(seed, device, chunk_bytes)
         print("flipped_landing " + json.dumps(flip))
+    torch.cuda.empty_cache()
+    stripes = stripes_path(seed, device, reset, counts)
+    print_stripes(stripes, smi)
 
     a, b = matmul_inputs(seed, device)
     mmr, dig = matmul_check(card, a, b)
@@ -5135,7 +5439,7 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     print_dryrun(dry, smi, props)
     check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     # each kernel's launches over every main-path run
-    runs = [mpath["launches"], ckpt["launches"], svc["launches"],
+    runs = [stripes["launches"], mpath["launches"], ckpt["launches"], svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],
             relay["plain"]["launches"],
             relay["tuned"]["launches"], *(r["launches"] for r in cli.values()),
@@ -5223,6 +5527,8 @@ def main() -> int:
     if "card" in phases:
         kernels = card_phases(args.seed, device, card, smi, props, reset, counts)
     elif phases & set(CARD_PARTS):
+        if "stripes" in phases:
+            print_stripes(stripes_path(args.seed, device, reset, counts), smi)
         long_and_remat(args.seed, device, smi, phases)
         if "dryrun" in phases:
             dry = dryrun_path(device, reset, counts)

@@ -19,6 +19,7 @@ import dataclasses
 import functools
 import importlib
 import os
+import threading
 import time
 from types import SimpleNamespace
 
@@ -374,6 +375,7 @@ def test_service_pipelined_kill_restart_removes_only_unverified(pkg, tmp_path):
 
     cfg = _svc_config(pkg, pipeline="pipelined", integrity_workers=1,
                       chunk_bytes=16 * 1024)
+    before = set(threading.enumerate())
     svc = pkg.TransferService(tmp_path / "svc", cfg,
                           dest_wrapper=lambda _t, _i, d: pkg.SlowReadBackWrapper(d, 0.02))
     [tid] = svc.submit(items, batch=False)
@@ -387,21 +389,15 @@ def test_service_pipelined_kill_restart_removes_only_unverified(pkg, tmp_path):
     svc.kill()
 
     # kill() abandons the verifier threads mid-flight (as SIGKILL would leave
-    # in-flight appends); wait for the journal to go quiet before probing it
-    def _journal_snapshot():
-        j = svc.store.open_journal(tid)
-        snap = {g: (r.offset, r.length) for g, r in j.records.items()}
-        j.close()
-        return snap
-
-    journaled = _journal_snapshot()
-    deadline = time.monotonic() + 5
-    while time.monotonic() < deadline:
-        time.sleep(0.3)
-        nxt = _journal_snapshot()
-        if nxt == journaled:
-            break
-        journaled = nxt
+    # in-flight appends); they end once their queue drains, so join every
+    # thread the service started before reading the journal: a verdict
+    # appended after the read would be resumed but not counted
+    for th in set(threading.enumerate()) - before:
+        th.join(timeout=60)
+        assert not th.is_alive(), f"{th.name} still running after the kill"
+    j = svc.store.open_journal(tid)
+    journaled = {g: (r.offset, r.length) for g, r in j.records.items()}
+    j.close()
     assert journaled                          # something was verified
     st = svc.status(tid)
     assert 0 < len(journaled) <= st.chunks_total
