@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases card,collectives|stripes|serve_long|remat|dryrun|expert_axis|
-                  family_model_axis|zero_axis|serve_model_axis|serve_families]
+        [--phases card,collectives|stripes|engine|serve_long|remat|dryrun|
+                  expert_axis|family_model_axis|zero_axis|serve_model_axis|
+                  serve_families]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
-the one-card phases alone; ``stripes``, ``serve_long``, ``remat`` and
-``dryrun`` run that one-card part alone; ``expert_axis``,
+the one-card phases alone; ``stripes``, ``engine``, ``serve_long``,
+``remat`` and ``dryrun`` run that one-card part alone; ``expert_axis``,
 ``family_model_axis``, ``zero_axis``, ``serve_model_axis`` and
 ``serve_families`` run that part of the four-card phase alone). In order:
 
@@ -41,7 +42,18 @@ the one-card phases alone; ``stripes``, ``serve_long``, ``remat`` and
      tuner's stripe ladder (1, 2, 4) with the chunk size pinned (at least
      one stripe re-plan); and a striped service task (4 stripes, 256 MiB
      chunks) between 1 GiB files on local disk. Each digest must equal the
-     host's and each destination its payload;
+     host's and each destination its payload. Then the engine's remaining
+     paths (``engine_path``), in the same way, on 1 GiB in 64 MiB chunks:
+     a file on local disk moved to a fresh ``FileDest`` under the serial,
+     single-pass and pipelined modes (8 movers; two digests a chunk on the
+     card, the pipelined verifies per job); speculative straggler
+     duplication (the last chunk's first attempt sleeps 1 s once, a
+     speculated twin lands it; at least one speculated); chunks 1 and 5
+     failing their first attempt (two retries) and a chunk that always
+     fails (the run raises); and the pipelined kill-restart (a crash at the
+     9th mover call behind a verifier lagging on a slow read-back, then a
+     restart from the journal that skips every journaled chunk and re-moves
+     none of them);
   6. the fused matmul + digest at mistral-nemo-12b's width (d_model 5120,
      d_ff 14336): the up-projection weight A (14336, 5120) bf16 times 4096
      tokens of activations B (5120, 4096) bf16. The kernel's residues must
@@ -319,6 +331,13 @@ STRIPE_LADDER = (1, 2, 4)
 STRIPE_LADDER_BYTES = 1 * GiB    # the tuned transfer: 16 chunks of 64 MiB
 STRIPE_LADDER_CHUNK = 64 * MiB
 STRIPE_SERVICE_BYTES = 1 * GiB   # the service's striped file on local disk
+ENGINE_BYTES = 1 * GiB           # the engine part's payload: 16 chunks of 64 MiB
+ENGINE_CHUNK = 64 * MiB          # over fuse_max_bytes: pipelined verifies run per job
+ENGINE_FILE_MOVERS = 8
+ENGINE_MOVERS = 4                # speculation and the kill-restart
+ENGINE_STRAGGLER_S = 1.0         # the last chunk's first attempt, once
+ENGINE_READ_BACK_S = 0.02        # the lagging verifier's read-back delay a chunk
+ENGINE_CRASH_CALL = 9            # the mover call that raises in the killed run
 
 SOURCES = {
     "checksum_words": "src/repro_torch/kernels/csrc/checksum.cu",
@@ -549,6 +568,23 @@ def flipped_landing(seed: int, device, chunk_bytes: int = CHUNK_BYTES) -> dict:
             "detail": rep.quarantined[0].detail}
 
 
+def counted_case(device, reset, counts, totals: dict, fn) -> dict:
+    """Runs ``fn`` with every launch count at 0 and every host digest
+    raising; returns its dict with ``wall_s`` and ``launches`` added, and
+    adds the launches into ``totals``."""
+    sync(device)
+    reset()
+    t0 = time.perf_counter()
+    with host_digests_raise():
+        out = fn()
+    sync(device)
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counts()
+    for k, v in out["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    return out
+
+
 def stripes_path(seed: int, device, reset, counts) -> dict:
     """Main path, part 2b: striped large-chunk transfers on ``device``, every
     host digest patched to raise while each case runs, its launches counted
@@ -583,17 +619,7 @@ def stripes_path(seed: int, device, reset, counts) -> dict:
     cases, launches = {}, {}
 
     def run(name, fn):
-        """One case with the counts at 0 and every host digest raising."""
-        sync(device)
-        reset()
-        t0 = time.perf_counter()
-        with host_digests_raise():
-            out = fn()
-        sync(device)
-        out["wall_s"] = time.perf_counter() - t0
-        out["launches"] = counts()
-        for k, v in out["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        out = counted_case(device, reset, counts, launches, fn)
         cases[name] = out
         extra = "".join(f", {k} {out[k]}" for k in ("device_jobs", "fused_jobs", "skipped",
                                                     "refetches", "stripe_replans") if k in out)
@@ -822,6 +848,264 @@ def print_stripes(st: dict, smi: str) -> None:
     print(json.dumps({"stripes": st}))
     print(f"stripes: part {st['seconds']:.1f} s (payload and host digests "
           f"{st['setup_s']:.1f} s); launches {st['launches']} [{smi}]")
+    sys.stdout.flush()
+
+
+def engine_path(seed: int, device, reset, counts) -> dict:
+    """Main path, part 2c: the transfer engine's paths the earlier parts do
+    not take, on ``device`` with every host digest patched to raise while
+    each case runs and its launches counted from 0; the expected digest is
+    taken once on the host before. 1 GiB in 64 MiB chunks: (1) from a file
+    on local disk to a fresh ``FileDest`` under the serial, single-pass and
+    pipelined modes (8 movers); (2) speculative straggler duplication: the
+    last chunk's first attempt sleeps once, a speculated twin lands it
+    (serial verification, 4 movers); (3) chunks 1 and 5 failing their
+    first attempt (two retries), then a chunk that always fails (the run
+    raises); (4) the pipelined kill-restart: a lagging verifier (one
+    integrity worker behind a slow read-back), a crash at the 9th mover
+    call, a restart from the journal that re-moves no journaled chunk.
+    Returns each case's numbers and the part's launches."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core import (BufferDest, BufferSource, ChunkedTransfer, ChunkJournal,
+                                  FileDest, FileSource, fingerprint_bytes, plan_chunks)
+
+    t_part = time.perf_counter()
+    payload = np.random.default_rng(seed + 13).bytes(ENGINE_BYTES)
+    host = fingerprint_bytes(payload)
+    n_chunks = ENGINE_BYTES // ENGINE_CHUNK
+    setup_s = time.perf_counter() - t_part
+    cases, launches = {}, {}
+
+    def plan(movers):
+        p = plan_chunks(ENGINE_BYTES, movers, min_chunk=ENGINE_CHUNK, max_chunk=ENGINE_CHUNK)
+        check(p.n_chunks == n_chunks and all(c.length == ENGINE_CHUNK for c in p.chunks),
+              f"engine: a plan of {n_chunks} chunks of 64 MiB")
+        return p
+
+    def run(name, fn):
+        out = counted_case(device, reset, counts, launches, fn)
+        check(out["launches"]["checksum_words"] + out["launches"]["checksum_many_words"] > 0,
+              f"engine {name}: the digests ran on the card")
+        cases[name] = out
+        rate = (f"{out['GBps']:.2f} GB/s of the engine's {out['seconds']:.3f} s"
+                if "GBps" in out else f"raised after {out['wall_s']:.3f} s")
+        print(f"engine {name}: {rate}, {out['chunks']} chunks, speculated "
+              f"{out.get('speculated', 0)}, retries {out.get('retries', 0)}, skipped "
+              f"{out.get('skipped', 0)}; launches {out['launches']}")
+        sys.stdout.flush()
+        return out
+
+    def numbers(rep, **extra):
+        return {"bytes": ENGINE_BYTES, "chunks": n_chunks, "seconds": rep.seconds,
+                "GBps": ENGINE_BYTES / rep.seconds / 1e9, "speculated": rep.speculated,
+                "retries": rep.retries, "skipped": rep.skipped_chunks,
+                "pipeline": rep.pipeline, **extra}
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-engine-")
+    try:
+        # (1) file endpoints under each pipeline mode
+        src_path = os.path.join(root, "src.bin")
+        with open(src_path, "wb") as fh:
+            fh.write(payload)
+        for mode in ("serial", "single_pass", "pipelined"):
+            dst_path = os.path.join(root, f"dst-{mode}.bin")
+
+            def files(mode=mode, dst_path=dst_path):
+                src, dst = FileSource(src_path), FileDest(dst_path, ENGINE_BYTES)
+                try:
+                    xfer = ChunkedTransfer(src, dst, plan(ENGINE_FILE_MOVERS), pipeline=mode,
+                                           device=device)
+                    rep = xfer.run()
+                finally:
+                    src.close()
+                    dst.close()
+                stats = xfer.integrity_stats
+                check(rep.file_digest == host, f"engine files {mode}: digest equals the host's")
+                check(rep.retries == 0 and not rep.quarantined,
+                      f"engine files {mode}: no retry, no quarantine")
+                out = numbers(rep)
+                if stats is not None:
+                    # 64 MiB is over fuse_max_bytes: each landing verifies per job
+                    check(stats.device_jobs == n_chunks and stats.device_rows == 0
+                          and stats.host_rows == 0 and stats.per_job == 0
+                          and stats.errors == 0,
+                          f"engine files {mode}: every chunk verified per job on the card: "
+                          f"{stats}")
+                    out.update(device_jobs=stats.device_jobs, device_rows=stats.device_rows,
+                               host_rows=stats.host_rows, fused_jobs=stats.fused_jobs)
+                return out
+            out = run(f"files_{mode}", files)
+            check(sum(out["launches"].values()) == 2 * n_chunks,
+                  f"engine files {mode}: two digests a chunk on the card: {out['launches']}")
+            with open(dst_path, "rb") as fh:
+                landed = fh.read()
+            check(landed == payload, f"engine files {mode}: the destination equals the source")
+            del landed
+            os.remove(dst_path)
+        os.remove(src_path)
+
+        # (2) speculative straggler duplication: the twin lands the last chunk
+        def speculation():
+            p = plan(ENGINE_MOVERS)
+            last = p.n_chunks - 1
+            slept = threading.Event()
+
+            def straggler(chunk, _attempt):
+                if chunk.index == last and not slept.is_set():
+                    slept.set()
+                    time.sleep(ENGINE_STRAGGLER_S)
+
+            dst = BufferDest(ENGINE_BYTES)
+            rep = ChunkedTransfer(BufferSource(payload), dst, p, fault_injector=straggler,
+                                  speculative_factor=1.0, device=device).run()
+            check(rep.speculated >= 1, f"engine speculation: speculated {rep.speculated}")
+            check(rep.file_digest == host, "engine speculation: digest equals the host's")
+            check(dst.buf == payload, "engine speculation: destination equals the payload")
+            return numbers(rep)
+        out = run("speculation", speculation)
+        check(sum(out["launches"].values()) >= 2 * (n_chunks + 1),
+              f"engine speculation: the twin digested on the card: {out['launches']}")
+
+        # (3) transient faults retried, then a persistent one raised
+        def transient():
+            failed = []
+
+            def inject(chunk, attempt):
+                if chunk.index in (1, 5) and attempt == 1:
+                    failed.append(chunk.index)
+                    raise IOError("injected transient")
+
+            dst = BufferDest(ENGINE_BYTES)
+            rep = ChunkedTransfer(BufferSource(payload), dst, plan(ENGINE_FILE_MOVERS),
+                                  fault_injector=inject, device=device).run()
+            check(sorted(failed) == [1, 5] and rep.retries == 2,
+                  f"engine transient: two retries ({rep.retries})")
+            check(rep.file_digest == host and dst.buf == payload,
+                  "engine transient: digest equals the host's, destination the payload")
+            return numbers(rep)
+        out = run("transient", transient)
+        check(sum(out["launches"].values()) == 2 * n_chunks,
+              f"engine transient: two digests a chunk on the card: {out['launches']}")
+
+        def persistent():
+            tries = []
+
+            def dead(chunk, attempt):
+                if chunk.index == 2:
+                    tries.append(attempt)
+                    raise IOError("dead OST")
+
+            xfer = ChunkedTransfer(BufferSource(payload), BufferDest(ENGINE_BYTES),
+                                   plan(ENGINE_FILE_MOVERS), fault_injector=dead,
+                                   max_retries=2, device=device)
+            try:
+                xfer.run()
+            except IOError as e:
+                check(str(e) == "dead OST" and tries == [1, 2, 3],
+                      f"engine persistent: the chunk's error after 3 attempts ({tries})")
+            else:
+                check(False, "engine persistent: the run raised")
+            return {"bytes": ENGINE_BYTES, "chunks": n_chunks, "attempts": len(tries),
+                    "raised": "IOError"}
+        run("persistent", persistent)
+
+        # (4) the engine's pipelined kill-restart with a lagging verifier
+        class HostCrash(Exception):
+            pass
+
+        class SlowReadBackDest(BufferDest):
+            """The zero-copy read-backs pinned to None, so every verify
+            takes the slow path and the verifier lags movement."""
+
+            read_back_into = None
+            read_back_view = None
+
+            def read_back(self, offset, length):
+                time.sleep(ENGINE_READ_BACK_S)
+                return super().read_back(offset, length)
+
+        jpath = os.path.join(root, "engine.journal")
+        dst = SlowReadBackDest(ENGINE_BYTES)
+
+        def killed():
+            lock = threading.Lock()
+            calls = [0]
+
+            def crash(_chunk, _attempt):
+                with lock:
+                    calls[0] += 1
+                    if calls[0] == ENGINE_CRASH_CALL:
+                        raise HostCrash("host died mid-transfer")
+
+            journal = ChunkJournal(jpath)
+            try:
+                ChunkedTransfer(BufferSource(payload), dst, plan(ENGINE_MOVERS), journal=journal,
+                                fault_injector=crash, max_retries=0, pipeline="pipelined",
+                                integrity_workers=1, device=device).run()
+                check(False, "engine kill: the killed transfer raised")
+            except HostCrash:
+                pass
+            finally:
+                journal.close()
+            return {"bytes": ENGINE_BYTES, "chunks": n_chunks, "mover_calls": calls[0]}
+        run("kill", killed)
+
+        journal = ChunkJournal(jpath)
+        journaled = {(r.offset, r.length) for r in journal.records.values()}
+        journal.close()
+        check(0 < len(journaled) < n_chunks,
+              f"engine kill: {len(journaled)} of {n_chunks} chunks journaled before the crash")
+
+        def restart():
+            moved = []
+            lock = threading.Lock()
+
+            def record(chunk, _attempt):
+                with lock:
+                    moved.append((chunk.offset, chunk.length))
+
+            journal = ChunkJournal(jpath)
+            try:
+                xfer = ChunkedTransfer(BufferSource(payload), dst, plan(ENGINE_MOVERS),
+                                       journal=journal, fault_injector=record,
+                                       pipeline="pipelined", integrity_workers=1,
+                                       device=device)
+                rep = xfer.run()
+            finally:
+                journal.close()
+            stats = xfer.integrity_stats
+            re_moved = [m for m in set(moved)
+                        if any(m[0] < o + n and o < m[0] + m[1] for o, n in journaled)]
+            check(re_moved == [], f"engine restart: journaled chunks re-moved: {re_moved}")
+            check(rep.skipped_chunks == len(journaled),
+                  f"engine restart: skipped {rep.skipped_chunks} = {len(journaled)} journaled")
+            check(rep.file_digest == host,
+                  "engine restart: digest equals the host's")
+            check(stats.host_rows == 0 and stats.per_job == 0 and stats.device_jobs > 0,
+                  f"engine restart: every verify on the card: {stats}")
+            return numbers(rep, journaled=len(journaled), re_moved=len(re_moved),
+                           moved_chunks=len(set(moved)), cksum_lag_s=rep.cksum_lag_s,
+                           device_jobs=stats.device_jobs)
+        out = run("restart", restart)
+        check(dst.buf == payload, "engine restart: destination equals the payload")
+        check(out["launches"]["checksum_words"] == 2 * out["moved_chunks"],
+              f"engine restart: two verify digests a re-moved chunk on the card: "
+              f"{out['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"cases": cases, "launches": launches, "setup_s": setup_s,
+            "seconds": time.perf_counter() - t_part}
+
+
+def print_engine(en: dict, smi: str) -> None:
+    """The engine part's JSON line and its total (each case printed its own
+    line as it ended)."""
+    print("engine " + json.dumps(en))
+    print(f"engine: part {en['seconds']:.1f} s (payload and host digest "
+          f"{en['setup_s']:.1f} s); launches {en['launches']} [{smi}]")
     sys.stdout.flush()
 
 
@@ -5183,7 +5467,7 @@ def print_collectives(coll: dict, smi: str) -> None:
     print("collectives " + json.dumps(coll))
 
 
-CARD_PARTS = ("stripes", "serve_long", "remat", "dryrun")   # one-card parts --phases runs alone
+CARD_PARTS = ("stripes", "engine", "serve_long", "remat", "dryrun")   # one-card parts --phases runs alone
 
 
 def long_and_remat(seed: int, device, smi: str, parts) -> None:
@@ -5272,6 +5556,8 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     torch.cuda.empty_cache()
     stripes = stripes_path(seed, device, reset, counts)
     print_stripes(stripes, smi)
+    engine = engine_path(seed, device, reset, counts)
+    print_engine(engine, smi)
 
     a, b = matmul_inputs(seed, device)
     mmr, dig = matmul_check(card, a, b)
@@ -5439,7 +5725,7 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     print_dryrun(dry, smi, props)
     check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     # each kernel's launches over every main-path run
-    runs = [stripes["launches"], mpath["launches"], ckpt["launches"], svc["launches"],
+    runs = [stripes["launches"], engine["launches"], mpath["launches"], ckpt["launches"], svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],
             relay["plain"]["launches"],
             relay["tuned"]["launches"], *(r["launches"] for r in cli.values()),
@@ -5529,6 +5815,8 @@ def main() -> int:
     elif phases & set(CARD_PARTS):
         if "stripes" in phases:
             print_stripes(stripes_path(args.seed, device, reset, counts), smi)
+        if "engine" in phases:
+            print_engine(engine_path(args.seed, device, reset, counts), smi)
         long_and_remat(args.seed, device, smi, phases)
         if "dryrun" in phases:
             dry = dryrun_path(device, reset, counts)
