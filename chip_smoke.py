@@ -234,12 +234,28 @@ the one-card phases alone; ``stripes``, ``engine``, ``serve_long``,
      (``blocks_agree``); the roots saved at step 4 on 1x4x1 and 1x2x2, each
      a one-device run's MANIFEST, restored bit-equal (gathered) on every
      rank with exact launch counts, leaf by leaf into each rank's blocks,
-     and resumed there and on 1x2x1 / 1x1x2; then mistral-nemo-12b at all
-     40 layers on 1x4x1, 3 steps of 16 sequences (4 a card a pass, halved
+     and resumed there and on 1x2x1 / 1x1x2; in the 1x4x1 world,
+     mistral-nemo-12b at full width and 4 of its 40 layers
+     (``ZERO_NEMO_CUT_ARGS``, the deepest cut whose whole train step
+     fits one card under ``ZERO_PEAK_MAX``, the allocator's reserve
+     counted), 3 steps of the same 16 sequences,
+     run again on one card from the same weights: each step's loss and
+     step 1's grad norm within ``LOSS_RTOL`` of one card's (a rank's
+     gradient share lost in the reduce-scatter moves the norm),
+     every leaf bit-equal on the ranks that hold its block, the one-card
+     step's peak under ``ZERO_PEAK_MAX``; then mistral-nemo-12b at all 40
+     layers on 1x4x1, 3 steps of 16 sequences (4 a card a pass, halved
      while the steps' peak passes ``ZERO_PEAK_MAX``): finite falling
-     losses, every peak under ``CARD_BYTES``, each rank's param, gradient
-     and moment bytes equal to the arithmetic (``zero_state_bytes``:
-     36.7 GB a rank against 147 GB whole). Each run prints ms a step, the
+     losses, step 1 within ``LOSS_RTOL`` of one card's loss of the same
+     weights and sequences under ``no_grad`` (``one_card_step1``, passes of
+     4 sequences, on this process's card after the world ends; its
+     gradient's norm is held too where that pass fits under
+     ``ZERO_PEAK_MAX`` without AdamW's state, else its peak is printed),
+     the f32 forward of one layer within ``TP_F32_TOL`` of one card's
+     largest logit, every peak under ``CARD_BYTES``, each rank's param,
+     gradient and moment bytes equal to the arithmetic
+     (``zero_state_bytes``: 36.7 GB a rank against 147 GB whole). Each
+     measured difference is printed beside its bound. Each run prints ms a step, the
      ZeRO all-gather and reduce-scatter ms a step over ``data`` (apart
      from the model axis's), peak GB a card (the steps' and, for the
      first, the init's) and its state GB a rank; the part prints its
@@ -2832,6 +2848,17 @@ ZERO_ELASTIC = {"1x4x1": ("1x2x1", ELASTIC_MICROBATCHES)}
 ZERO_NEMO_ARGS = ["--arch", "mistral-nemo-12b", "--seq-len", "2048", "--global-batch", "16",
                   "--lr", "3e-3", "--log-every", "0"]
 ZERO_NEMO_MESH, ZERO_NEMO_STEPS = "1x4x1", 3
+# its step 1 held to one card's: the loss of the same weights and sequences under no_grad, in
+# ONE_CARD_MICROBATCHES passes, and the gradient's norm where that pass fits the card under
+# ZERO_PEAK_MAX without AdamW's state (tried with the allocator held to that bound)
+# the deepest cut whose whole train step fits one card under ZERO_PEAK_MAX with the caching
+# allocator's reserve counted (bf16 params and gradients, AdamW's f32 moments, the f32 sum of
+# four microbatches' gradients and its temporaries: 6.0 GB a layer allocated on an H100; GB
+# allocated / reserved 60.0 / 70.5 at 4 layers, 2.43 B params, 66.0 / 77.7 at 5, 72.0 / 83.4
+# at 6, which once ran out of the card: tools/nemo_cut_peaks.py), 3 steps on 1x4x1 in
+# gemma-2b's world and on one card from the same weights and sequences
+ZERO_NEMO_CUT_ARGS = ZERO_NEMO_ARGS + ["--layers", "4"]
+ZERO_NEMO_CUT_STEPS = 3
 ZERO_PEAK_MAX = 75e9             # bytes a card: over it the steps run in more passes
 CARD_BYTES = 80e9                # an H100's memory: every peak below it
 ZERO_TIMEOUT_S = 480             # each world of the ZeRO part
@@ -3565,8 +3592,9 @@ def tp_dist_worker(cfg: dict) -> dict:
     1x1x4): ``tp_train`` on ``cfg["args"]`` for ``cfg["steps"]`` steps with
     every host digest patched to raise, with a checkpoint at
     ``cfg["ckpt_step"]`` when given (rank 0 writes the whole tree). Then
-    each of ``cfg["also"]`` (another arch on the same mesh, trained and its
-    blocks checked). With ``cfg["runs"]`` in place of ``cfg["args"]``,
+    each of ``cfg["also"]`` (another arch on the same mesh, trained for
+    ``cfg["also_steps"]`` steps with its collectives timed, its losses and
+    grad norms kept and its blocks checked). With ``cfg["runs"]`` in place of ``cfg["args"]``,
     ``tp_train`` on each of them in turn (``out["runs"]``), the checkpoint
     on the run whose arch is ``cfg["ckpt_arch"]``. On ``cfg["elastic"]``,
     only the resume of ``cfg["root"]``."""
@@ -3608,10 +3636,13 @@ def tp_dist_worker(cfg: dict) -> dict:
                 out["also"] = []
                 for args in cfg.get("also", []):
                     reset_peak(dev)
-                    res = train.main(args + base[:-2] + ["--steps", str(cfg["also_steps"])])
+                    with collective_timer(dev) as timer:
+                        res = train.main(args + base[:-2] + ["--steps", str(cfg["also_steps"])])
                     out["also"].append({
                         "arch": _arg(args, "--arch"), "losses": res["losses"],
-                        "step_s": res["step_seconds"], "peak_bytes": peak_bytes(dev),
+                        "grad_norms": res["grad_norms"], "step_s": res["step_seconds"],
+                        "peak_bytes": peak_bytes(dev),
+                        "collective_ms": timer.per_step(cfg["also_steps"]),
                         "blocks_equal": blocks_agree(
                             res["params"], smoke_model(args).param_specs(mesh), mesh)})
                     del res
@@ -4825,14 +4856,82 @@ def zero_state_bytes(args: list, mesh_spec: str) -> dict:
             "rank": {"params": rank * size, "grads": rank * size, "moments": rank * 8}}
 
 
+def one_card_step1(args: list, seed: int, device) -> dict:
+    """Step 1 of ``args``' model on this card without AdamW's state: the
+    whole params drawn as ``launch.train.main`` draws them on ``1x1``, the
+    step's sequences in ``ONE_CARD_MICROBATCHES`` passes. The loss under
+    ``no_grad`` (the passes' mean), its seconds and the card's peak; then
+    the gradient of that mean, each pass's backward adding into the params'
+    ``.grad`` in place, and its norm, with the card's allocator held to
+    ``ZERO_PEAK_MAX``: where a pass would reserve more, the allocator
+    raises, and the gradient does not fit (``grad_norm`` None; the peak
+    reached is kept)."""
+    from repro_torch.configs.registry import build_model
+    from repro_torch.data.pipeline import DataConfig, _batch_at
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    cuda = torch.device(device).type == "cuda"
+    model = train.with_layers(build_model(_arg(args, "--arch"), train.parse_mesh("1x1", str(device)),
+                                          smoke="--smoke" in args), int(_arg(args, "--layers", 0)))
+    gb = int(_arg(args, "--global-batch"))
+    tok = torch.from_numpy(np.asarray(_batch_at(DataConfig(
+        vocab=model.cfg.vocab, seq_len=int(_arg(args, "--seq-len")), global_batch=gb,
+        seed=seed), 0))).to(device)
+    parts = tok.chunk(ONE_CARD_MICROBATCHES, dim=0)
+    reset_peak(device)
+    params = model.init_params(seed, device)
+    out = {"init_peak_bytes": peak_bytes(device), "passes": len(parts),
+           "sequences_a_pass": gb // len(parts)}
+    reset_peak(device)
+    sync(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = sum(model.loss(params, {"tokens": p}).float() for p in parts) / len(parts)
+    out.update(loss=float(loss), forward_s=time.perf_counter() - t0,
+               forward_peak_bytes=peak_bytes(device))
+    reset_peak(device)
+    card = torch.cuda.current_device() if cuda and torch.device(device).index is None else device
+    if cuda:
+        torch.cuda.set_per_process_memory_fraction(
+            ZERO_PEAK_MAX / torch.cuda.get_device_properties(card).total_memory, card)
+    leaves = list(tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    try:
+        with torch.enable_grad():
+            for p in parts:
+                (model.loss(params, {"tokens": p}) / len(parts)).backward()
+        # sqrt of the sum of squares in f32, a layer of a stacked leaf at a time
+        sq = sum(torch.sum(torch.square(s.float())) for t in leaves
+                 for s in (t.grad.unbind(0) if t.grad.dim() > 2 else (t.grad,)))
+        out["grad_norm"] = float(torch.sqrt(sq))
+    except torch.OutOfMemoryError as e:
+        out["grad_norm"] = None
+        out["grad_refused"] = str(e).splitlines()[0]
+    finally:
+        out.update(grad_s=time.perf_counter() - t0, grad_peak_bytes=peak_bytes(device),
+                   grad_reserved_bytes=torch.cuda.max_memory_reserved(device) if cuda else 0)
+        del params, leaves
+        if cuda:
+            torch.cuda.set_per_process_memory_fraction(1.0, card)
+        release(device)
+    return out
+
+
 def zero_axis_path(seed: int, device, dev: str) -> dict:
     """The collectives phase's ZeRO-3 part: gemma-2b (``TRAIN_DIST_ARGS``)
     over each of ``ZERO_MESHES`` with ``tp_dist_worker``, its roots saved on
     the meshes of ``ZERO_ELASTIC`` and resumed there and on the smaller
-    mesh, step 1 held to one card's on the same 16 sequences; then
-    mistral-nemo-12b at full depth (``ZERO_NEMO_ARGS``) on
-    ``ZERO_NEMO_MESH``, its state bytes a rank held to the arithmetic
-    (``zero_state_bytes``). Every check fails the phase."""
+    mesh, step 1 held to one card's on the same 16 sequences, and in the
+    ``ZERO_NEMO_MESH`` world mistral-nemo-12b at a cut depth
+    (``ZERO_NEMO_CUT_ARGS``), whose losses and step 1's grad norm are held
+    to a one-card run's; then mistral-nemo-12b at full depth
+    (``ZERO_NEMO_ARGS``) on ``ZERO_NEMO_MESH``, its state bytes a rank
+    held to the arithmetic (``zero_state_bytes``), its step 1 to one
+    card's (``one_card_step1``) and its f32 forward to one card's. Every
+    check fails the phase."""
     import shutil
     import tempfile
 
@@ -4859,6 +4958,8 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
         gemma, elastic = {}, {}
         for mesh in ZERO_MESHES:
             extra = {"root": roots[mesh], "ckpt_step": TRAIN_DIST_CKPT} if mesh in roots else {}
+            if mesh == ZERO_NEMO_MESH:      # the cut depth in this world: no start-up of its own
+                extra.update(also=[ZERO_NEMO_CUT_ARGS], also_steps=ZERO_NEMO_CUT_STEPS)
             gemma[mesh] = run_ranks("tp_dist", COLL_CARDS, {**cfg, "mesh": mesh, **extra},
                                     ZERO_TIMEOUT_S)
         for mesh, (small, micro) in ZERO_ELASTIC.items():
@@ -4877,6 +4978,15 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
                                         "--microbatches", str(ONE_CARD_MICROBATCHES)])
     del one["params"]
     release(device)
+    reset_peak(device)
+    cut_one = train.main(ZERO_NEMO_CUT_ARGS + [
+        "--seed", str(seed), "--device", str(device), "--mesh", "1x1",
+        "--steps", str(ZERO_NEMO_CUT_STEPS), "--microbatches", str(ONE_CARD_MICROBATCHES)])
+    cut_one["peak_bytes"] = peak_bytes(device)
+    cut_one["reserved_bytes"] = torch.cuda.max_memory_reserved(device) if dev == "cuda" else 0
+    del cut_one["params"]
+    release(device)
+    nemo_one = one_card_step1(ZERO_NEMO_ARGS, seed, device)
     meshes = {}
     for mesh, ranks in gemma.items():
         t = ranks[0]["train"]
@@ -4944,14 +5054,29 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
             "uninterrupted": tail, "resumed": c0["resumed"]["losses"],
             "elastic": el[0]["elastic"]["losses"]}
     check(all(x == layouts[0] for x in layouts), "zero: every root's MANIFEST has the same layout")
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
     t = nemo[0]["train"]
     losses = t["losses"]
     check(len(losses) == ZERO_NEMO_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"zero mistral-nemo-12b on {ZERO_NEMO_MESH}: finite losses that fall: {losses}")
     check(all(r["train"]["losses"] == losses for r in nemo), "zero mistral-nemo-12b: every "
                                                               "rank's loss")
+    held = {"loss_rel": rel(losses[0], nemo_one["loss"]),
+            "grad_norm_rel": (rel(t["grad_norms"][0], nemo_one["grad_norm"])
+                              if nemo_one["grad_norm"] is not None else None)}
+    check(held["loss_rel"] <= LOSS_RTOL,
+          f"zero mistral-nemo-12b on {ZERO_NEMO_MESH}: step 1 {losses[0]} within {LOSS_RTOL} of "
+          f"one card's forward {nemo_one['loss']} ({held['loss_rel']:.3g})")
+    check(nemo_one["grad_norm"] is None or held["grad_norm_rel"] <= LOSS_RTOL,
+          f"zero mistral-nemo-12b on {ZERO_NEMO_MESH}: step 1's grad norm {t['grad_norms'][0]} "
+          f"within {LOSS_RTOL} of one card's {nemo_one['grad_norm']} ({held['grad_norm_rel']})")
     arith = zero_state_bytes(ZERO_NEMO_ARGS, ZERO_NEMO_MESH)
     for r in nemo:
+        check(r["f32"]["rel"] <= TP_F32_TOL,
+              f"zero mistral-nemo-12b rank {r['rank']}: f32 logits within {TP_F32_TOL} of the "
+              f"largest of one card's ({r['f32']['max_abs_err']} of {r['f32']['max_logit']})")
         check(r["train"]["peak_bytes"] < CARD_BYTES,
               f"zero mistral-nemo-12b rank {r['rank']}: peak {r['train']['peak_bytes'] / 1e9:.2f} "
               f"GB under {CARD_BYTES / 1e9:.0f} GB")
@@ -4961,6 +5086,32 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
         check(r["train"]["blocks_equal"], f"zero mistral-nemo-12b rank {r['rank']}: every leaf "
                                            "bit-equal on the ranks that hold its block")
     steady, first = coll_ms(nemo, ZERO_NEMO_STEPS)
+    cut = [r["also"][0] for r in gemma[ZERO_NEMO_MESH]]
+    c0 = cut[0]
+    cut_held = {"losses_rel": [rel(x, y) for x, y in zip(c0["losses"], cut_one["losses"])],
+                "grad_norm_rel": rel(c0["grad_norms"][0], cut_one["grad_norms"][0])}
+    cut_name = f"zero mistral-nemo-12b at {_arg(ZERO_NEMO_CUT_ARGS, '--layers')} layers"
+    check(len(c0["losses"]) == ZERO_NEMO_CUT_STEPS and all(np.isfinite(c0["losses"]))
+          and all(c["losses"] == c0["losses"] and c["grad_norms"] == c0["grad_norms"]
+                  for c in cut),
+          f"{cut_name} on {ZERO_NEMO_MESH}: finite losses, every rank's loss and grad norm")
+    check(close(c0["losses"], cut_one["losses"]),
+          f"{cut_name} on {ZERO_NEMO_MESH}: losses {c0['losses']} within {LOSS_RTOL} of one "
+          f"card's {cut_one['losses']} ({[f'{x:.3g}' for x in cut_held['losses_rel']]})")
+    check(cut_held["grad_norm_rel"] <= LOSS_RTOL,
+          f"{cut_name} on {ZERO_NEMO_MESH}: step 1's grad norm {c0['grad_norms'][0]} within "
+          f"{LOSS_RTOL} of one card's {cut_one['grad_norms'][0]} ({cut_held['grad_norm_rel']:.3g})")
+    check(all(c["blocks_equal"] for c in cut),
+          f"{cut_name} on {ZERO_NEMO_MESH}: every leaf bit-equal on the ranks that hold its block")
+    check(all(c["peak_bytes"] < CARD_BYTES for c in cut),
+          f"{cut_name} on {ZERO_NEMO_MESH}: peaks {[c['peak_bytes'] for c in cut]} under "
+          f"{CARD_BYTES / 1e9:.0f} GB")
+    check(cut_one["peak_bytes"] <= ZERO_PEAK_MAX,
+          f"{cut_name} on one card: the whole step's peak {cut_one['peak_bytes'] / 1e9:.2f} GB "
+          f"under {ZERO_PEAK_MAX / 1e9:.0f} GB")
+    cut_steady = {k: median([max(c["collective_ms"][k][i] for c in cut)
+                             for i in range(1, ZERO_NEMO_CUT_STEPS)])
+                  for k in ("gather_data", "rs_data", "model", "gather", "rs", "batch")}
     return {"zero_axis": {
         "gemma": {"arch": "gemma-2b", "meshes": meshes, "one_card_step1": one["losses"][0],
                   "ckpt": ckpts},
@@ -4977,7 +5128,19 @@ def zero_axis_path(seed: int, device, dev: str) -> dict:
                  "step_peak_bytes": [r["train"]["step_peak_bytes"] for r in nemo],
                  "init_peak_bytes": [r["train"]["init_peak_bytes"] for r in nemo],
                  "state_bytes": [r["train"]["state_bytes"] for r in nemo],
-                 "state_arithmetic": arith, "wall_s": nemo[0]["wall_s"]},
+                 "state_arithmetic": arith, "wall_s": nemo[0]["wall_s"],
+                 "grad_norms": t["grad_norms"], "one_card": nemo_one, "held": held},
+        "nemo_cut": {"arch": "mistral-nemo-12b", "mesh": ZERO_NEMO_MESH,
+                     "layers": smoke_model(ZERO_NEMO_CUT_ARGS).cfg.n_layers,
+                     "losses": c0["losses"], "grad_norms": c0["grad_norms"],
+                     "step_ms": 1e3 * median([max(c["step_s"][i] for c in cut)
+                                              for i in range(1, ZERO_NEMO_CUT_STEPS)]),
+                     "collective_ms": cut_steady, "peak_bytes": [c["peak_bytes"] for c in cut],
+                     "one_card": {"losses": cut_one["losses"], "grad_norms": cut_one["grad_norms"],
+                                  "step_ms": 1e3 * median(cut_one["step_seconds"][1:]),
+                                  "peak_bytes": cut_one["peak_bytes"],
+                                  "reserved_bytes": cut_one["reserved_bytes"]},
+                     "held": cut_held},
         "seconds": time.perf_counter() - t0}}
 
 
@@ -5330,9 +5493,32 @@ def print_zero_axis(m: dict, smi: str) -> None:
           f"{gb(n['init_peak_bytes'])}); state GB a rank: params {sb['params'] / 1e9:.2f}, grads "
           f"{sb['grads'] / 1e9:.2f}, moments {sb['moments'] / 1e9:.2f}, "
           f"{sum(sb.values()) / 1e9:.2f} in all against {sum(a['whole'].values()) / 1e9:.2f} "
-          f"whole; losses {[round(x, 4) for x in n['losses']]}; f32 logits of one layer within "
-          f"{n['f32_rel']:.3g} of one card's; world {n['wall_s']:.1f} s; part "
-          f"{m['seconds']:.1f} s [{smi}]")
+          f"whole; losses {[round(x, 6) for x in n['losses']]}, grad norms "
+          f"{[f'{x:.6g}' for x in n['grad_norms']]}; f32 logits of one layer within "
+          f"{n['f32_rel']:.3g} of one card's (bound {TP_F32_TOL:g}); world {n['wall_s']:.1f} s "
+          f"[{smi}]")
+    o, h = n["one_card"], n["held"]
+    grad = (f"grad norm {o['grad_norm']:.6g} against {n['grad_norms'][0]:.6g} on {n['mesh']}, "
+            f"{h['grad_norm_rel']:.3g} apart (bound {LOSS_RTOL:g})" if o["grad_norm"] is not None
+            else f"gradient pass does not fit under {ZERO_PEAK_MAX / 1e9:.0f} GB ({o['grad_refused']})")
+    print(f"collectives zero_axis {n['arch']} {n['layers']} layers on one card, step 1 without "
+          f"AdamW's state, {o['passes']} passes of {o['sequences_a_pass']} sequences: forward loss "
+          f"{o['loss']:.6f} against {n['losses'][0]:.6f} on {n['mesh']}, {h['loss_rel']:.3g} apart "
+          f"(bound {LOSS_RTOL:g}), {o['forward_s']:.2f} s, peak {o['forward_peak_bytes'] / 1e9:.2f} "
+          f"GB (init {o['init_peak_bytes'] / 1e9:.2f}); {grad}; gradient pass "
+          f"{o['grad_s']:.2f} s, peak {o['grad_peak_bytes'] / 1e9:.2f} GB allocated, "
+          f"{o['grad_reserved_bytes'] / 1e9:.2f} reserved [{smi}]")
+    c, o, h = m["nemo_cut"], m["nemo_cut"]["one_card"], m["nemo_cut"]["held"]
+    print(f"collectives zero_axis {c['arch']} {c['layers']} layers on {c['mesh']} (in gemma-2b's "
+          f"world), 16 sequences a step: {c['step_ms']:.1f} ms/step; ms a step: "
+          f"{ms(c['collective_ms'])}; peak GB a card {gb(c['peak_bytes'])}; losses "
+          f"{[round(x, 6) for x in c['losses']]} against one card's "
+          f"{[round(x, 6) for x in o['losses']]}, {[f'{x:.3g}' for x in h['losses_rel']]} apart; "
+          f"step 1's grad norm {c['grad_norms'][0]:.6g} against one card's "
+          f"{o['grad_norms'][0]:.6g}, {h['grad_norm_rel']:.3g} apart (bound {LOSS_RTOL:g}); one "
+          f"card {o['step_ms']:.1f} ms/step, peak {o['peak_bytes'] / 1e9:.2f} GB (bound "
+          f"{ZERO_PEAK_MAX / 1e9:.0f}), {o['reserved_bytes'] / 1e9:.2f} reserved [{smi}]")
+    print(f"collectives zero_axis part {m['seconds']:.1f} s [{smi}]")
     sys.stdout.flush()
 
 

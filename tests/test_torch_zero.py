@@ -9,7 +9,14 @@ qwen3-moe-30b-a3b, mamba2-370m, recurrentgemma-2b and whisper-large-v3
 (cut to 1+1 layers, ROADMAP Queue 3 item 3) on (1, 4, 1), (1, 2, 2) and
 (2, 2, 1) pod x data x model meshes under "auto", and on (2, 2, 1) under
 "chunked" for every family but the MoE (the reference's MoE cannot take
-the chunked step, ``test_torch_dist_train``). The port runs in one world of
+the chunked step, ``test_torch_dist_train``). mistral-nemo-12b, the
+largest model the port trains under ZeRO on four cards, on the same
+three meshes under "auto": its smoke config, and the same with
+``head_dim`` 12 (``VARIANTS``: a query width of 48 against a ``d_model``
+of 64, as the full config's 4096 against 5120), each cut to 2 layers
+(``LAYERS``: at 3, f32 rounding amplified through the depth moves the
+reference's own gradients between two meshes by more than
+``GRAD_RTOL``). The port runs in one world of
 four gloo ranks (``test_torch_collectives.spawn_world``), each rank on its
 blocks of the reference's weights (``test_torch_models.seeded_params``,
 crossed over with ``convert.params_from_reference``, then
@@ -61,12 +68,25 @@ from test_torch_tp import GRAD_RTOL, LOGITS_RTOL, LOSS_RTOL, UPDATE_RTOL
 
 STEPS, LR, SEQ, BATCH, SEED, ROWS = 3, 1e-2, 31, 8, 3, 4
 AXES = ("pod", "data", "model")
-ARCHS = ("gemma-2b", "internvl2-2b", "qwen3-moe-30b-a3b", "mamba2-370m", "recurrentgemma-2b",
-         "whisper-large-v3")
-LAYERS = {"whisper-large-v3": 1}
+FAMILIES = ("gemma-2b", "internvl2-2b", "qwen3-moe-30b-a3b", "mamba2-370m", "recurrentgemma-2b",
+            "whisper-large-v3")
+# mistral-nemo-12b's query width n_heads·head_dim (32·128 = 4096) is not its d_model (5120);
+# its smoke config's is (4·16 = 64), so a second case sets head_dim 12 in both packages'
+# configs (48 against 64) and keeps the full config's mismatch
+VARIANTS = {"mistral-nemo-12b-hd12": ("mistral-nemo-12b", {"head_dim": 12})}
+NEMO = ("mistral-nemo-12b", "mistral-nemo-12b-hd12")
+ARCHS = FAMILIES + NEMO
+# whisper 1+1 (ROADMAP Queue 3 item 3); mistral-nemo-12b 2 of its smoke config's 3: at 3
+# layers f32 rounding, amplified through the depth at the seeded init, moves step 1's
+# gradients by 1.5e-4 of a leaf's norm between the reference's own 1x4x1 and 1x2x2 and its
+# third step's loss by 2.2e-3 (gemma-2b's smoke config at 3 layers: 1.1e-4 between the
+# packages on one device), over GRAD_RTOL and LOSS_RTOL; at 2, at most 2.6e-5
+# (tools/depth_rounding.py)
+LAYERS = {"whisper-large-v3": 1, "mistral-nemo-12b": 2, "mistral-nemo-12b-hd12": 2}
 MESHES = ((1, 4, 1), (1, 2, 2), (2, 2, 1))
-CASES = ([(arch, shape, "auto") for arch in ARCHS for shape in MESHES]
-         + [(arch, (2, 2, 1), "chunked") for arch in ARCHS if arch != "qwen3-moe-30b-a3b"])
+CASES = ([(arch, shape, "auto") for arch in FAMILIES for shape in MESHES]
+         + [(arch, (2, 2, 1), "chunked") for arch in FAMILIES if arch != "qwen3-moe-30b-a3b"]
+         + [(arch, shape, "auto") for arch in NEMO for shape in MESHES])
 LAUNCH_ARGS = ["--arch", "gemma-2b", "--smoke", "--seq-len", "32", "--global-batch", "8",
                "--log-every", "0", "--lr", "3e-3", "--device", "cpu", "--seed", "1"]
 
@@ -83,6 +103,11 @@ def _wkey(arch, shape):
 NAMES = [_name(*c) for c in CASES]
 
 
+def _registry_arch(arch):
+    """The registry's arch of a case's arch, and the config fields it replaces."""
+    return VARIANTS.get(arch, (arch, {}))
+
+
 def _extra_key(cfg):
     """The stubbed frontend's input a family's batch carries, and its rows."""
     return {"vlm": ("vis_embed", cfg.n_vis_tokens),
@@ -92,9 +117,28 @@ def _extra_key(cfg):
 # ---------------------------------------------------------------------------
 # the inputs: seeded reference weights, logit inputs, frontend embeddings
 # ---------------------------------------------------------------------------
+def _reference_model(arch, mesh=None):
+    """The reference's smoke model of a case's arch (over ``mesh``)."""
+    from repro.configs import registry as jreg
+    from repro.launch.steps import _rebuild
+
+    name, fields = _registry_arch(arch)
+    jm = jreg.build_model(name, mesh, smoke=True)
+    return _rebuild(jm, mesh, dataclasses.replace(jm.cfg, **fields), None) if fields else jm
+
+
+def _port_model(arch, mesh):
+    """The port's smoke model of a case's arch over ``mesh``."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import train
+
+    name, fields = _registry_arch(arch)
+    model = treg.build_model(name, mesh, smoke=True)
+    return train.rebuild(model, dataclasses.replace(model.cfg, **fields)) if fields else model
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    from repro.configs import registry as jreg
     from test_torch_models import seeded_params
 
     path = tmp_path_factory.mktemp("zero")
@@ -102,11 +146,11 @@ def root(tmp_path_factory):
         key = _wkey(arch, shape)
         if (path / f"params-{key}.npz").exists():
             continue
-        jm = _cut(jreg.build_model(arch, smoke=True), LAYERS.get(arch))
+        jm = _cut(_reference_model(arch), LAYERS.get(arch))
         jm.tp = shape[2]
         np.savez(path / f"params-{key}.npz", **_flat(seeded_params(jm, 0)))
     for arch in ARCHS:
-        cfg = jreg.build_model(arch, smoke=True).cfg
+        cfg = _reference_model(arch).cfg
         rng = np.random.default_rng(7)
         inputs = {"tokens": rng.integers(0, cfg.vocab, (ROWS, 15)).astype(np.int32)}
         extra = _extra_key(cfg)
@@ -125,13 +169,13 @@ def root(tmp_path_factory):
 # the reference: the same cases on four fake devices, in the background
 # ---------------------------------------------------------------------------
 REFERENCE = """
-import json
+import dataclasses, json
 import numpy as np, jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs.registry import build_model, ShapeCell
 from repro.data.pipeline import DataConfig, _batch_at
 from repro.distributed.mesh import make_mesh
-from repro.launch.steps import _with_layers, build_train_step
+from repro.launch.steps import _rebuild, _with_layers, build_train_step
 from repro.optim import adamw
 
 root, part, CASES, STEPS, LR, SEQ, BATCH, SEED, LAYERS = ARGS
@@ -151,10 +195,12 @@ def flat(tree):
     return {"/".join(p.key for p in path): leaf
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
-for arch, shape, mode, name, wkey in CASES:
+for arch, base, fields, shape, mode, name, wkey in CASES:
     mesh = make_mesh(tuple(shape), ("pod", "data", "model"), devices=jax.devices()[:4])
     rank_of = {d.id: i for i, d in enumerate(mesh.devices.flat)}
-    model = build_model(arch, mesh, smoke=True)
+    model = build_model(base, mesh, smoke=True)
+    if fields:
+        model = _rebuild(model, mesh, dataclasses.replace(model.cfg, **fields), None)
     if arch in LAYERS:
         model = _with_layers(arch, model, mesh, LAYERS[arch], "train_4k")
     fam = model.cfg.family
@@ -210,7 +256,8 @@ REF_PARTS = 4      # the reference's cases run in this many subprocesses at once
 
 @pytest.fixture(scope="module")
 def reference_started(root):
-    cases = [(a, list(s), m, _name(a, s, m), _wkey(a, s)) for a, s, m in CASES]
+    cases = [(a, *_registry_arch(a), list(s), m, _name(a, s, m), _wkey(a, s))
+             for a, s, m in CASES]
     procs = []
     for part in range(REF_PARTS):
         code = REFERENCE.replace("ARGS", repr((str(root), part, cases[part::REF_PARTS], STEPS,
@@ -287,7 +334,6 @@ def _saved_whole_weights(model, params, batch, wanted: set) -> list:
 def _port_zero(rank, root):
     import torch.distributed as dist
 
-    from repro_torch.configs import registry as treg
     from repro_torch.configs.registry import ShapeCell
     from repro_torch.convert import gather_params, params_from_reference
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -303,7 +349,7 @@ def _port_zero(rank, root):
         name = _name(arch, shape, mode)
         mesh = make_mesh(shape, AXES, device="cpu")
         meta["coords"][name] = {a: mesh.rank(a) for a in AXES}
-        model = train.with_layers(treg.build_model(arch, mesh, smoke=True), LAYERS.get(arch))
+        model = train.with_layers(_port_model(arch, mesh), LAYERS.get(arch))
         fam = model.cfg.family
         specs = model.param_specs(mesh)
         inp = {k: torch.from_numpy(v) for k, v in np.load(root / f"inputs-{arch}.npz").items()}
@@ -360,7 +406,7 @@ def _port_zero(rank, root):
     mesh = make_mesh((1, 4, 1), AXES, device="cpu")
     meta["saved"] = {}
     for arch in ARCHS:
-        model = train.with_layers(treg.build_model(arch, mesh, smoke=True), LAYERS.get(arch))
+        model = train.with_layers(_port_model(arch, mesh), LAYERS.get(arch))
         specs = model.param_specs(mesh)
         whole = params_from_reference(
             _unflat(dict(np.load(root / f"params-{_wkey(arch, (1, 4, 1))}.npz"))), "cpu")
