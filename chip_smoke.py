@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on NVIDIA cards.
 
     python3 chip_smoke.py [--seed 0]
-        [--phases card,collectives|stripes|engine|serve_long|remat|dryrun|
+        [--phases card,collectives|stripes|engine|matmul|serve_long|remat|dryrun|
                   expert_axis|family_model_axis|zero_axis|serve_model_axis|
                   serve_families]
 
 Run from the root of a checkout, on a machine with one CUDA card (four for
 the ``collectives`` phase; ``--phases collectives`` runs it alone, ``card``
-the one-card phases alone; ``stripes``, ``engine``, ``serve_long``,
-``remat`` and ``dryrun`` run that one-card part alone; ``expert_axis``,
+the one-card phases alone; ``stripes``, ``engine``, ``matmul``,
+``serve_long``, ``remat`` and ``dryrun`` run that one-card part alone;
+``expert_axis``,
 ``family_model_axis``, ``zero_axis``, ``serve_model_axis`` and
 ``serve_families`` run that part of the four-card phase alone). In order:
 
@@ -63,8 +64,15 @@ the one-card phases alone; ``stripes``, ``engine``, ``serve_long``,
      product-only build of the same kernel (``mm_product``). Times, in
      turns: the fused kernel, its product-only build, the library product
      (cuBLAS, bf16 in, f32 out), the separate digest pass and the plain
-     version, which gives the digest's share of the kernel. Then drives the
-     public ``matmul_with_digest`` with the launch counts at 0;
+     version, which gives the digest's share of the kernel. Then the same
+     with B (5120, 4096) in float32 (row ``matmul_digest_f32b``): the split
+     of B into three bf16 terms bit-equal to its plain version, the same
+     residues and tolerance, and times in turns of the kernel, cuBLAS SGEMM
+     (``torch.mm`` of A cast to float32 before timing, TF32 off), the split
+     alone, the separate digest and the plain version; the kernel must beat
+     SGEMM plus the separate digest. Then drives the public
+     ``matmul_with_digest`` on each B with the launch counts at 0
+     (``--phases matmul`` runs this item alone);
   7. saves one full-width decoder block of mistral-nemo-12b (bf16, 545 MB,
      the JAX model's keys and shapes) with the port's ``CheckpointManager``
      and restores it to the card with the counts at 0: every leaf
@@ -314,6 +322,8 @@ MADDS_PER_WORD = 16              # 4 byte planes x 4 bases
 BF16_FLOP_PER_SM = 4096          # dense bf16 tensor-core FLOP per SM per clock:
 #                                  989.4 TFLOP/s at 132 SMs x 1830 MHz (data sheet)
 MADDS_PER_ELEMENT = 8            # matmul digest: 2 bytes x 4 bases per A element
+FP32_FLOP_PER_SM = 256           # CUDA-core f32: 128 FMA lanes per SM per clock x 2 FLOP
+SPLIT_TERMS = 3                  # bf16 terms of a float32 B on the tensor cores
 
 # mistral-nemo-12b (src/repro/configs/mistral_nemo_12b.py:10)
 D_MODEL, D_FF, N_HEADS, N_KV_HEADS, HEAD_DIM = 5120, 14336, 32, 8, 128
@@ -360,12 +370,14 @@ SOURCES = {
     "checksum_many_words": "src/repro_torch/kernels/csrc/checksum.cu",
     "checksum_copy_words": "src/repro_torch/kernels/csrc/checksum.cu",
     "matmul_digest": "src/repro_torch/kernels/csrc/matmul_digest.cu",
+    "matmul_digest_f32b": "src/repro_torch/kernels/csrc/matmul_digest.cu",
 }
 REPLACES = {
     "checksum_words": "src/repro/kernels/checksum.py:112",
     "checksum_many_words": "src/repro/kernels/checksum.py:150",
     "checksum_copy_words": "src/repro/kernels/checksum.py:188",
     "matmul_digest": "src/repro/kernels/matmul_digest.py:99",
+    "matmul_digest_f32b": "src/repro/kernels/matmul_digest.py:99",
 }
 
 
@@ -1125,17 +1137,26 @@ def print_engine(en: dict, smi: str) -> None:
     sys.stdout.flush()
 
 
-def matmul_bound(card: dict, M: int, K: int, N: int) -> dict:
+def matmul_bound(card: dict, M: int, K: int, N: int, b_bytes: int = 2) -> dict:
     """Least time for C = A @ B + digest of A: the product over the bf16
-    tensor-core rate, A + B + C over HBM, the digest's multiply-adds over the
-    INT32 rate; the largest binds."""
+    tensor-core rate (a float32 B, ``b_bytes`` 4: its three bf16 terms'
+    products), A + B + C over HBM, the digest's multiply-adds over the INT32
+    rate; the largest binds. A float32 B also gets the product over the
+    CUDA cores' f32 rate (``bound_fp32_ms``) and the bytes with its split
+    written and read once (``bound_split_bytes_ms``)."""
     clock = card["sms"] * card["clock_hz"]
-    ops_ms = 2 * M * N * K / (BF16_FLOP_PER_SM * clock) * 1e3
-    bytes_ms = (2 * M * K + 2 * K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
+    terms = SPLIT_TERMS if b_bytes == 4 else 1
+    ops_ms = terms * 2 * M * N * K / (BF16_FLOP_PER_SM * clock) * 1e3
+    bytes_ms = (2 * M * K + b_bytes * K * N + 4 * M * N) / HBM_BYTES_PER_S * 1e3
     digest_ms = MADDS_PER_ELEMENT * M * K / (INT32_LANES_PER_SM * clock) * 1e3
     bound_ms = max(ops_ms, bytes_ms, digest_ms)
-    return {"bound_ms": bound_ms, "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
-            "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms, "bound_digest_ms": digest_ms}
+    out = {"bound_ms": bound_ms, "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
+           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms, "bound_digest_ms": digest_ms}
+    if b_bytes == 4:
+        split_bytes = 2 * SPLIT_TERMS * (-(-K // 64) * 64) * N * 2    # written, then read
+        out.update(bound_fp32_ms=2 * M * N * K / (FP32_FLOP_PER_SM * clock) * 1e3,
+                   bound_split_bytes_ms=bytes_ms + split_bytes / HBM_BYTES_PER_S * 1e3)
+    return out
 
 
 def library_matmul(a: torch.Tensor, b: torch.Tensor):
@@ -1171,35 +1192,37 @@ def product_only(a: torch.Tensor, b: torch.Tensor):
     return call
 
 
-def matmul_inputs(seed: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def matmul_inputs(seed: int, device,
+                  b_dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
     """The up-projection of mistral-nemo-12b: nn.Linear's (out, in) weight
-    A (d_ff, d_model) and TOKENS activations transposed, B (d_model, TOKENS)."""
+    A (d_ff, d_model) and TOKENS activations transposed, B (d_model, TOKENS)
+    in ``b_dtype`` (bf16, or float32 as drawn)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 5)
     a = (torch.randn(D_FF, D_MODEL, generator=gen, device=device) * 0.02).to(torch.bfloat16)
-    b = torch.randn(D_MODEL, TOKENS, generator=gen, device=device).to(torch.bfloat16)
+    b = torch.randn(D_MODEL, TOKENS, generator=gen, device=device).to(b_dtype)
     return a, b
 
 
-def matmul_check(card: dict, a: torch.Tensor, b: torch.Tensor) -> tuple[dict, torch.Tensor]:
-    """Phase 6: the fused matmul + digest kernel against its plain version.
-    Returns its row of the kernels line and its residues."""
+def matmul_held(a: torch.Tensor, b: torch.Tensor,
+                tag: str) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """The fused kernel's residues and C against its plain version, the
+    checksum kernel and the host digest, and against float64 within
+    K * 2^-24 * (|A| @ |B|). Returns (errors, residues, C)."""
     from repro_torch.core.integrity import fingerprint_bytes
     from repro_torch.kernels import fingerprint_array, ref
     from repro_torch.kernels import matmul_digest as mm
 
-    torch.backends.cuda.matmul.allow_tf32 = False      # the plain f32 product in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    (M, K), N = a.shape, b.shape[1]
+    K = a.shape[1]
     c, dig = mm.matmul_digest(a, b)
     pc, pdig = ref.matmul_digest_ref(a, b)
-    check(torch.equal(dig, pdig), "matmul_digest residues equal its plain version's")
+    check(torch.equal(dig, pdig), f"{tag} residues equal its plain version's")
     blocked = ref.blocked_view(a, 128, 128)
     check(torch.equal(fingerprint_array(blocked), dig),
-          "matmul_digest residues equal checksum_words' digest of blocked_view(A)")
+          f"{tag} residues equal checksum_words' digest of blocked_view(A)")
     host = fingerprint_bytes(blocked.view(torch.uint8).cpu().numpy())
     check(tuple(dig.cpu().tolist()) == host.h,
-          "matmul_digest residues equal the host digest of A's blocked bytes")
+          f"{tag} residues equal the host digest of A's blocked bytes")
     del blocked
     a64, b64 = a.double(), b.double()
     c64 = a64 @ b64
@@ -1207,36 +1230,91 @@ def matmul_check(card: dict, a: torch.Tensor, b: torch.Tensor) -> tuple[dict, to
     del a64, b64
     err = (c.double() - c64).abs()
     perr = (pc.double() - c64).abs()
-    check(bool((err <= tol).all()), "C within K*2^-24*(|A|@|B|) of the float64 product")
-    check(bool((perr <= tol).all()), "plain C within K*2^-24*(|A|@|B|) of the float64 product")
-    prod = product_only(a, b)
-    check(torch.equal(prod(), c), "the product-only build gives the fused kernel's C")
-    out = {"shape": [M, K, N], "max_abs_err": float((c - pc).abs().max()),
+    check(bool((err <= tol).all()), f"{tag} C within K*2^-24*(|A|@|B|) of the float64 product")
+    check(bool((perr <= tol).all()),
+          f"{tag} plain C within K*2^-24*(|A|@|B|) of the float64 product")
+    out = {"shape": [a.shape[0], K, b.shape[1]], "max_abs_err": float((c - pc).abs().max()),
            "max_abs_err_f64": float(err.max()),
            "max_rel_err_f64": float(err.max() / c64.abs().max()),
            "max_share_of_tolerance": float((err / tol.clamp_min(1e-300)).max())}
-    del c64, tol, err, perr, pc, c
+    return out, dig, c
+
+
+def in_turns(calls: dict) -> dict:
+    """Mean ms of each call, timed in turns (a b c ... c b a); ``calls`` maps
+    a key to (call, timed launches a turn). Adds ``runs_ms``."""
+    runs = {key: [] for key in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for key in order:
+            fn, iters = calls[key]
+            runs[key].append(cuda_ms(fn, iters=iters, warmup=1))
+    return {**{key: sum(v) / len(v) for key, v in runs.items()}, "runs_ms": runs}
+
+
+def matmul_check(card: dict, a: torch.Tensor, b: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """Phase 6: the fused matmul + digest kernel against its plain version.
+    Returns its row of the kernels line and its residues."""
+    from repro_torch.kernels import fingerprint_array, ref
+    from repro_torch.kernels import matmul_digest as mm
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # the plain f32 product in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    (M, K), N = a.shape, b.shape[1]
+    out, dig, c = matmul_held(a, b, "matmul_digest")
+    prod = product_only(a, b)
+    check(torch.equal(prod(), c), "the product-only build gives the fused kernel's C")
+    del c
     lib_name, lib_call = library_matmul(a, b)
-    calls = {   # key on the kernels line: (call, timed launches a turn)
+    out.update(in_turns({   # key on the kernels line: (call, timed launches a turn)
         "ms": (lambda: mm.matmul_digest(a, b), 20),
         "product_only_ms": (prod, 20),
         "library_ms": (lib_call, 20),
         "separate_digest_ms": (lambda: fingerprint_array(ref.blocked_view(a, 128, 128)), 20),
         "plain_ms": (lambda: ref.matmul_digest_ref(a, b), 2),
-    }
-    runs = {key: [] for key in calls}
-    for order in (list(calls), list(reversed(calls))):     # in turns: a b c d e e d c b a
-        for key in order:
-            fn, iters = calls[key]
-            runs[key].append(cuda_ms(fn, iters=iters, warmup=1))
-    out.update({key: sum(v) / len(v) for key, v in runs.items()})
+    }))
     out.update(
-        runs_ms=runs, library_call=lib_name,
+        library_call=lib_name,
         digest_share=(out["ms"] - out["product_only_ms"]) / out["ms"],
         library_plus_digest_ms=out["library_ms"] + out["separate_digest_ms"],
         separate_digest_row_major_ms=cuda_ms(lambda: fingerprint_array(a), iters=20),
         **matmul_bound(card, M, K, N))
     return out, dig
+
+
+def matmul_check_f32b(card: dict, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Phase 6 with a float32 B: the split of B bit-equal to its plain
+    version, then ``matmul_held`` and the times, in turns, of the kernel,
+    cuBLAS SGEMM on A cast to float32 before timing (TF32 off), the split
+    alone, the separate digest pass and the plain version. Returns the
+    ``matmul_digest_f32b`` row of the kernels line."""
+    from repro_torch.kernels import fingerprint_array, ref
+    from repro_torch.kernels import matmul_digest as mm
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # SGEMM and the plain product in full f32
+    (M, K), N = a.shape, b.shape[1]
+    split = mm.split_bf16x3(b)
+    check(torch.equal(split.view(torch.int16), ref.split_bf16x3(b).view(torch.int16)),
+          "split_bf16x3 kernel bit-equal to its plain version")
+    del split
+    out, _, c = matmul_held(a, b, "matmul_digest (f32 B)")
+    del c
+    a32 = a.float()
+    sgemm = lambda: torch.mm(a32, b)   # noqa: E731
+    check(sgemm().dtype == torch.float32, "torch.mm(a32, b) gives f32")
+    out.update(in_turns({
+        "ms": (lambda: mm.matmul_digest(a, b), 10),
+        "library_ms": (sgemm, 10),
+        "split_ms": (lambda: mm.split_bf16x3(b), 20),
+        "separate_digest_ms": (lambda: fingerprint_array(ref.blocked_view(a, 128, 128)), 20),
+        "plain_ms": (lambda: ref.matmul_digest_ref(a, b), 2),
+    }))
+    del a32
+    out.update(
+        library_call="torch.mm(a32, b), a32 = a.float() cast before timing, TF32 off "
+                     "(cuBLAS SGEMM)",
+        library_plus_digest_ms=out["library_ms"] + out["separate_digest_ms"],
+        **matmul_bound(card, M, K, N, b_bytes=4))
+    return out
 
 
 def matmul_path(a: torch.Tensor, b: torch.Tensor, dig: torch.Tensor) -> dict:
@@ -5653,7 +5731,8 @@ def print_collectives(coll: dict, smi: str) -> None:
     print("collectives " + json.dumps(coll))
 
 
-CARD_PARTS = ("stripes", "engine", "serve_long", "remat", "dryrun")   # one-card parts --phases runs alone
+# one-card parts --phases runs alone
+CARD_PARTS = ("stripes", "engine", "matmul", "serve_long", "remat", "dryrun")
 
 
 def long_and_remat(seed: int, device, smi: str, parts) -> None:
@@ -5714,6 +5793,60 @@ def print_dryrun(dry: dict, smi: str, props) -> None:
     sys.stdout.flush()
 
 
+def matmul_part(seed: int, device, card: dict, smi: str, reset, counts) -> dict:
+    """Item 6: the fused matmul + digest at mistral-nemo-12b's up-projection,
+    B in bf16 and then in float32, each held (``matmul_check``,
+    ``matmul_check_f32b``) and then driven through ``matmul_with_digest``
+    with the counts at 0. Returns {"bf16", "f32b": kernels-line rows,
+    "path", "path_f32b": the path runs}."""
+    out = {}
+    a, b = matmul_inputs(seed, device)
+    mmr, dig = matmul_check(card, a, b)
+    print(f"kernel matmul_digest {mmr['shape']}: residues exact, C within K*2^-24*(|A|@|B|) "
+          f"of float64 (max abs err {mmr['max_abs_err_f64']:.3e}, max rel err "
+          f"{mmr['max_rel_err_f64']:.3e}, {100 * mmr['max_share_of_tolerance']:.2f}% of the "
+          f"tolerance; vs plain {mmr['max_abs_err']:.3e}), {mmr['ms']:.4f} ms (bound "
+          f"{mmr['bound_ms']:.4f} ms by {mmr['bound_by']}, "
+          f"{100 * mmr['bound_ms'] / mmr['ms']:.1f}% of bound), product only "
+          f"{mmr['product_only_ms']:.4f} ms (digest share {100 * mmr['digest_share']:.2f}%), "
+          f"plain {mmr['plain_ms']:.2f} ms, library {mmr['library_ms']:.4f} ms "
+          f"({mmr['library_call']}), separate digest {mmr['separate_digest_ms']:.4f} ms, "
+          f"library + separate digest {mmr['library_plus_digest_ms']:.4f} ms [{smi}]")
+    check(mmr["ms"] < mmr["library_plus_digest_ms"],
+          "the fused kernel is faster than the library product plus the separate digest pass")
+    sync(device)
+    reset()
+    out["path"] = matmul_path(a, b, dig)
+    out["path"]["launches"] = counts()
+    print("matmul_path " + json.dumps(out["path"]))
+    check(out["path"]["launches"]["matmul_digest"] > 0, "matmul_digest launched on its path")
+    del b
+
+    _, b = matmul_inputs(seed, device, torch.float32)
+    m32 = matmul_check_f32b(card, a, b)
+    print(f"kernel matmul_digest_f32b {m32['shape']} (B float32, three bf16 terms): split "
+          f"bit-equal, residues exact, C within K*2^-24*(|A|@|B|) of float64 (max abs err "
+          f"{m32['max_abs_err_f64']:.3e}, max rel err {m32['max_rel_err_f64']:.3e}, "
+          f"{100 * m32['max_share_of_tolerance']:.2f}% of the tolerance; vs plain "
+          f"{m32['max_abs_err']:.3e}), {m32['ms']:.4f} ms (bound {m32['bound_ms']:.4f} ms by "
+          f"{m32['bound_by']}, {100 * m32['bound_ms'] / m32['ms']:.1f}% of bound; f32 CUDA-core "
+          f"ceiling {m32['bound_fp32_ms']:.4f} ms), split alone {m32['split_ms']:.4f} ms, plain "
+          f"{m32['plain_ms']:.2f} ms, library {m32['library_ms']:.4f} ms "
+          f"({m32['library_call']}), separate digest {m32['separate_digest_ms']:.4f} ms, "
+          f"library + separate digest {m32['library_plus_digest_ms']:.4f} ms [{smi}]")
+    check(m32["ms"] < m32["library_plus_digest_ms"],
+          "the f32-B kernel is faster than SGEMM plus the separate digest pass")
+    sync(device)
+    reset()
+    out["path_f32b"] = matmul_path(a, b, dig)
+    out["path_f32b"]["launches"] = counts()
+    print("matmul_path_f32b " + json.dumps(out["path_f32b"]))
+    check(out["path_f32b"]["launches"]["matmul_digest"] > 0,
+          "matmul_digest launched on its float32-B path")
+    out.update(bf16=mmr, f32b=m32)
+    return out
+
+
 def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -> list[dict]:
     """Every phase on one card (items 3-15 of the module docstring); returns
     the ``kernels`` entries."""
@@ -5745,27 +5878,8 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     engine = engine_path(seed, device, reset, counts)
     print_engine(engine, smi)
 
-    a, b = matmul_inputs(seed, device)
-    mmr, dig = matmul_check(card, a, b)
-    print(f"kernel matmul_digest {mmr['shape']}: residues exact, C within K*2^-24*(|A|@|B|) "
-          f"of float64 (max abs err {mmr['max_abs_err_f64']:.3e}, max rel err "
-          f"{mmr['max_rel_err_f64']:.3e}, {100 * mmr['max_share_of_tolerance']:.2f}% of the "
-          f"tolerance; vs plain {mmr['max_abs_err']:.3e}), {mmr['ms']:.4f} ms (bound "
-          f"{mmr['bound_ms']:.4f} ms by {mmr['bound_by']}, "
-          f"{100 * mmr['bound_ms'] / mmr['ms']:.1f}% of bound), product only "
-          f"{mmr['product_only_ms']:.4f} ms (digest share {100 * mmr['digest_share']:.2f}%), "
-          f"plain {mmr['plain_ms']:.2f} ms, library {mmr['library_ms']:.4f} ms "
-          f"({mmr['library_call']}), separate digest {mmr['separate_digest_ms']:.4f} ms, "
-          f"library + separate digest {mmr['library_plus_digest_ms']:.4f} ms")
-    check(mmr["ms"] < mmr["library_plus_digest_ms"],
-          "the fused kernel is faster than the library product plus the separate digest pass")
-    torch.cuda.synchronize()
-    reset()
-    mpath = matmul_path(a, b, dig)
-    mpath["launches"] = counts()
-    del a, b, dig
-    print("matmul_path " + json.dumps(mpath))
-    check(mpath["launches"]["matmul_digest"] > 0, "matmul_digest launched on its path")
+    mm_part = matmul_part(seed, device, card, smi, reset, counts)
+    mmr, mmr32 = mm_part["bf16"], mm_part["f32b"]
 
     lat = digest_latency(device)
     print("digest_latency " + json.dumps(lat))
@@ -5911,7 +6025,8 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     print_dryrun(dry, smi, props)
     check(sum(dry["launches"].values()) == 0, "the dry run launched no digest")
     # each kernel's launches over every main-path run
-    runs = [stripes["launches"], engine["launches"], mpath["launches"], ckpt["launches"], svc["launches"],
+    runs = [stripes["launches"], engine["launches"], mm_part["path"]["launches"], ckpt["launches"],
+            svc["launches"],
             svc["idle_delta"]["launches"], serial["launches"], single["launches"],
             relay["plain"]["launches"],
             relay["tuned"]["launches"], *(r["launches"] for r in cli.values()),
@@ -5920,8 +6035,11 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
     launches = {k: launches[k] + sum(r[k] for r in runs) for k in launches}
     print("launches all paths " + json.dumps(launches))
 
+    # the float32-B path's matmul_digest launches are its own row's
+    launches["matmul_digest_f32b"] = mm_part["path_f32b"]["launches"]["matmul_digest"]
     kernels = []
-    for r in rows + [{"name": "matmul_digest", "exact": True, **mmr}]:
+    for r in rows + [{"name": "matmul_digest", "exact": True, **mmr},
+                     {"name": "matmul_digest_f32b", "exact": True, **mmr32}]:
         entry = {"name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
                  "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
                  "max_abs_err": r["max_abs_err"], "tolerance": 0, "exact": r["exact"],
@@ -5933,10 +6051,11 @@ def card_phases(seed: int, device, card: dict, smi: str, props, reset, counts) -
         for extra in ("copy_ms", "bound_digest_ms", "library_call", "product_only_ms",
                       "digest_share", "separate_digest_ms", "library_plus_digest_ms",
                       "separate_digest_row_major_ms", "runs_ms", "max_abs_err_f64",
-                      "max_rel_err_f64", "max_share_of_tolerance"):
+                      "max_rel_err_f64", "max_share_of_tolerance", "split_ms",
+                      "bound_fp32_ms", "bound_split_bytes_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        if r["name"] == "matmul_digest":
+        if r["name"].startswith("matmul_digest"):
             entry["tolerance"] = ("C: |C - C64| <= K*2^-24*(|A|@|B|) elementwise, for the "
                                   "kernel and the plain version; residues: exact")
         kernels.append(entry)
@@ -6003,6 +6122,8 @@ def main() -> int:
             print_stripes(stripes_path(args.seed, device, reset, counts), smi)
         if "engine" in phases:
             print_engine(engine_path(args.seed, device, reset, counts), smi)
+        if "matmul" in phases:
+            matmul_part(args.seed, device, card, smi, reset, counts)
         long_and_remat(args.seed, device, smi, phases)
         if "dryrun" in phases:
             dry = dryrun_path(device, reset, counts)

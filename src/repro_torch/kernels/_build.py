@@ -116,8 +116,10 @@ def load() -> ctypes.CDLL:
         lib.ck_error_string.restype = ctypes.c_char_p
         lib.mm_layout.argtypes = [ctypes.POINTER(ci)]
         lib.mm_layout.restype = ci
-        lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, ll, ll, ll, vp, vp, vp, vp, vp, ci, vp]
+        lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, vp, ll, ll, ll, vp, vp, vp, vp, ci, vp]
         lib.mm_digest.restype = ci
+        lib.mm_split.argtypes = [ci, vp, vp, ll, ll, ci, vp]
+        lib.mm_split.restype = ci
         lib.mm_product.argtypes = [ci, vp, vp, vp, ll, ll, ll, ci, vp]
         lib.mm_product.restype = ci
         _lib = lib
@@ -133,8 +135,8 @@ def layout(lib: ctypes.CDLL) -> tuple[int, int, int]:
 
 def mm_layout(lib: ctypes.CDLL) -> tuple[int, ...]:
     """The matmul build's tiling: (C tile rows, C tile columns, K slab,
-    threads, ring stages, row blocks a tile-order group) of the bf16 kernel,
-    then the FMA kernel's C tile rows."""
+    threads, ring stages, row blocks a tile-order group, bf16 terms of a
+    float32 B)."""
     buf = (ctypes.c_int * 7)()
     lib.mm_layout(buf)
     return tuple(int(v) for v in buf)

@@ -21,12 +21,13 @@
 //
 // Bound on this card (H100 SXM), the largest of:
 //   product - 2*M*N*K FLOP at 4096 dense bf16 FLOP per SM per clock x 132 SMs
-//             x the max SM clock (989.4 TFLOP/s at 1830 MHz, the data sheet);
+//             x the max SM clock (989.4 TFLOP/s at 1830 MHz, the data sheet),
+//             three times over for an f32 B (its three bf16 terms, below);
 //   bytes   - A + B + C once each over 3.35 TB/s;
 //   digest  - 8 INT32 multiply-adds per A element (2 bytes x 4 bases) over
 //             64 INT32 lanes per SM x 132 SMs x clock.
-// At M=14336, K=5120, N=4096 the product binds (0.56 ms at 1980 MHz, against
-// 0.13 ms of bytes and 0.04 ms of digest).
+// At M=14336, K=5120, N=4096 the product binds (bf16 B 0.56 ms, f32 B 1.69 ms
+// at 1980 MHz, against 0.13-0.14 ms of bytes and 0.04 ms of digest).
 //
 // The bf16 kernel (mm_digest_wgmma_kernel). A bf16 x bf16 product is exact
 // in f32, so C differs from the TPU's f32 dot only in the order of summation.
@@ -79,10 +80,27 @@
 //   * mm_product runs the same kernel without the digest warps (kDigest =
 //     false), to time the digest's share.
 //
-// An f32 B cannot go through the tensor cores (they would round it), so
-// mm_digest_fma_kernel is a plain shared-memory kernel of f32 FMAs (128 x 128
-// tile, 8 x 8 outputs a thread, slabs of K = 8): the blocks of the first
-// column of C tiles digest their rows as they load them.
+// An f32 B (kTerms = 3). The tensor cores take bf16, so B is split exactly
+// into three bf16 terms and the same kernel runs over three times the slabs.
+//   * The split (split_bf16x3_kernel), by truncation: b1 = the top 16 bits
+//     of b, r1 = b - b1 (exact in f32), b2 = the top 16 bits of r1, b3 = the
+//     top 16 bits of r1 - b2. For |b| >= 2^-110 b1 + b2 + b3 == b exactly;
+//     below, only bits under 2^-133 (the least bf16 subnormal) are dropped.
+//     Truncation never rounds up past bf16's largest finite value. An inf
+//     goes to (inf, 0, 0), a NaN to (canonical NaN, 0, 0): inf - inf would
+//     be NaN, and a NaN with its payload in its low 16 bits would truncate
+//     to inf. A is bf16, so each a * b_i has at most 16 significant bits and
+//     is exact in f32: C = A b1 + A b2 + A b3 differs from an f32 FMA
+//     product only in the order of summation, as the bf16 path does.
+//   * Layout. B3 is (3 * Kp, N) bf16, Kp = K rounded up to the slab of 64,
+//     interleaved by slab: rows [192 s, 192 s + 64) hold b1's slab s, the
+//     next 64 b2's, the next 64 b3's; rows past K are zero. So slab kt of
+//     B3 pairs with A's slab kt / 3, which the producer loads three times
+//     (the repeats hit L2); the digest warps digest A on slabs kt % 3 == 0
+//     only, with slab kt / 3's column weights, and still wait and arrive on
+//     every stage's barriers. The residues are the bf16 kernel's.
+//   * The split writes 1.5x B's bytes; the main kernel reads them once. The
+//     product (three bf16 products) binds.
 
 #include <cuda.h>              // CUtensorMap and its enums (header only)
 #include <cuda_runtime.h>
@@ -120,11 +138,10 @@ static_assert(kABytes + kBBytes + kWBytes <= kStageBytes && kStageBytes % 1024 =
 static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168, "register budget");
 static_assert(kSmemBytes <= 232448 - 256, "dynamic shared memory");
 
-// f32-B FMA kernel and the partial-sum kernel
-constexpr int kFThreads = 256;                // 8 warps
-constexpr int kFBM = 128;                     // C tile rows (the FMA partials' row blocks)
-constexpr int kFBN = 128;                     // C tile columns
-constexpr int kFBK = 8;                       // K slab
+// the split of an f32 B and the partial-sum kernel
+constexpr int kTerms = 3;                     // bf16 terms of an f32
+constexpr int kSumThreads = 256;              // digest_sum_kernel
+constexpr int kSplitThreads = 256;            // split_bf16x3_kernel: 4 columns a thread
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -282,8 +299,9 @@ __device__ __forceinline__ void chunk_sum(uint32_t sum[kBases], uint4 x, uint32_
   }
 }
 
-// bf16 A and B through wgmma; persistent, grid = min(tiles, SMs).
-template <bool kDigest>
+// bf16 A and B through wgmma; persistent, grid = min(tiles, SMs). With
+// kT = kTerms, B is the split of an f32 B (3 * Kp rows, slab-interleaved).
+template <bool kDigest, int kT>
 __global__ void __launch_bounds__(kThreads, 1)
 mm_digest_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                        const __grid_constant__ CUtensorMap map_b,
@@ -302,7 +320,7 @@ mm_digest_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const int mt = (M + kBM - 1) / kBM;
   const int nt = (N + kBN - 1) / kBN;
   const int tiles = mt * nt;
-  const int ktiles = (K + kBK - 1) / kBK;
+  const int ktiles = (K + kBK - 1) / kBK * kT;   // A's slabs, each kT times
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -325,18 +343,20 @@ mm_digest_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           tile_coords(t, mt, nt, m, n);
           for (int kt = 0; kt < ktiles; ++kt, ++it) {
             const int s = it % kStages;
+            const int ka = kt / kT;             // A's slab; B's is kt
             mbar_wait(smem_u32(&empty[s]), ((it / kStages) & 1) ^ 1);
             const uint32_t bar = smem_u32(&full[s]);
-            const int wbytes = kDigest ? 16 * min(kBK, K - kt * kBK) : 0;
+            const bool weights = kDigest && kt % kT == 0;   // the slabs the digest reads
+            const int wbytes = weights ? 16 * min(kBK, K - ka * kBK) : 0;
             mbar_expect_tx(bar, kABytes + kBBytes + wbytes);
             const uint32_t dst = ring + s * kStageBytes;
-            tma_load(dst, &map_a, bar, kt * kBK, m * kBM);
+            tma_load(dst, &map_a, bar, ka * kBK, m * kBM);
 #pragma unroll
             for (int j = 0; j < kBN / kBBoxN; ++j)
               tma_load(dst + kABytes + j * kBBoxBytes, &map_b, bar, n * kBN + j * kBBoxN,
                        kt * kBK);
-            if (kDigest)
-              bulk_load(dst + kABytes + kBBytes, colw16 + static_cast<size_t>(kt) * kBK, wbytes,
+            if (weights)
+              bulk_load(dst + kABytes + kBBytes, colw16 + static_cast<size_t>(ka) * kBK, wbytes,
                         bar);
           }
         }
@@ -373,7 +393,8 @@ mm_digest_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);
           const uint32_t stage = ring + s * kStageBytes;
           const uint32_t w = stage + kABytes + kBBytes + 128 * c;
-          if (first && kt * kBK + 8 * c < K) {   // K % 8 == 0: whole chunks only
+          // each A slab once (its first of kT stages); K % 8 == 0: whole chunks only
+          if (first && kt % kT == 0 && kt / kT * kBK + 8 * c < K) {
             uint32_t sum[kBases];
             chunk_sum(sum, ld_shared_v4(stage + r0 * 128 + ((c ^ (r0 & 7)) << 4)), w);
 #pragma unroll
@@ -463,144 +484,51 @@ mm_digest_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// Adds the weighted bytes of 2*kWords consecutive bf16 codes of one row
-// (columns col, col+1, ...) into acc. colw is (K, 8): per column the lo
-// weights of the 4 bases, then the hi weights. Little-endian: the element
-// at the lower column is the low half of each 32-bit word.
-template <int kWords>
-__device__ __forceinline__ void digest_words(uint32_t acc[kBases], const uint32_t* w,
-                                             const uint4* __restrict__ colw, int col) {
-#pragma unroll
-  for (int q = 0; q < kWords; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t code = (w[q] >> (16 * h)) & 0xFFFFu;
-      const uint32_t lo = code & 0xFFu;
-      const uint32_t hi = code >> 8;
-      const int c = col + 2 * q + h;
-      const uint4 wl = __ldg(colw + 2 * c);
-      const uint4 wh = __ldg(colw + 2 * c + 1);
-      acc[0] += lo * wl.x + hi * wh.x;
-      acc[1] += lo * wl.y + hi * wh.y;
-      acc[2] += lo * wl.z + hi * wh.z;
-      acc[3] += lo * wl.w + hi * wh.w;
-    }
+// One f32 as the bf16 codes of its three terms (the note at the top).
+__device__ __forceinline__ void split3(float b, uint32_t& h1, uint32_t& h2, uint32_t& h3) {
+  const uint32_t u = __float_as_uint(b);
+  if ((u & 0x7F800000u) == 0x7F800000u) {      // inf: (inf, 0, 0); NaN: (NaN, 0, 0)
+    h1 = (u & 0x007FFFFFu) ? 0x7FC0u : u >> 16;
+    h2 = h3 = 0u;
+    return;
   }
+  const float r1 = __fsub_rn(b, __uint_as_float(u & 0xFFFF0000u));    // exact
+  const uint32_t v = __float_as_uint(r1);
+  const float r2 = __fsub_rn(r1, __uint_as_float(v & 0xFFFF0000u));   // exact
+  h1 = u >> 16;
+  h2 = v >> 16;
+  h3 = __float_as_uint(r2) >> 16;
 }
 
-// Weights the thread's row sum by its row factor and adds the block's sums
-// into partial[blockIdx.y]. Called by every thread of a digesting FMA block.
-__device__ void digest_finish(const uint32_t acc[kBases], const uint32_t* __restrict__ roww,
-                              int M, int row, int4* __restrict__ partial) {
-  __shared__ uint32_t part[kBases][kFThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// B3 (3 * Kp, N) bf16, slab-interleaved, from B (K, N) f32: each thread
+// splits 4 consecutive columns of one row k < Kp (zeros past K) and writes
+// them to its rows of the three terms. Grid-stride; N % 4 == 0.
+__global__ void __launch_bounds__(kSplitThreads)
+split_bf16x3_kernel(const float4* __restrict__ B, uint2* __restrict__ B3, int K, int N, int Kp) {
+  const long long n4 = N / 4;
+  const long long total = static_cast<long long>(Kp) * n4;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long k = i / n4;
+    const long long j = i - k * n4;
+    const float4 v = k < K ? __ldg(B + k * n4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[kTerms][4];
 #pragma unroll
-  for (int b = 0; b < kBases; ++b) {
-    // (P-1)^2 < 2^32; 32 values < P add to < 2^21
-    uint32_t t = row < M ? (acc[b] % kP) * __ldg(roww + static_cast<size_t>(b) * M + row) % kP
-                         : 0u;
+    for (int e = 0; e < 4; ++e) split3(x[e], h[0][e], h[1][e], h[2][e]);
+    const long long row = k / kBK * (kTerms * kBK) + k % kBK;   // b1's row; b2, b3 at +64, +128
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
-    if (lane == 0) part[b][warp] = t % kP;
+    for (int t = 0; t < kTerms; ++t)      // little-endian: the lower column in the low half
+      B3[(row + t * kBK) * n4 + j] = make_uint2(h[t][0] | h[t][1] << 16, h[t][2] | h[t][3] << 16);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t h[kBases];
-#pragma unroll
-    for (int b = 0; b < kBases; ++b) {
-      uint32_t s = 0;
-#pragma unroll
-      for (int w = 0; w < kFThreads / 32; ++w) s += part[b][w];
-      h[b] = s % kP;
-    }
-    partial[blockIdx.y] = make_int4(static_cast<int>(h[0]), static_cast<int>(h[1]),
-                                    static_cast<int>(h[2]), static_cast<int>(h[3]));
-  }
-}
-
-// CUDA-core kernel: bf16 A, f32 B, f32 FMAs. Grid (ceil(N/128), ceil(M/128)).
-__global__ void __launch_bounds__(kFThreads)
-mm_digest_fma_kernel(const uint16_t* __restrict__ A, const float* __restrict__ B,
-                     float* __restrict__ C, int M, int N, int K,
-                     const uint32_t* __restrict__ roww, const uint4* __restrict__ colw,
-                     int4* __restrict__ partial) {
-  __shared__ __align__(16) float sA[kFBK][kFBM];   // A slab, transposed, as f32
-  __shared__ __align__(16) float sB[kFBK][kFBN];
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kFBN;
-  const int m0 = blockIdx.y * kFBM;
-  const bool digest = blockIdx.x == 0;
-  const int ar = tid >> 1, ah = (tid & 1) * 4;      // A loads: row, 4 of 8 columns
-  const int br = tid >> 5, bc = (tid & 31) * 4;     // B loads: row, 4 columns
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  uint32_t dacc[kBases] = {0u, 0u, 0u, 0u};
-
-  for (int k0 = 0; k0 < K; k0 += kFBK) {            // K % 8 == 0: whole slabs
-    uint2 av = make_uint2(0u, 0u);
-    if (m0 + ar < M)
-      av = *reinterpret_cast<const uint2*>(A + static_cast<size_t>(m0 + ar) * K + k0 + ah);
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n0 + bc < N)
-      bv = *reinterpret_cast<const float4*>(B + static_cast<size_t>(k0 + br) * N + n0 + bc);
-    if (digest) {
-      const uint32_t w[2] = {av.x, av.y};
-      digest_words<2>(dacc, w, colw, k0 + ah);
-#pragma unroll
-      for (int b = 0; b < kBases; ++b) dacc[b] %= kP;
-    }
-    __syncthreads();                                 // the last slab is consumed
-    // a bf16 code is the top half of its f32 bit pattern
-    sA[ah + 0][ar] = __uint_as_float(av.x << 16);
-    sA[ah + 1][ar] = __uint_as_float(av.x & 0xFFFF0000u);
-    sA[ah + 2][ar] = __uint_as_float(av.y << 16);
-    sA[ah + 3][ar] = __uint_as_float(av.y & 0xFFFF0000u);
-    *reinterpret_cast<float4*>(&sB[br][bc]) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&sA[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sA[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&sB[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&sB[k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = n0 + half * 64 + tx * 4;
-      if (col < N)                                   // N % 8 == 0: whole groups
-        *reinterpret_cast<float4*>(C + static_cast<size_t>(row) * N + col) =
-            make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
-                        acc[i][4 * half + 3]);
-    }
-  }
-  if (digest) digest_finish(dacc, roww, M, m0 + ar, partial);
 }
 
 // One block: out = sum of the blocks' partial residues mod P.
-__global__ void __launch_bounds__(kFThreads)
+__global__ void __launch_bounds__(kSumThreads)
 digest_sum_kernel(const int4* __restrict__ partial, int blocks, int* __restrict__ out) {
-  __shared__ uint32_t part[kBases][kFThreads / 32];
+  __shared__ uint32_t part[kBases][kSumThreads / 32];
   uint32_t s[kBases] = {0u, 0u, 0u, 0u};
-  for (int i = threadIdx.x; i < blocks; i += kFThreads) {   // < 256 terms of < P each
+  for (int i = threadIdx.x; i < blocks; i += kSumThreads) {   // < 256 terms of < P each
     const int4 p = partial[i];
     s[0] += static_cast<uint32_t>(p.x);
     s[1] += static_cast<uint32_t>(p.y);
@@ -619,7 +547,7 @@ digest_sum_kernel(const int4* __restrict__ partial, int blocks, int* __restrict_
   __syncthreads();
   if (threadIdx.x < kBases) {
     uint32_t sum = 0;
-    for (int w = 0; w < kFThreads / 32; ++w) sum += part[threadIdx.x][w];
+    for (int w = 0; w < kSumThreads / 32; ++w) sum += part[threadIdx.x][w];
     out[threadIdx.x] = static_cast<int>(sum % kP);
   }
 }
@@ -671,30 +599,47 @@ cudaError_t check_shape(long long M, long long N, long long K) {
   return cudaSuccess;
 }
 
+// Rows of the split of a K-row B: 3 * Kp, Kp = K rounded up to the slab.
+long long split_rows(long long K) { return kTerms * ((K + kBK - 1) / kBK * kBK); }
+
 // Blocks of the persistent bf16 grid: min(tiles, SMs).
 long long wgmma_grid(long long M, long long N, int sms) {
   const long long tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   return tiles < sms ? tiles : sms;
 }
 
-template <bool kDigest>
+// b is (K, N) bf16 (kT = 1) or the split of an f32 B, (split_rows(K), N) (kT = kTerms).
+template <bool kDigest, int kT>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, long long M, long long N,
                          long long K, const void* roww, const void* colw16, void* partial,
                          int sms, cudaStream_t st) {
-  if (((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) > INT_MAX || sms <= 0)
+  const long long brows = kT == 1 ? K : split_rows(K);
+  if (((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) > INT_MAX || brows > INT_MAX || sms <= 0)
     return cudaErrorInvalidConfiguration;
   CUtensorMap map_a, map_b;
   cudaError_t err = tma_map(&map_a, a, M, K, kBM, kBK);
-  if (err == cudaSuccess) err = tma_map(&map_b, b, K, N, kBK, kBBoxN);
+  if (err == cudaSuccess) err = tma_map(&map_b, b, brows, N, kBK, kBBoxN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(mm_digest_wgmma_kernel<kDigest>,
+    err = cudaFuncSetAttribute(mm_digest_wgmma_kernel<kDigest, kT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  mm_digest_wgmma_kernel<kDigest>
+  mm_digest_wgmma_kernel<kDigest, kT>
       <<<static_cast<unsigned>(wgmma_grid(M, N, sms)), kThreads, kSmemBytes, st>>>(
           map_a, map_b, static_cast<float*>(c), static_cast<int>(M), static_cast<int>(N),
           static_cast<int>(K), static_cast<const uint32_t*>(roww),
           static_cast<const uint4*>(colw16), static_cast<int4*>(partial));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_split(const void* b, void* b3, long long K, long long N, int sms,
+                         cudaStream_t st) {
+  if (split_rows(K) > INT_MAX || sms <= 0) return cudaErrorInvalidConfiguration;
+  const long long threads = split_rows(K) / kTerms * (N / 4);
+  long long blocks = (threads + kSplitThreads - 1) / kSplitThreads;
+  if (blocks > 16LL * sms) blocks = 16LL * sms;       // grid-stride beyond 16 blocks an SM
+  split_bf16x3_kernel<<<static_cast<unsigned>(blocks), kSplitThreads, 0, st>>>(
+      static_cast<const float4*>(b), static_cast<uint2*>(b3), static_cast<int>(K),
+      static_cast<int>(N), static_cast<int>(split_rows(K) / kTerms));
   return cudaGetLastError();
 }
 
@@ -703,8 +648,8 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, long long M, lon
 extern "C" {
 
 // Layout constants, so the Python wrapper can refuse a library built for
-// another tiling: {bf16 kernel: C tile rows, C tile columns, K slab, threads,
-// ring stages, row blocks in a tile-order group; FMA kernel: C tile rows}.
+// another tiling: {C tile rows, C tile columns, K slab, threads, ring
+// stages, row blocks in a tile-order group, bf16 terms of an f32 B}.
 int mm_layout(int* out7) {
   out7[0] = kBM;
   out7[1] = kBN;
@@ -712,64 +657,67 @@ int mm_layout(int* out7) {
   out7[3] = kThreads;
   out7[4] = kStages;
   out7[5] = kGroupM;
-  out7[6] = kFBM;
+  out7[6] = kTerms;
   return 0;
 }
 
 // C = A @ B and the digest residues of A's blocked bytes.
 //   a        device, (M, K) bf16, 16-byte aligned
 //   b        device, (K, N) bf16 (b_f32 == 0) or f32 (b_f32 != 0), 16-byte aligned
+//   b3       device scratch for an f32 B, (3 * Kp, N) bf16, Kp = K rounded up
+//            to 64: the split (split_bf16x3_kernel); unused for a bf16 B
 //   c        device, (M, N) f32 output
 //   roww     device, (4, M) int32 row factors
-//   colw     device, (K, 8) int32 column factors (lo x 4 bases, hi x 4 bases)
-//   colw16   device, (K, 4) int32: the same factors packed for the bf16 kernel,
-//            per column and base lo | hi << 16
-//   partial  device scratch, (blocks, 4) int32: bf16 B min(ceil(M/128) * ceil(N/256),
-//            sms) blocks, f32 B ceil(M/128)
+//   colw16   device, (K, 4) int32 column factors, per column and base
+//            lo | hi << 16
+//   partial  device scratch, (min(ceil(M/128) * ceil(N/256), sms), 4) int32
 //   out      device, (4,) int32 residues
 //   sms      the card's SM count (the persistent grid's size)
-// K % 8 == 0 and N % 8 == 0. Launches on `stream` and returns the
-// cudaError_t of the launches.
-int mm_digest(int device, const void* a, const void* b, int b_f32, void* c, long long M,
-              long long N, long long K, const void* roww, const void* colw, const void* colw16,
+// K % 8 == 0 and N % 8 == 0. Launches on `stream` (the split first for an
+// f32 B) and returns the cudaError_t of the launches.
+int mm_digest(int device, const void* a, const void* b, int b_f32, void* b3, void* c,
+              long long M, long long N, long long K, const void* roww, const void* colw16,
               void* partial, void* out, int sms, void* stream) {
   cudaError_t err = check_shape(M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  long long blocks;
   if (b_f32) {
-    const long long mblocks = (M + kFBM - 1) / kFBM;
-    if (mblocks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-    const dim3 grid(static_cast<unsigned>((N + kFBN - 1) / kFBN), static_cast<unsigned>(mblocks));
-    mm_digest_fma_kernel<<<grid, kFThreads, 0, st>>>(
-        static_cast<const uint16_t*>(a), static_cast<const float*>(b), static_cast<float*>(c),
-        static_cast<int>(M), static_cast<int>(N), static_cast<int>(K),
-        static_cast<const uint32_t*>(roww), static_cast<const uint4*>(colw),
-        static_cast<int4*>(partial));
-    err = cudaGetLastError();
-    blocks = mblocks;
+    err = launch_split(b, b3, K, N, sms, st);
+    if (err == cudaSuccess)
+      err = launch_wgmma<true, kTerms>(a, b3, c, M, N, K, roww, colw16, partial, sms, st);
   } else {
-    err = launch_wgmma<true>(a, b, c, M, N, K, roww, colw16, partial, sms, st);
-    blocks = wgmma_grid(M, N, sms);
+    err = launch_wgmma<true, 1>(a, b, c, M, N, K, roww, colw16, partial, sms, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  digest_sum_kernel<<<1, kFThreads, 0, st>>>(static_cast<const int4*>(partial),
-                                             static_cast<int>(blocks), static_cast<int*>(out));
+  digest_sum_kernel<<<1, kSumThreads, 0, st>>>(static_cast<const int4*>(partial),
+                                               static_cast<int>(wgmma_grid(M, N, sms)),
+                                               static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split of an f32 B alone: b (K, N) f32 into b3 (3 * Kp, N) bf16, as
+// mm_digest makes it. Exists so the split can be held bit for bit against
+// its plain version and timed.
+int mm_split(int device, const void* b, void* b3, long long K, long long N, int sms,
+             void* stream) {
+  cudaError_t err = check_shape(1, N, K);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = launch_split(b, b3, K, N, sms, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
 // C = A @ B alone: the bf16 kernel without its digest warps. Takes the same
-// a, b, c, M, N, K, sms and stream as mm_digest; it exists to time the
-// digest's share of mm_digest.
+// a, b, c, M, N, K, sms and stream as mm_digest (bf16 B); it exists to time
+// the digest's share of mm_digest.
 int mm_product(int device, const void* a, const void* b, void* c, long long M, long long N,
                long long K, int sms, void* stream) {
   cudaError_t err = check_shape(M, N, K);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err == cudaSuccess)
-    err = launch_wgmma<false>(a, b, c, M, N, K, nullptr, nullptr, nullptr, sms,
-                              static_cast<cudaStream_t>(stream));
+    err = launch_wgmma<false, 1>(a, b, c, M, N, K, nullptr, nullptr, nullptr, sms,
+                                 static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

@@ -11,14 +11,19 @@ This module holds:
     A with ``_tables16`` and carries the running digest from grid step to
     grid step. Here the weight of a byte splits into a row factor and a
     column factor (``_digest_factors``), so the card needs no ordered
-    combine and its tiles need not be (bm, bk); the bf16 kernel reads the
+    combine and its tiles need not be (bm, bk); the kernel reads the
     column factors packed lo | hi << 16 (``_packed_col_w``);
   * the wrapper ``matmul_digest``, which checks dtype, shape, contiguity,
-    device and alignment, allocates C and the residues, and launches on the
-    current CUDA stream. A CPU tensor goes to the plain version in
-    ``ref.py``; a CUDA tensor goes to the kernel, or the wrapper raises;
-  * a launch count (``launch_counts``), raised by one where the kernel is
-    launched and nowhere else.
+    device and alignment, allocates C, the residues and, for a float32 B,
+    its exact split into three bf16 terms (``ref.split_rows`` rows), and
+    launches on the current CUDA stream: for a float32 B the split kernel,
+    then the tensor-core kernel over the three terms. A CPU tensor goes to
+    the plain version in ``ref.py``; a CUDA tensor goes to the kernels, or
+    the wrapper raises;
+  * ``split_bf16x3``, the split alone (``ref.split_bf16x3`` on the CPU), so
+    it can be held bit for bit against its plain version;
+  * a launch count (``launch_counts``), raised by one where ``matmul_digest``
+    launches its kernels and nowhere else.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import torch
 from repro_torch.core.integrity import BASES, NBASES, P
 from repro_torch.kernels import _build, ref
 
-# the bf16 tensor-core kernel (wgmma, persistent grid)
+# the tensor-core kernel (wgmma, persistent grid)
 BLOCK_M = 128       # rows of a C tile
 BLOCK_N = 256       # columns of a C tile
 SLAB_K = 64         # K slab: one 128-byte swizzled row of A
@@ -39,9 +44,8 @@ THREADS = 384       # producer warpgroup (TMA + digest warps) + 2 consumer warpg
 STAGES = 4          # TMA ring depth
 GROUP_M = 16        # row blocks in a group of the tile order
 DIGEST_THREADS = 96  # warps 1-3 of the producer warpgroup
-# the f32-B FMA kernel: one partial per row block of FMA_BLOCK_M rows
-FMA_BLOCK_M = 128
-LAYOUT = (BLOCK_M, BLOCK_N, SLAB_K, THREADS, STAGES, GROUP_M, FMA_BLOCK_M)
+TERMS = ref.SPLIT_TERMS  # bf16 terms of a float32 B, by slab of ref.SPLIT_SLAB = SLAB_K rows
+LAYOUT = (BLOCK_M, BLOCK_N, SLAB_K, THREADS, STAGES, GROUP_M, TERMS)
 
 _count_lock = threading.Lock()
 _LAUNCHES = {"matmul_digest": 0}
@@ -107,14 +111,14 @@ def _packed_col_w(col_w: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _factors_on(M: int, K: int, bm: int, bk: int,
-                device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Row factors, column factors and packed column factors on ``device``."""
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row factors and packed column factors on ``device``."""
     row_w, col_w = _digest_factors(M, K, bm, bk)
-    return tuple(torch.from_numpy(t).to(device) for t in (row_w, col_w, _packed_col_w(col_w)))
+    return tuple(torch.from_numpy(t).to(device) for t in (row_w, _packed_col_w(col_w)))
 
 
 def wgmma_grid(M: int, N: int, sms: int) -> int:
-    """Blocks of the persistent bf16 grid: min(tiles, SMs) (``wgmma_grid`` in
+    """Blocks of the persistent grid: min(tiles, SMs) (``wgmma_grid`` in
     ``csrc/matmul_digest.cu``), one digest partial each."""
     return min(-(-M // BLOCK_M) * -(-N // BLOCK_N), sms)
 
@@ -153,39 +157,78 @@ def _check(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int) -> None:
 _layout_checked = False
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _library():
+    """The built kernel library, its tiling checked against ``LAYOUT`` once."""
     global _layout_checked
-    (M, K), N = a.shape, int(b.shape[1])
-    if K % 8 or N % 8:
-        raise ValueError(f"the CUDA kernel needs K % 8 == 0 and N % 8 == 0 (rows of whole "
-                         f"16-byte vectors), got K={K}, N={N}")
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
     lib = _build.load()
     if not _layout_checked:
         got = _build.mm_layout(lib)
         if got != LAYOUT:
             raise RuntimeError(f"kernel library layout {got} != wrapper layout {LAYOUT}")
         _layout_checked = True
+    return lib
+
+
+def _check_card_shape(K: int, N: int, *tensors: torch.Tensor) -> None:
+    if K % 8 or N % 8:
+        raise ValueError(f"the CUDA kernel needs K % 8 == 0 and N % 8 == 0 (rows of whole "
+                         f"16-byte vectors), got K={K}, N={N}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.ck_error_string(rc).decode()} ({rc})")
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    (M, K), N = a.shape, int(b.shape[1])
+    _check_card_shape(K, N, a, b)
+    lib = _library()
     device = a.device
-    row_w, col_w, col_w16 = _factors_on(M, K, bm, bk, device)
+    row_w, col_w16 = _factors_on(M, K, bm, bk, device)
     b_f32 = b.dtype == torch.float32
     sms = sm_count(device)
-    blocks = -(-M // FMA_BLOCK_M) if b_f32 else wgmma_grid(M, N, sms)
+    # an f32 B's three bf16 terms, written by the split kernel, read by the product
+    b3 = (torch.empty((ref.split_rows(K), N), dtype=torch.bfloat16, device=device)
+          if b_f32 else None)
     c = torch.empty((M, N), dtype=torch.float32, device=device)
-    partial = torch.empty((blocks, NBASES), dtype=torch.int32, device=device)
+    partial = torch.empty((wgmma_grid(M, N, sms), NBASES), dtype=torch.int32, device=device)
     out = torch.empty(NBASES, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mm_digest(device.index, a.data_ptr(), b.data_ptr(), int(b_f32), c.data_ptr(),
-                           M, N, K, row_w.data_ptr(), col_w.data_ptr(), col_w16.data_ptr(),
-                           partial.data_ptr(), out.data_ptr(), sms, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"matmul_digest kernel launch failed: {lib.ck_error_string(rc).decode()} ({rc})")
+        rc = lib.mm_digest(device.index, a.data_ptr(), b.data_ptr(), int(b_f32),
+                           None if b3 is None else b3.data_ptr(), c.data_ptr(), M, N, K,
+                           row_w.data_ptr(), col_w16.data_ptr(), partial.data_ptr(),
+                           out.data_ptr(), sms, stream)
+    _raise_on(lib, rc, "matmul_digest kernel")
     with _count_lock:
         _LAUNCHES["matmul_digest"] += 1
     return c, out
+
+
+def split_bf16x3(b: torch.Tensor) -> torch.Tensor:
+    """The exact split of a float32 B (K, N) into three bf16 terms,
+    (``ref.split_rows(K)``, N) bf16 interleaved by slab (``ref.split_bf16x3``
+    says how). ``matmul_digest`` runs the same kernel on a float32 B; this
+    call alone exists to hold it against its plain version and to time it,
+    and counts no launch. A CPU tensor goes to the plain version."""
+    if not isinstance(b, torch.Tensor) or b.dtype != torch.float32 or b.dim() != 2:
+        raise TypeError("b must be a 2-D float32 torch.Tensor")
+    if not b.is_contiguous():
+        raise ValueError("b must be contiguous")
+    if b.device.type == "cpu":
+        return ref.split_bf16x3(b)
+    K, N = b.shape
+    _check_card_shape(K, N, b)
+    lib = _library()
+    b3 = torch.empty((ref.split_rows(K), N), dtype=torch.bfloat16, device=b.device)
+    with torch.cuda.device(b.device):
+        rc = lib.mm_split(b.device.index, b.data_ptr(), b3.data_ptr(), K, N, sm_count(b.device),
+                          torch.cuda.current_stream(b.device).cuda_stream)
+    _raise_on(lib, rc, "split_bf16x3 kernel")
+    return b3
 
 
 def matmul_digest(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
@@ -196,7 +239,9 @@ def matmul_digest(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 
     K % bk and N % bn all 0. Returns (C float32 (M, N), residues (NBASES,)
     int32). (bm, bk) define the digest's blocked byte order
     (``ref.blocked_view``); bn is checked as the reference checks it. On the
-    card K and N must also be multiples of 8.
+    card K and N must also be multiples of 8, and a float32 B goes through
+    the tensor cores as its three bf16 terms (``split_bf16x3``): exact for
+    every |b| >= 2^-110, below that only bits under 2^-133 are dropped.
     """
     _check(a, b, bm, bn, bk)
     if a.device.type == "cpu":

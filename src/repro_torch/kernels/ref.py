@@ -18,6 +18,9 @@ import torch
 from repro_torch.core.integrity import BASES, NBASES, P
 
 _LANE = 128  # bytes folded per group in the byte-stream oracle
+SPLIT_TERMS = 3  # bf16 terms of a float32 in split_bf16x3
+SPLIT_SLAB = 64  # rows of a slab of one term in split_bf16x3's layout (the kernel's K slab)
+_CANONICAL_NAN = 0x7FC00000
 
 
 def _pow_mod(base: int, exp: int) -> int:
@@ -158,3 +161,45 @@ def matmul_digest_ref(a: torch.Tensor, b: torch.Tensor, bm: int = 128, bk: int =
     """Plain version of the fused kernel: (a @ b in float32, residues of blocked a)."""
     out = a.float() @ b.float()
     return out, fingerprint_array_ref(blocked_view(a, bm, bk))
+
+
+def split_rows(K: int) -> int:
+    """Rows of ``split_bf16x3`` of a K-row matrix: 3 * K rounded up to SPLIT_SLAB."""
+    return SPLIT_TERMS * (-(-K // SPLIT_SLAB) * SPLIT_SLAB)
+
+
+def _trunc16(x: torch.Tensor) -> torch.Tensor:
+    """Each float32 with its low 16 bits cleared (a truncation to bf16)."""
+    return (x.view(torch.int32) & -0x10000).view(torch.float32)
+
+
+def _hi16(x: torch.Tensor) -> torch.Tensor:
+    """The top 16 bits of each float32, as bf16 (little-endian: the odd halves)."""
+    return x.view(torch.int16).reshape(*x.shape, 2)[..., 1].contiguous().view(torch.bfloat16)
+
+
+def split_bf16x3(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split kernel: a float32 (K, N) as three bf16 terms.
+
+    By truncation: b1 = the top 16 bits of b, r1 = b - b1 (exact), b2 = the
+    top 16 bits of r1, b3 = the top 16 bits of r1 - b2. For |b| >= 2^-110,
+    b1 + b2 + b3 == b exactly; below, only bits under 2^-133 are dropped. An
+    inf gives (inf, 0, 0) and a NaN (canonical NaN, 0, 0). Returns
+    (``split_rows(K)``, N) bf16 interleaved by slabs of SPLIT_SLAB = 64 rows:
+    rows [192 s, 192 s + 64) hold b1's rows [64 s, 64 s + 64), the next 64
+    rows b2's, the next 64 b3's; rows past K are zero.
+    """
+    K, N = b.shape
+    b = b.contiguous()
+    finite = (b.view(torch.int32) & 0x7F800000) != 0x7F800000
+    b1 = _trunc16(b)
+    r1 = torch.where(finite, b - b1, torch.zeros_like(b))
+    r2 = r1 - _trunc16(r1)
+    nan = torch.tensor(_CANONICAL_NAN, dtype=torch.int32).view(torch.float32).to(b.device)
+    b1 = torch.where(torch.isnan(b), nan, b1)
+    kp = split_rows(K) // SPLIT_TERMS
+    out = torch.zeros((SPLIT_TERMS, kp, N), dtype=torch.bfloat16, device=b.device)
+    for t, term in enumerate((b1, r1, r2)):
+        out[t, :K] = _hi16(term)
+    out = out.reshape(SPLIT_TERMS, kp // SPLIT_SLAB, SPLIT_SLAB, N)
+    return out.permute(1, 0, 2, 3).reshape(-1, N)

@@ -6,8 +6,10 @@ Same seeded numpy inputs through ``repro.kernels.matmul_with_digest``
 version). Residues must be equal exactly, and equal to the host digest of A's
 blocked bytes. C must lie within K * 2^-24 * (|A| @ |B|) of the float64
 product: the worst case of a float32 sum of K exact products in any order.
-The CUDA kernel's digest arithmetic is emulated step for step in numpy; the
-kernel itself runs only on a card (tests marked ``gpu``). JAX and
+A float32 B goes to the card's tensor cores as three bf16 terms
+(``split_bf16x3``); the split, the three-term product and the CUDA kernel's
+digest arithmetic (for one term and for three) are checked on the CPU, the
+kernels themselves only on a card (tests marked ``gpu``). JAX and
 ``ml_dtypes`` are imported inside the tests that compare with them, so the
 card's machine, which has neither, can collect this file.
 """
@@ -166,8 +168,9 @@ def landed_slab(codes: np.ndarray, m: int, kt: int) -> np.ndarray:
     return logical[np.arange(bm)[:, None], phys]
 
 
-def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: int) -> tuple:
-    """The bf16 kernel's digest, step for step. Block b of the persistent
+def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: int,
+                         terms: int = 1) -> tuple:
+    """The kernel's digest, step for step. Block b of the persistent
     grid walks tiles b, b + grid, ...; tile (m, n) digests rows r of its
     row block with r % n_tiles == n. Digest thread dt takes logical chunk
     c = dt // 12 of the rows j = dt % 12, + 12, ... of the tile and reads it
@@ -177,7 +180,9 @@ def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: in
     factor at its end; a further row's chunk sum meets it at once. The
     total is reduced mod P at each tile's end. A block's partial is its 96
     totals summed by warp (mod P) and over the 3 warps (mod P); the
-    partials add mod P."""
+    partials add mod P. With ``terms`` = 3 (a float32 B, its three bf16
+    terms) each A slab lands in 3 consecutive stages and is digested in the
+    first only: stage kt holds A's slab kt // 3."""
     M, K = a.shape
     row_w, col_w = tmm._digest_factors(M, K, bm, bk)
     row_w = row_w.astype(np.uint64)
@@ -203,15 +208,16 @@ def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: in
             m, n = tile_coords(t, mt, nt)
             rows = (tmm.BLOCK_M - 1 - n) // nt + 1 if n < tmm.BLOCK_M else 0
             acc = np.zeros((threads, 4), np.uint64)
-            slabs = [landed_slab(codes, m, kt) for kt in range(-(-K // tmm.SLAB_K))]
+            a_slabs = [landed_slab(codes, m, ka) for ka in range(-(-K // tmm.SLAB_K))]
+            slabs = [a_slabs[kt // terms] for kt in range(len(a_slabs) * terms)]
             for dt in range(threads):
                 c, j0 = dt // per_chunk, dt % per_chunk
                 r0 = n + j0 * nt
                 if not (j0 < rows and m * tmm.BLOCK_M + r0 < M):
                     continue
                 for kt, slab in enumerate(slabs):
-                    col = kt * tmm.SLAB_K + 8 * c
-                    if col >= K:
+                    col = kt // terms * tmm.SLAB_K + 8 * c
+                    if kt % terms or col >= K:
                         continue
                     acc[dt] += chunk_sum(slab, r0, col, c)
                     for j in range(j0 + per_chunk, rows, per_chunk):
@@ -226,34 +232,6 @@ def emulate_wgmma_digest(a: torch.Tensor, n_cols: int, bm: int, bk: int, sms: in
         partials.append(per_warp.sum(axis=0) % P)
     assert len(partials) == grid
     return tuple(int(v) for v in np.sum(partials, axis=0) % P)
-
-
-def emulate_fma_digest(a: torch.Tensor, bm: int, bk: int):
-    """The f32-B FMA kernel's digest, step for step: thread (row, part) sums
-    lo*CW_lo + hi*CW_hi over its 4 columns of each 8-column slab of K in 32
-    bits, reduces mod P once a slab, weighs the row sum by RW, and the row
-    blocks' sums add mod P."""
-    M, K = a.shape
-    slab, per_thread = 8, 4
-    row_w, col_w = tmm._digest_factors(M, K, bm, bk)
-    codes = a.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
-    lo, hi = (codes & 255).astype(np.uint64), (codes >> 8).astype(np.uint64)
-    parts = slab // per_thread
-    acc = np.zeros((M, parts, 4), np.uint64)            # one 32-bit sum a thread
-    for k0 in range(0, K, slab):
-        for part in range(parts):
-            cs = np.arange(k0 + part * per_thread, k0 + (part + 1) * per_thread)
-            for b in range(4):
-                wl = col_w[cs, b].astype(np.uint64)
-                wh = col_w[cs, 4 + b].astype(np.uint64)
-                acc[:, part, b] += (lo[:, cs] * wl + hi[:, cs] * wh).sum(axis=1)
-        assert acc.max() < 2 ** 32
-        acc %= P
-    rows = acc * row_w.T.astype(np.uint64)[:, None, :] % P     # (M, parts, 4)
-    blocks = -(-M // tmm.FMA_BLOCK_M)
-    pad = np.zeros((blocks * tmm.FMA_BLOCK_M - M, parts, 4), np.uint64)
-    per_block = np.concatenate([rows, pad]).reshape(blocks, -1, 4).sum(axis=1) % P
-    return tuple(int(v) for v in per_block.sum(axis=0) % P)
 
 
 def with_neg_inf(a: torch.Tensor) -> torch.Tensor:
@@ -274,13 +252,127 @@ def test_cuda_digest_arithmetic_emulated(m, k, n, bm, bk, sms):
     assert want == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
 
 
-@pytest.mark.parametrize("m,k,bm,bk", [(256, 384, 128, 128), (192, 96, 64, 32),
-                                       (128, 40, 32, 8)])
-def test_fma_digest_arithmetic_emulated(m, k, bm, bk):
-    a = with_neg_inf(make((m, k), seed=m * k))
+@pytest.mark.parametrize("m,k,n,bm,bk", [(200, 72, 136, 8, 8), (136, 200, 520, 8, 40),
+                                         (264, 136, 3848, 8, 8)])
+@pytest.mark.parametrize("sms", [5, 132])
+def test_stacked_schedule_digest_emulated(m, k, n, bm, bk, sms):
+    """A float32 B's schedule (3 stages an A slab, the digest on the first)
+    gives the bf16 kernel's residues, the plain version's and the host's."""
+    a = with_neg_inf(make((m, k), seed=m * k + 1))
     want = residues(tref.matmul_digest_ref(a, make((k, 8), seed=1), bm, bk)[1])
-    assert emulate_fma_digest(a, bm, bk) == want
+    assert emulate_wgmma_digest(a, n, bm, bk, sms, terms=3) == want
+    assert emulate_wgmma_digest(a, n, bm, bk, sms) == want
     assert want == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+
+
+# ---------------------------------------------------------------------------
+# a float32 B as three bf16 terms (split_bf16x3), on the CPU
+# ---------------------------------------------------------------------------
+def f32_from_bits(bits) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(bits, dtype=np.uint32).view(np.float32).copy())
+
+
+def terms_of(b3: torch.Tensor, K: int) -> np.ndarray:
+    """(3, K, N) float64 terms back out of the slab-interleaved layout."""
+    N = b3.shape[1]
+    t = b3.double().reshape(-1, 3, tmm.SLAB_K, N).permute(1, 0, 2, 3).reshape(3, -1, N)
+    return t[:, :K].numpy()
+
+
+SPECIALS = [0x00000000, 0x80000000, 0x7F7FFFFF, 0xFF7FFFFF, 0x00800000, 0x80800000,
+            0x3F800000, 0x3F800001, 0x3FFFFFFF, 0x7F7F8000, 0x7F7F7FFF, 0x097FFFFF,
+            0x89000001, 0x0C7FFFFF, 0x1A3C5A7F]   # 0x097FFFFF: |b| < 2^-110 by an ulp
+
+
+@pytest.mark.parametrize("draw", ["specials", "random_bits", "wide_exponents"])
+def test_split_reconstructs_every_finite_float32(draw):
+    """b1 + b2 + b3 == b exactly, in float64, for every finite |b| >= 2^-110;
+    below, the error is under 2^-133 (bits under bf16's least subnormal)."""
+    rng = np.random.default_rng(7)
+    if draw == "specials":
+        bits = np.array(SPECIALS * 64, np.uint32)
+    elif draw == "random_bits":
+        bits = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    else:   # sign x 2^[-149, 127] x [1, 2)
+        x = rng.choice([-1.0, 1.0], 1 << 18) * np.exp2(rng.uniform(-149, 128, 1 << 18))
+        bits = x.astype(np.float32).view(np.uint32)
+    b = f32_from_bits(bits).reshape(-1, 64)
+    b = b[torch.isfinite(b).all(dim=1)]
+    terms = terms_of(tmm.split_bf16x3(b), b.shape[0])
+    b64 = b.double().numpy()
+    err = np.abs(terms.sum(axis=0) - b64)
+    big = np.abs(b64) >= 2.0 ** -110
+    assert big.any() and np.all(err[big] == 0)
+    assert np.all(err[~big] < 2.0 ** -133)
+    # each term is a truncation: same sign as b (or zero), shrinking by >= 2^8
+    assert np.all(terms * np.sign(b64) >= 0)
+    assert np.all(np.abs(terms[1]) <= np.abs(terms[0]) * 2.0 ** -7)
+    assert np.all(np.abs(terms[2]) <= np.abs(terms[1]) * 2.0 ** -7)
+
+
+@pytest.mark.parametrize("bits, first", [(0x7F800000, 0x7F80), (0xFF800000, 0xFF80),
+                                         (0x7FC00000, 0x7FC0), (0x7F800001, 0x7FC0),
+                                         (0xFFFFFFFF, 0x7FC0)])
+def test_split_maps_non_finite_to_its_first_term(bits, first):
+    """inf -> (inf, 0, 0); any NaN, one with its payload in its low 16 bits
+    too, -> (canonical NaN, 0, 0), never to an inf."""
+    b = f32_from_bits([bits, 0x3F800000] * 4).reshape(1, 8)
+    codes = tmm.split_bf16x3(b).view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    assert codes.shape == (3 * 64, 8)
+    assert np.all(codes[0, 0::2] == first) and np.all(codes[0, 1::2] == 0x3F80)
+    assert np.all(codes[1:] == 0)
+
+
+@pytest.mark.parametrize("k", [8, 72, 200])
+def test_split_layout_interleaves_slabs_and_zero_pads(k):
+    """Row 192 s + 64 t + r of the split holds term t of row 64 s + r of B;
+    rows past K are zero; split_rows(K) rows in all."""
+    n = 16
+    b = make((k, n), seed=k, dtype=torch.float32) * 1e3
+    b3 = tmm.split_bf16x3(b)
+    kp = -(-k // 64) * 64
+    assert tref.SPLIT_SLAB == tmm.SLAB_K
+    assert b3.shape == (tref.split_rows(k), n) == (3 * kp, n) and b3.dtype == torch.bfloat16
+    u = b.contiguous().view(torch.int32).numpy()
+    for row in range(k):
+        s, r = divmod(row, 64)
+        got = [b3[192 * s + 64 * t + r] for t in range(3)]
+        assert np.array_equal(got[0].view(torch.int16).numpy().astype(np.int32) & 0xFFFF,
+                              (u[row] >> 16) & 0xFFFF)
+        assert torch.equal(got[0].double() + got[1].double() + got[2].double(), b[row].double())
+    pad = [192 * (row // 64) + 64 * t + row % 64 for row in range(k, kp) for t in range(3)]
+    assert not b3[pad].view(torch.int16).any()
+
+
+def three_term_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The tensor cores' schedule on the CPU, in float32: for each 64-row slab
+    of K, A's slab times b1's, then b2's, then b3's slab, added into C."""
+    (M, K), N = a.shape, b.shape[1]
+    b3 = tmm.split_bf16x3(b).float().reshape(-1, 3, tmm.SLAB_K, N)
+    a_pad = torch.zeros((M, b3.shape[0] * tmm.SLAB_K))
+    a_pad[:, :K] = a.float()
+    c = torch.zeros((M, N))
+    for s in range(b3.shape[0]):
+        for t in range(3):
+            c += a_pad[:, s * tmm.SLAB_K:(s + 1) * tmm.SLAB_K] @ b3[s, t]
+    return c
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", CASES)
+def test_three_term_product_matches_jax_on_f32_b(m, k, n, bm, bk, bn):
+    """C from B's three bf16 terms, emulated in float32, and the JAX kernel's
+    C on the float32 B both lie within K * 2^-24 * (|A| @ |B|) of float64;
+    the residues equal the JAX kernel's and the host's."""
+    jnp, _, jk, _ = _jax()
+    a = make((m, k), seed=m + k)
+    b = make((k, n), seed=k + n + 1, dtype=torch.float32) * 3.0
+    c3 = three_term_product(a, b)
+    _, dig = tk.matmul_with_digest(a, b, bm=bm, bn=bn, bk=bk)
+    jc, jdig = jk.matmul_with_digest(jnp.asarray(to_numpy(a)), jnp.asarray(b.numpy()),
+                                     bm=bm, bn=bn, bk=bk)
+    assert residues(dig) == residues(jdig) == fingerprint_bytes(blocked_bytes(a, bm, bk)).h
+    assert_within_f32_bound(c3.numpy(), a, b)
+    assert_within_f32_bound(np.asarray(jc), a, b)
 
 
 # (mt, nt, SMs): grids smaller than, equal to and larger than the tile count
@@ -364,3 +456,58 @@ def test_cuda_kernel_refuses_ragged_rows(cuda_device):
     b = make((12, 128), seed=2).to(cuda_device)
     with pytest.raises(ValueError, match="K % 8"):
         tmm.matmul_digest(a, b, bk=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(200, 136), (64, 4096), (5120, 264)])
+def test_cuda_split_matches_plain_version(cuda_device, k, n):
+    """The split kernel bit for bit against split_bf16x3's plain version, on
+    random bit patterns (NaNs, infs and subnormals among them) and specials."""
+    rng = np.random.default_rng(k + n)
+    bits = rng.integers(0, 2 ** 32, k * n, dtype=np.uint64).astype(np.uint32)
+    bits[:len(SPECIALS)] = SPECIALS
+    bits[len(SPECIALS):len(SPECIALS) + 5] = [0x7F800000, 0xFF800000, 0x7FC00000, 0x7F800001,
+                                             0xFFFFFFFF]
+    b = f32_from_bits(bits).reshape(k, n)
+    got = tmm.split_bf16x3(b.to(cuda_device))
+    torch.cuda.synchronize()
+    want = tref.split_bf16x3(b)
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(-110, 100), (-110, -100)])
+def test_cuda_kernel_keeps_every_exponent(cuda_device, lo, hi):
+    """B's entries at 2^[lo, hi): C within K * 2^-24 * (|A| @ |B|) of
+    float64. At 2^[-110, -100) the third term and its products are
+    subnormal: the tensor cores must keep them."""
+    m, k, n = 256, 320, 264
+    rng = np.random.default_rng(hi - lo)
+    x = rng.choice([-1.0, 1.0], (k, n)) * np.exp2(rng.uniform(lo, hi, (k, n)))
+    b = torch.from_numpy(x.astype(np.float32))
+    a = make((m, k), seed=3)
+    c, dig = tmm.matmul_digest(a.to(cuda_device), b.to(cuda_device), bm=128, bn=8, bk=64)
+    torch.cuda.synchronize()
+    assert residues(dig.cpu()) == fingerprint_bytes(blocked_bytes(a, 128, 64)).h
+    assert_within_f32_bound(c.cpu().numpy(), a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_with_non_finite_b(cuda_device):
+    """±inf and NaN in B: C is non-finite exactly where the plain float32
+    product is, and within K * 2^-24 * (|A| @ |B|) of float64 elsewhere."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = 256, 200, 136
+    a, b = make((m, k), seed=11), make((k, n), seed=12, dtype=torch.float32)
+    b[3, 5], b[70, 5], b[150, 40] = float("inf"), float("-inf"), float("inf")
+    b[9, 100] = float("nan")
+    b[[120, 121], 17] = f32_from_bits([0x7F800001, 0xFFC0FFFF])    # NaN payloads
+    c, _ = tmm.matmul_digest(a.to(cuda_device), b.to(cuda_device), bm=8, bn=8, bk=8)
+    want, _ = tref.matmul_digest_ref(a.to(cuda_device), b.to(cuda_device), 8, 8)
+    c, want = c.cpu(), want.cpu()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(c), finite)
+    assert not finite[:, [5, 40, 100, 17]].any() and finite[:, 0].all()
+    fin = finite.all(dim=0)
+    assert_within_f32_bound(c[:, fin].numpy(), a, b[:, fin])

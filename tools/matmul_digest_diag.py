@@ -50,7 +50,7 @@ vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 libs = {}
 for k in variants:
     lib = ctypes.CDLL(str(root / k / "lib.so"))
-    lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, ll, ll, ll, vp, vp, vp, vp, vp, ci, vp]
+    lib.mm_digest.argtypes = [ci, vp, vp, ci, vp, vp, ll, ll, ll, vp, vp, vp, vp, ci, vp]
     lib.mm_product.argtypes = [ci, vp, vp, vp, ll, ll, ll, ci, vp]
     libs[k] = lib
 dev = torch.device("cuda", 0)
@@ -58,14 +58,14 @@ gen = torch.Generator(device=dev); gen.manual_seed(5)
 M, K, N = 14336, 5120, 4096
 A = (torch.randn(M, K, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
 B = torch.randn(K, N, generator=gen, device=dev).to(torch.bfloat16)
-row_w, col_w, col_w16 = mm._factors_on(M, K, 128, 128, dev)
+row_w, col_w16 = mm._factors_on(M, K, 128, 128, dev)
 sms = torch.cuda.get_device_properties(dev).multi_processor_count
 C = torch.empty(M, N, device=dev); part = torch.empty(sms, 4, dtype=torch.int32, device=dev)
 out = torch.empty(4, dtype=torch.int32, device=dev)
 stream = torch.cuda.current_stream().cuda_stream
 def fused(lib):
-    assert lib.mm_digest(0, A.data_ptr(), B.data_ptr(), 0, C.data_ptr(), M, N, K,
-                         row_w.data_ptr(), col_w.data_ptr(), col_w16.data_ptr(),
+    assert lib.mm_digest(0, A.data_ptr(), B.data_ptr(), 0, None, C.data_ptr(), M, N, K,
+                         row_w.data_ptr(), col_w16.data_ptr(),
                          part.data_ptr(), out.data_ptr(), sms, stream) == 0
 def prod(lib):
     assert lib.mm_product(0, A.data_ptr(), B.data_ptr(), C.data_ptr(), M, N, K, sms, stream) == 0
